@@ -26,13 +26,35 @@ outside the repository.  Phases:
    argmin over the slice;
 6. times at geometry A with CUDA events, warmed up, over many launches:
    each kernel beside its bound (bytes at 3.35 TB/s), its plain version
-   and a one-call PyTorch yardstick where one exists.
+   and a one-call PyTorch yardstick where one exists;
+7. mutation at geometry A: one batch of 2^16 random indices with
+   duplicates through ``RMQ.update`` on the ``cuda`` and the ``fused``
+   index (``hierarchy_update``, three launches each), held against the
+   plain ``update_hierarchy`` on the card, sampled spans of the successor
+   against torch.min, the predecessor against its own data;
+8. the query engine at geometry A over 2^20 "mixed" spans (short buckets
+   to ``rmq_short``, mid to ``rmq_scan``, long to the hybrid top), a
+   fused engine's ``query_mixed`` (one ``rmq_fused`` launch per bucket)
+   and ``query_bulk`` over the 2^24 batch with ``bulk_crossover=2**20``
+   (``rmq_bulk``, one launch per bucket of 2^20); every answer against
+   the facade on the same index, then ``attach`` of the updated index and
+   the same spans against a rebuild.  The engines run with
+   ``cache_size=0``: at 2^20 distinct spans the LRU only adds host time
+   (the CPU tests cover it);
+9. ``StreamingRMQ.append`` of 777 values, ``retire(1024)`` and a query
+   batch at geometries B and D, against the plain path and a rebuild;
+10. times of the three kernels of phases 7-9 at geometry A beside their
+   bounds, their plain versions and the comparison each exists for
+   (``rmq_fused`` on the same spans; for ``hierarchy_update`` the
+   ``index_select`` + ``torch.min`` pair at level 1), and the whole
+   ``RMQ.update`` call with and without the successor's copy.
 
-The output ends with one ``{"kernels": [...]}`` line (per kernel: its
-launches on geometry A's main path, its largest difference from the
-plain version over all geometries, its times and bound) and, last,
-``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero
-before those lines.
+Each phase sets every launch counter to 0 just before it drives its
+path and reads them just after.  The output ends with one
+``{"kernels": [...]}`` line (per kernel: its launches on its phase's
+path, its largest difference from the plain version over all
+geometries, its times and bound) and, last, ``{"ok": true, "device":
+{...}}``.  Any failed phase exits non-zero before those lines.
 """
 
 from __future__ import annotations
@@ -62,6 +84,15 @@ KERNELS = {
     "rmq_scan": dict(
         source="src/repro_torch/csrc/rmq_scan.cu",
         replaces="src/repro/kernels/rmq_scan/kernel.py:223"),
+    "hierarchy_update": dict(
+        source="src/repro_torch/csrc/hierarchy_update.cu",
+        replaces="src/repro/kernels/hierarchy_update/kernel.py:68"),
+    "rmq_short": dict(
+        source="src/repro_torch/csrc/rmq_short.cu",
+        replaces="src/repro/kernels/rmq_short/kernel.py:112"),
+    "rmq_bulk": dict(
+        source="src/repro_torch/csrc/rmq_bulk.cu",
+        replaces="src/repro/kernels/rmq_bulk/kernel.py:189"),
 }
 
 
@@ -128,6 +159,14 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def wall(torch, fn):
+    """``(fn(), seconds)`` on the host clock, to the end of device work."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def max_abs_err(torch, pairs) -> float:
     """Largest |got - want| over (got, want) pairs; equal infinities and
     equal positions count 0, a shape or dtype mismatch is infinite."""
@@ -163,6 +202,23 @@ def level0_bytes(torch, ls, rs, c: int, itemsize: int) -> int:
     both = sectors(lo, a_hi) + sectors(b_lo, hi)
     union = sectors(torch.minimum(lo, b_lo), torch.maximum(a_hi, hi))
     return int(torch.where(one, union, both).sum()) * SECTOR
+
+
+def span_bytes(torch, ls, rs, itemsize: int) -> int:
+    """Device-memory bytes of the 32-byte sectors of each span [l, r]."""
+    lo = ls.long() * itemsize // SECTOR
+    hi = (rs.long() * itemsize + itemsize + SECTOR - 1) // SECTOR
+    return int((hi - lo).sum()) * SECTOR
+
+
+def partial_chunks(torch, ls, rs, c: int):
+    """Level-0 chunk ids of each span's nonempty partial parts (the walk's
+    left part [l, ceil(l/c)*c) and right part [floor(r/c)*c, r])."""
+    lo = ls.long()
+    hi = rs.long() + 1
+    a_hi = torch.minimum(-((-lo) // c) * c, hi)
+    b_lo = torch.maximum((hi // c) * c, a_hi)
+    return torch.cat([(lo // c)[a_hi > lo], (hi // c)[hi > b_lo]])
 
 
 def bound_ms(bytes_moved: float, ops: float):
@@ -211,11 +267,37 @@ def build_kernels() -> float:
 def counters():
     from repro_torch.kernels.hierarchy_build import ops as build_ops
     from repro_torch.kernels.hierarchy_fused import ops as fused_ops
+    from repro_torch.kernels.hierarchy_update import ops as upd_ops
+    from repro_torch.kernels.rmq_bulk import ops as bulk_ops
     from repro_torch.kernels.rmq_fused import ops as qfused_ops
     from repro_torch.kernels.rmq_scan import ops as scan_ops
+    from repro_torch.kernels.rmq_short import ops as short_ops
 
-    return {k.name: k for k in (fused_ops.LAUNCHES, qfused_ops.LAUNCHES,
-                                build_ops.LAUNCHES, scan_ops.LAUNCHES)}
+    return {k.name: k for k in (
+        fused_ops.LAUNCHES, qfused_ops.LAUNCHES, build_ops.LAUNCHES,
+        scan_ops.LAUNCHES, upd_ops.LAUNCHES, short_ops.LAUNCHES,
+        bulk_ops.LAUNCHES)}
+
+
+def zero_counts():
+    """Set every launch counter to 0; returns them for :func:`read`."""
+    count = counters()
+    for k in count.values():
+        k.reset()
+    return count
+
+
+def read(torch, count):
+    torch.cuda.synchronize()
+    return {k: c.launches for k, c in count.items()}
+
+
+def expect(name, launches, **want):
+    """The phase launched exactly ``want`` (every other kernel 0 times)."""
+    require(set(want) <= set(launches), f"{name}: unknown kernels {want}")
+    full = {k: want.get(k, 0) for k in launches}
+    require(launches == full,
+            f"{name}: launches {launches}, the contract says {full}")
 
 
 def drive(torch, name, x, ls, rs, plan, with_positions, seed):
@@ -224,9 +306,7 @@ def drive(torch, name, x, ls, rs, plan, with_positions, seed):
     from repro_torch.core import RMQ, build_hierarchy, rmq_walk_batch
     from repro_torch.kernels.rmq_fused.ops import rmq_fused_batch
 
-    count = counters()
-    for k in count.values():
-        k.reset()
+    count = zero_counts()
     rf = RMQ.build(x, with_positions=with_positions, backend="fused",
                    plan=plan, device="cuda")
     rc = RMQ.build(x, with_positions=with_positions, backend="cuda",
@@ -237,18 +317,14 @@ def drive(torch, name, x, ls, rs, plan, with_positions, seed):
         out["cuda_p"] = rc.query_index(ls, rs)
         out["both_v"], out["both_p"] = rmq_fused_batch(
             rf.hierarchy, ls, rs, track_pos=True)
-    torch.cuda.synchronize()
-    launches = {k: c.launches for k, c in count.items()}
+    launches = read(torch, count)
 
     levels = plan.num_levels
-    want = {
-        "hierarchy_fused": 1 if levels > 1 else 0,
-        "hierarchy_build": levels - 1,
-        "rmq_fused": 3 if with_positions else 1,
-        "rmq_scan": 2 if with_positions else 1,
-    }
-    require(launches == want,
-            f"{name}: launches {launches}, the contract says {want}")
+    expect(name, launches,
+           hierarchy_fused=1 if levels > 1 else 0,
+           hierarchy_build=levels - 1,
+           rmq_fused=3 if with_positions else 1,
+           rmq_scan=2 if with_positions else 1)
 
     hp = build_hierarchy(x, plan, with_positions=with_positions)
     wv, wp = rmq_walk_batch(hp, ls, rs, track_pos=with_positions)
@@ -280,7 +356,8 @@ def drive(torch, name, x, ls, rs, plan, with_positions, seed):
     brute_force_check(torch, x, ls, rs, wv, wp, 256, seed, plan.n)
     print(f"{name}: levels {plan.level_lens}, launches {launches}, "
           f"max_abs_err {err}, brute force 256/256 ok")
-    return {"launches": launches, "err": err, "rf": rf, "rc": rc, "hp": hp}
+    return {"launches": launches, "err": err, "rf": rf, "rc": rc, "hp": hp,
+            "wv": wv, "wp": wp}
 
 
 def geometry(torch, n, m, seed, dtype="float32", capacity=None):
@@ -293,6 +370,319 @@ def geometry(torch, n, m, seed, dtype="float32", capacity=None):
     ls = torch.from_numpy(ls).cuda()
     rs = torch.from_numpy(rs).cuda()
     return x, ls, rs, time.perf_counter() - t0
+
+
+def update_phase(torch, x, plan, rf, rc, seed):
+    """Phase 7: one update batch through the facade on both indexes."""
+    import numpy as np
+
+    from repro_torch.streaming import updates as U
+
+    rng = np.random.default_rng(seed + 2)
+    n, levels = plan.n, plan.num_levels
+    idxs = rng.integers(0, n, 1 << 16)
+    idxs[:4096] = idxs[4096:8192]  # duplicates: the last one wins
+    vals = (rng.random(1 << 16) - 0.5).astype(np.float32)
+    idxs = torch.from_numpy(idxs).cuda()
+    vals = torch.from_numpy(vals).cuda()
+
+    count = zero_counts()
+    rc2 = rc.update(idxs, vals)
+    rf2 = rf.update(idxs, vals)
+    launches = read(torch, count)
+    expect("A update", launches, hierarchy_update=2 * (levels - 1))
+
+    want = U.update_hierarchy(rc.hierarchy, idxs, vals)  # plain, on card
+    pairs = []
+    for r in (rc2, rf2):
+        pairs += [(r.hierarchy.base, want.base), (r.hierarchy.upper,
+                                                  want.upper),
+                  (r.hierarchy.upper_pos, want.upper_pos)]
+    err = max_abs_err(torch, pairs)
+    require(err == 0.0, f"A update: kernel and plain disagree ({err})")
+    require(rc2.generation == rf2.generation == 1, "A update: generation")
+    require(torch.equal(rc.hierarchy.base, x),
+            "A update: the predecessor's level 0 changed")
+    from repro_torch.tune.measure import make_queries
+
+    ql, qr = (torch.from_numpy(a).cuda() for a in
+              make_queries(n, 4096, "mixed", seed=seed + 5))
+    brute_force_check(torch, want.base, ql, qr, rf2.query(ql, qr),
+                      rf2.query_index(ql, qr), 256, seed, n)
+    brute_force_check(torch, x, ql, qr, rc.query(ql, qr),
+                      rc.query_index(ql, qr), 256, seed, n)
+    print(f"A update: 2^16 indices, launches {launches}, max_abs_err "
+          f"{err}, successor and predecessor brute force 256/256 ok")
+    return {"launches": launches, "err": err, "rc2": rc2, "want": want,
+            "idxs": idxs, "vals": vals}
+
+
+def time_update(torch, plan, rc, up):
+    """Phase 10 for hierarchy_update: the three launches alone, the plain
+    re-reduction, the level-1 index_select + torch.min pair, and the
+    whole RMQ.update call with and without the successor copy."""
+    from repro_torch.kernels.hierarchy_update import ops as upd_ops
+    from repro_torch.streaming import updates as U
+
+    c = plan.c
+    want = up["want"]
+    base = want.base
+    upper, upos = want.upper.clone(), want.upper_pos.clone()
+    ids = up["idxs"].long() // c
+    level_ids = []
+    for level in range(1, plan.num_levels):
+        ids = U.touched_chunk_ids(ids, plan.level_lens[level])
+        level_ids.append(ids.to(torch.int32))
+        ids = ids // c
+    sources = [U.level_source(plan, base, upper, upos, k)
+               for k in range(1, plan.num_levels)]
+    outs = [(upper[o:o + p], upos[o:o + p])
+            for o, p in zip(plan.offsets, plan.padded_lens)]
+
+    def kernels():
+        for (sv, sp), lid, (ov, op) in zip(sources, level_ids, outs):
+            upd_ops.update_level_cuda(sv, sp, lid, c, ov, op)
+
+    def plain():
+        for k, lid in enumerate(level_ids, 1):
+            U.repair_plain(plan, base, upper, upos, k, lid.long())
+
+    h = rc.hierarchy
+    idxs, vals = up["idxs"], up["vals"]
+    ms = time_ms(torch, kernels, 20)
+    out = {
+        "ms": ms,
+        "plain_ms": time_ms(torch, plain, 5),
+        "library_ms": time_ms(torch, lambda: torch.min(
+            base.view(-1, c).index_select(0, level_ids[0]), dim=1), 20),
+        "call_ms": time_ms(torch, lambda: rc.update(idxs, vals), 5),
+        "copy_ms": time_ms(torch, lambda: (h.base.clone(), h.upper.clone(),
+                                           h.upper_pos.clone()), 5),
+    }
+    item = base.element_size()
+    moved = 0
+    for k, lid in enumerate(level_ids, 1):
+        per = item + (4 if k > 1 else 0)  # level 1 synthesizes positions
+        moved += lid.numel() * (c * per + item + 4 + 4)
+    out["bound"] = bound_ms(moved, sum(lid.numel() * c
+                                       for lid in level_ids))
+    # the whole call's floor: the successor's planes read and written once
+    planes = sum(t.numel() * t.element_size()
+                 for t in (h.base, h.upper, h.upper_pos))
+    out["call_bound"] = bound_ms(2 * planes + moved, 0)
+    out["touched"] = [lid.numel() for lid in level_ids]
+    return out
+
+
+def engine_phase(torch, plan, rf, rc, rc2, ls, rs, wv, wp, seed):
+    """Phase 8: the engine on the cuda index, the fused index's
+    query_mixed and query_bulk, then attach of the updated index."""
+    import numpy as np
+
+    from repro_torch.core import RMQ
+    from repro_torch.kernels.rmq_short import ops as short_ops
+    from repro_torch.qe import FUSED, MID, SHORT
+    from repro_torch.tune.measure import make_span_queries
+
+    n, c = plan.n, plan.c
+    m = 1 << 20
+    el, er = make_span_queries(n, m, c, "mixed", seed=seed + 3)
+    elt, ert = torch.from_numpy(el).cuda(), torch.from_numpy(er).cuda()
+    err = {"rmq_short": 0.0, "rmq_scan": 0.0, "rmq_fused": 0.0,
+           "rmq_bulk": 0.0}
+    launches = {}
+
+    def buckets(k):
+        return -(-k // 4096)
+
+    # -- routed engine on the cuda index -----------------------------------
+    ec = rc.engine(cache_size=0)
+    count = zero_counts()
+    walls = {}
+    v, walls["engine.query"] = wall(torch, lambda: ec.query(el, er))
+    p, walls["engine.query_index"] = wall(
+        torch, lambda: ec.query_index(el, er))
+    got = read(torch, count)
+    cls = {k: c_ // 2 for k, c_ in ec.stats()["class_counts"].items()}
+    expect("A engine (cuda)", got, rmq_short=2 * buckets(cls[SHORT]),
+           rmq_scan=2 * buckets(cls[MID]))
+    require(cls[SHORT] > 0 and cls[MID] > 0 and cls["long"] > 0,
+            f"A engine (cuda): a span class is empty: {cls}")
+    launches["rmq_short"] = got["rmq_short"]
+    labels = ec.planner.classify(el, er)
+    fv, fp = rc.query(elt, ert), rc.query_index(elt, ert)
+    for key, mask in (("rmq_short", labels == SHORT),
+                      ("rmq_scan", labels != SHORT)):
+        mt = torch.from_numpy(mask).cuda()
+        err[key] = max(err[key], max_abs_err(
+            torch, [(v[mt], fv[mt]), (p[mt], fp[mt])]))
+    short = torch.from_numpy(labels == SHORT).cuda()
+    sl, sr = elt[short], ert[short]
+    kv, kp = short_ops.rmq_short_batch(rc.hierarchy, sl, sr, True)
+    pv, pp = short_ops.rmq_short_batch_plain(rc.hierarchy.base, sl, sr, c,
+                                             plan.capacity, True)
+    err["rmq_short"] = max(err["rmq_short"], max_abs_err(
+        torch, [(kv, pv), (kp, pp.to(kp.dtype))]))
+    brute_force_check(torch, rc.hierarchy.base, elt, ert, v, p, 256, seed, n)
+
+    # -- fused engine: value + index rows from one launch per bucket -------
+    ef = rf.engine(cache_size=0)
+    is_index = np.random.default_rng(seed + 4).random(el.shape[0]) < 0.5
+    count = zero_counts()
+    (mv, mp), walls["fused engine.query_mixed"] = wall(
+        torch, lambda: ef.query_mixed(el, er, is_index))
+    got = read(torch, count)
+    expect("A engine (fused, mixed)", got,
+           rmq_fused=buckets(ef.stats()["class_counts"][FUSED]))
+    launches["rmq_fused_mixed"] = got["rmq_fused"]
+    ii = torch.from_numpy(is_index).cuda()
+    err["rmq_fused"] = max_abs_err(torch, [(mv[~ii], fv[~ii]),
+                                           (mp[ii], fp[ii])])
+
+    # -- bulk: 2^24 spans, one rmq_bulk launch per 2^20 bucket -------------
+    eb = rf.engine(cache_size=0, bulk_crossover=m)
+    count = zero_counts()
+    bv, walls["engine.query_bulk 2^24"] = wall(
+        torch, lambda: eb.query_bulk(ls, rs))
+    bp, walls["engine.query_bulk 2^24 index"] = wall(
+        torch, lambda: eb.query_bulk(ls, rs, "index"))
+    got = read(torch, count)
+    per_op = -(-ls.numel() // eb._bulk.max_bucket)
+    expect("A engine (bulk)", got, rmq_bulk=2 * per_op)
+    launches["rmq_bulk"] = got["rmq_bulk"]
+    err["rmq_bulk"] = max_abs_err(torch, [(bv, wv), (bp, wp)])
+
+    # -- attach the updated index: no answer of the old generation ---------
+    ec.attach(rc2)
+    count = zero_counts()
+    v2, p2 = ec.query(el, er), ec.query_index(el, er)
+    got = read(torch, count)
+    expect("A engine after attach", got, rmq_short=2 * buckets(cls[SHORT]),
+           rmq_scan=2 * buckets(cls[MID]))
+    rb = RMQ.build(rc2.hierarchy.base.clone(), with_positions=True,
+                   backend="cuda", plan=plan, device=rc2.device)
+    rebuild = max_abs_err(torch, [(v2, rb.query(elt, ert)),
+                                  (p2, rb.query_index(elt, ert))])
+    require(rebuild == 0.0, f"A engine after attach: {rebuild} from a "
+            "rebuild of the updated array")
+    require(not torch.equal(v2, v), "A engine after attach: the update "
+            "changed no answer")
+    require(all(e == 0.0 for e in err.values()),
+            f"A engine: kernels disagree with their plain versions: {err}")
+    print(f"A engine: 2^20 mixed spans, classes {cls}, launches "
+          f"{launches}, max_abs_err {err}; after attach equal to a "
+          "rebuild; brute force 256/256 ok")
+    print(f"A engine wall times (s, host clock to the end of device work, "
+          f"cache_size=0): {json.dumps(walls)}")
+    return {"launches": launches, "err": err, "short": (sl, sr)}
+
+
+def time_queries(torch, plan, h, ls, rs, short, seed):
+    """Phase 10 for rmq_short (the engine's short spans) and rmq_bulk (the
+    2^24 batch, sorted as the bulk executor sorts it)."""
+    from repro_torch.core import rmq_walk_batch
+    from repro_torch.kernels.rmq_fused.ops import rmq_fused_batch
+    from repro_torch.kernels.rmq_short import ops as short_ops
+
+    c, item = plan.c, h.base.element_size()
+    per_query = 8 + item + 4  # bounds in, value and position out
+    sl, sr = short
+    t_short = {
+        "ms": time_ms(torch, lambda: short_ops.rmq_short_batch(
+            h, sl, sr, True), 20),
+        "plain_ms": time_ms(torch, lambda: short_ops.rmq_short_batch_plain(
+            h.base, sl, sr, c, plan.capacity, True), 3, warmup=1),
+        "fused_ms": time_ms(torch, lambda: rmq_fused_batch(h, sl, sr, True),
+                            20),
+        "queries": sl.numel(),
+    }
+    moved = span_bytes(torch, sl, sr, item) + sl.numel() * per_query
+    t_short["bound"] = bound_ms(moved, moved / item)
+
+    pair, bl, br = sorted_pair(torch, plan, h, ls, rs)
+    chunks = torch.unique(partial_chunks(torch, bl, br, c)).numel()
+    t_bulk = {
+        "ms": pair["rmq_bulk"],
+        "plain_ms": time_ms(torch, lambda: rmq_walk_batch(h, bl, br, True),
+                            1, warmup=1),
+        "fused_ms": pair["rmq_fused"],
+        "chunks": chunks,
+    }
+    moved = chunks * c * item + bl.numel() * per_query
+    t_bulk["bound"] = bound_ms(moved, moved / item)
+    return t_short, t_bulk
+
+
+def sorted_pair(torch, plan, h, ls, rs):
+    """rmq_bulk in 2^20 buckets and rmq_fused in one launch, both on the
+    batch sorted as the bulk executor sorts it (CUDA events)."""
+    from repro_torch.kernels.rmq_bulk import ops as bulk_ops
+    from repro_torch.kernels.rmq_fused.ops import rmq_fused_batch
+
+    c = plan.c
+    rows = -(-plan.capacity // c)
+    order = torch.sort((ls.long() // c) * rows + rs.long() // c,
+                       stable=True)[1]
+    bl, br = ls[order].contiguous(), rs[order].contiguous()
+    step = 1 << 20
+
+    def bulk():
+        for s in range(0, bl.numel(), step):
+            bulk_ops.rmq_bulk_batch(h, bl[s:s + step], br[s:s + step], True)
+
+    return {"rmq_bulk": time_ms(torch, bulk, 10),
+            "rmq_fused": time_ms(torch, lambda: rmq_fused_batch(
+                h, bl, br, True), 10)}, bl, br
+
+
+def stream_phase(torch, name, x, plan, seed):
+    """Phase 9: append 777 values, retire 1024, query the live window."""
+    import numpy as np
+
+    from repro_torch.core import build_hierarchy, make_plan, rmq_walk_batch
+    from repro_torch.streaming import StreamingRMQ
+    from repro_torch.streaming import updates as U
+    from repro_torch.tune.measure import make_queries
+
+    n, levels = plan.n, plan.num_levels
+    s = StreamingRMQ.from_array(x, with_positions=True, backend="cuda",
+                                plan=plan, device=x.device)
+    rng = np.random.default_rng(seed + 6)
+    tail = torch.from_numpy(rng.random(777).astype(
+        np.dtype(str(x.dtype).replace("torch.", ""))) - 0.5).cuda()
+    live = n + 777 - 1024
+    ql, qr = (torch.from_numpy(a.astype(np.int64) + 1024).cuda()
+              for a in make_queries(live, 1 << 16, "mixed", seed=seed + 7))
+    count = zero_counts()
+    s3 = s.append(tail).retire(1024)
+    qv, qp = s3.query(ql, qr), s3.query_index(ql, qr)
+    launches = read(torch, count)
+    expect(f"{name} append/retire", launches,
+           hierarchy_update=2 * (levels - 1), rmq_scan=2)
+    require((s3.start, s3.length, s3.generation) == (1024, n + 777, 2),
+            f"{name} append/retire: window {s3.start}..{s3.length}")
+
+    want = U.append_hierarchy(s.hierarchy, tail, n)
+    retired = torch.arange(1024, device=x.device)
+    want = U.update_hierarchy(want, retired, torch.full(
+        (1024,), float("inf"), dtype=x.dtype, device=x.device))
+    fresh = build_hierarchy(want.base[:n + 777].clone(), make_plan(
+        n + 777, c=plan.c, t=plan.t, capacity=plan.capacity), True)
+    wv, wp = rmq_walk_batch(want, ql, qr, True)
+    h = s3.hierarchy
+    err_u = max_abs_err(torch, [(h.base, want.base), (h.upper, want.upper),
+                                (h.upper_pos, want.upper_pos),
+                                (h.upper, fresh.upper),
+                                (h.upper_pos, fresh.upper_pos)])
+    err_q = max_abs_err(torch, [(qv, wv), (qp, wp.to(qp.dtype))])
+    require(err_u == 0.0 and err_q == 0.0,
+            f"{name} append/retire: update {err_u}, queries {err_q}")
+    brute_force_check(torch, want.base, ql, qr, qv, qp, 256, seed, n + 777)
+    print(f"{name} append/retire: levels {plan.level_lens}, launches "
+          f"{launches}, max_abs_err {err_u} (hierarchy, also against a "
+          f"rebuild) {err_q} (queries), brute force 256/256 ok")
+    return {"launches": launches,
+            "err": {"hierarchy_update": err_u, "rmq_scan": err_q}}
 
 
 def run(torch, seed: int):
@@ -320,8 +710,8 @@ def run(torch, seed: int):
     a = drive(torch, "A", x, ls, rs, plan, True, seed)
     main_launches = a["launches"]
     errors = dict(a["err"])
-    h = a["rf"].hierarchy
-    hp = a["hp"]
+    rf, rc, hp, wv, wp = a["rf"], a["rc"], a["hp"], a["wv"], a["wp"]
+    h = rf.hierarchy
     del a
 
     ms = {
@@ -378,7 +768,35 @@ def run(torch, seed: int):
         q = ms["rmq_fused" if key == "fused" else "rmq_scan"]
         print(f"A backend {key}: build {b} ms, value+index "
               f"{q * 1e6 / m} ns/query")
-    del h, hp, x, ls, rs
+    # -- geometry A: mutation, the engine, and their kernels' times -------
+    up = update_phase(torch, x, plan, rf, rc, seed)
+    main_launches["hierarchy_update"] = up["launches"]["hierarchy_update"]
+    errors["hierarchy_update"] = up["err"]
+    eng = engine_phase(torch, plan, rf, rc, up["rc2"], ls, rs, wv, wp, seed)
+    main_launches["rmq_short"] = eng["launches"]["rmq_short"]
+    main_launches["rmq_bulk"] = eng["launches"]["rmq_bulk"]
+    for key, e in eng["err"].items():
+        errors[key] = max(errors.get(key, 0.0), e)
+    t_up = time_update(torch, plan, rc, up)
+    t_short, t_bulk = time_queries(torch, plan, rc.hierarchy, ls, rs,
+                                   eng["short"], seed)
+    for key, tm in (("hierarchy_update", t_up), ("rmq_short", t_short),
+                    ("rmq_bulk", t_bulk)):
+        ms[key] = tm["ms"]
+        plain[key] = tm["plain_ms"]
+        bounds[key] = tm["bound"]
+    library["hierarchy_update"] = t_up["library_ms"]
+    library["rmq_short"] = library["rmq_bulk"] = None
+    print(f"A hierarchy_update (ms): {json.dumps(t_up)}; touched chunks "
+          "per level as listed; call_ms is the whole RMQ.update, copy_ms "
+          "the successor's three clones alone")
+    print(f"A rmq_short (ms, {t_short['queries']} short spans, value + "
+          f"index): {json.dumps(t_short)}")
+    print(f"A rmq_bulk (ms, 2^24 sorted spans in 2^20 buckets, value + "
+          f"index; distinct level-0 chunks {t_bulk['chunks']}): "
+          f"{json.dumps(t_bulk)}; rmq_fused on the unsorted batch "
+          f"{ms['rmq_fused']}")
+    del h, hp, x, ls, rs, rf, rc, wv, wp, up, eng
     torch.cuda.empty_cache()
 
     # -- geometries B..E ---------------------------------------------------
@@ -407,8 +825,17 @@ def run(torch, seed: int):
                          10)
             print(f"B: fused value+index {tb * 1e6 / data['m']} ns/query "
                   f"(top of {plan_g.top_len} entries staged)")
+            pair = sorted_pair(torch, plan_g, hb, ls, rs)[0]
+            print(f"B bulk vs fused on the same sorted batch (ms, value + "
+                  f"index, {data['m'] * plan_g.c / plan_g.capacity} spans "
+                  f"per level-0 chunk): {json.dumps(pair)}")
             del hb
-        del r, x, ls, rs
+        del r
+        if name in ("B", "D"):
+            st = stream_phase(torch, name, x, plan_g, seed)
+            for key, e in st["err"].items():
+                errors[key] = max(errors[key], e)
+        del x, ls, rs
         torch.cuda.empty_cache()
 
     out = []

@@ -9,8 +9,10 @@ per level and per output plane), ``"eager"`` (plain PyTorch), or
 ``"auto"`` (``"cuda"`` on a card, ``"eager"`` on the CPU).  Every
 backend gives bit-identical hierarchies and answers.
 
-Not ported yet: ``update`` / ``append`` (ROADMAP A4), ``engine`` (A6) and
-``build_out_of_core`` (A3).
+``update`` / ``append`` return a successor index with ``generation + 1``
+(the predecessor keeps its own buffers and answers as before);
+``engine()`` puts the span-routed :class:`repro_torch.qe.QueryEngine`
+on top.  Not ported yet: ``build_out_of_core`` (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -40,12 +42,15 @@ def resolve_device(device) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class RMQ:
-    """A built range-minimum index (paper §4)."""
+    """A built range-minimum index (paper §4) with incremental updates."""
 
     hierarchy: Hierarchy
     backend: str
     # Live length; None means "the build length" (plan.n).
     length: Optional[int] = None
+    # Monotonic mutation counter: every update / append returns a
+    # successor with generation + 1; the engine's cache keys on it.
+    generation: int = 0
 
     @staticmethod
     def build(
@@ -72,6 +77,29 @@ class RMQ:
             x, plan, with_positions=with_positions, backend=backend)
         return RMQ(hierarchy=h, backend=backend, length=plan.n)
 
+    # -- incremental maintenance ------------------------------------------
+    def update(self, idxs, vals) -> "RMQ":
+        """Batched point updates ``a[idxs] = vals`` (last wins on dups),
+        one chunk re-reduction per level per distinct index."""
+        idxs, vals = px.validate_update_batch(idxs, vals, n=self.n)
+        if idxs.shape[0] == 0:
+            return self
+        h = px.dispatch_update(self.hierarchy, idxs, vals, self.backend)
+        return dataclasses.replace(
+            self, hierarchy=h, generation=self.generation + 1)
+
+    def append(self, vals) -> "RMQ":
+        """Grow the array with ``vals`` inside the reserved capacity."""
+        vals = px.validate_append_batch(
+            vals, length=self.n, capacity=self.plan.capacity)
+        b = int(vals.shape[0])
+        if b == 0:
+            return self
+        h = px.dispatch_append(self.hierarchy, vals, self.n, self.backend)
+        return dataclasses.replace(
+            self, hierarchy=h, length=self.n + b,
+            generation=self.generation + 1)
+
     # -- queries ----------------------------------------------------------
     def _bounds(self, ls, rs):
         ls, rs = check_query_args(ls, rs, self.n, device=self.device)
@@ -96,10 +124,16 @@ class RMQ:
     query_value_batch = query
     query_index_batch = query_index
 
+    # -- adaptive batched engine --------------------------------------------
+    def engine(self, **kwargs):
+        """A span-routed :class:`repro_torch.qe.QueryEngine` over this
+        index; ``engine.attach(successor)`` after ``update`` / ``append``."""
+        return px.make_engine(self, **kwargs)
+
     # -- introspection ----------------------------------------------------
     @property
     def n(self) -> int:
-        """Live array length."""
+        """Live array length (grows with ``append``)."""
         return self.plan.n if self.length is None else self.length
 
     @property

@@ -99,7 +99,13 @@ def _merge(m, p, m2, p2, track):
     return torch.where(take, m2, m), torch.where(take, p2, p)
 
 
-def _walk_slice(h: Hierarchy, ls, rs, track: bool, ident: int):
+def walk_lower_levels(h: Hierarchy, ls, rs, track: bool, ident: int):
+    """Levels ``0 .. L-2`` of the walk for inclusive bounds.
+
+    Returns ``(m, p, l, r)``: the merged ``(value, position)`` of those
+    levels (positions ``None`` unless ``track``) and the range ``[l, r)``
+    still to answer on the top level, in its coordinates.
+    """
     plan, c = h.plan, h.plan.c
     dev = h.base.device
     l = ls.to(device=dev, dtype=torch.int64)
@@ -132,7 +138,13 @@ def _walk_slice(h: Hierarchy, ls, rs, track: bool, ident: int):
         wm, wp = _window_min(arr[idx], pos, mask, track, ident)
         m, p = _merge(m, p, wm, wp, track)
         l, r = -((-l) // c), r // c
+    return m, p, l, r
 
+
+def _walk_slice(h: Hierarchy, ls, rs, track: bool, ident: int):
+    plan = h.plan
+    dev = h.base.device
+    m, p, l, r = walk_lower_levels(h, ls, rs, track, ident)
     if plan.num_levels == 1:
         top, top_pos = h.base, None
     else:

@@ -1,4 +1,5 @@
-// The query walk shared by rmq_fused.cu (B2) and rmq_scan.cu (B4): the
+// The query walk shared by rmq_fused.cu (B2), rmq_scan.cu (B4), rmq_short.cu
+// (B5, a level-0-only walk) and rmq_bulk.cu (B7, from level 1 up): the
 // paper's coalesced loading (CL) and warp-local queuing (WLQ), §4.2-§4.3.
 //
 // One warp answers one query at a time.  A warp loads the bounds of 32
@@ -72,26 +73,20 @@ __device__ __forceinline__ int32_t ceil_shift(int32_t x, int s) {
   return (x >> s) + ((x & ((1 << s) - 1)) != 0);
 }
 
-// The walk of one inclusive query (l, r), by the whole warp.  Every lane
-// returns the answer.  Bounds outside [0, capacity) give an unspecified
-// answer but every read stays inside the hierarchy.
+// The walk from level k0 up, by the whole warp: the range [lo, hi) at level
+// k0 (r exclusive), merged into (v, p), then the top, then the warp
+// reduction.  Every lane returns the answer in (v, p).
 template <typename T, bool TRACK>
-__device__ __forceinline__ void walk_query(const WalkGeo& g,
-                                           const int32_t* offs, const T* base,
-                                           const T* upper,
-                                           const int32_t* upper_pos,
-                                           const T* top_v,
-                                           const int32_t* top_p, int32_t l,
-                                           int32_t r, int lane, T& out_v,
-                                           int32_t& out_p) {
+__device__ __forceinline__ void walk_levels(const WalkGeo& g,
+                                            const int32_t* offs,
+                                            const T* base, const T* upper,
+                                            const int32_t* upper_pos,
+                                            const T* top_v,
+                                            const int32_t* top_p, int k0,
+                                            int32_t lo, int32_t hi, int lane,
+                                            T& v, int32_t& p) {
   const int s = g.log2c;
-  T v = pos_inf<T>();
-  int32_t p = kPadPos;
-  int32_t lo = l > 0 ? l : 0;
-  const int64_t r_ex = static_cast<int64_t>(r) + 1;
-  int32_t hi = static_cast<int32_t>(r_ex < g.capacity ? r_ex : g.capacity);
-
-  for (int k = 0; k + 1 < g.levels; ++k) {
+  for (int k = k0; k + 1 < g.levels; ++k) {
     if (lo >= hi) break;  // warp-uniform: the range is used up
     const T* lv = k == 0 ? base : upper + offs[k - 1];
     const int32_t* lp = (TRACK && k > 0) ? upper_pos + offs[k - 1] : nullptr;
@@ -126,6 +121,35 @@ __device__ __forceinline__ void walk_query(const WalkGeo& g,
     }
   }
   group_reduce<T, TRACK>(v, p, kWarp);
+}
+
+// The level-0 bounds of an inclusive query: [lo, hi) clipped to the level.
+__device__ __forceinline__ void level0_range(const WalkGeo& g, int32_t l,
+                                             int32_t r, int32_t& lo,
+                                             int32_t& hi) {
+  lo = l > 0 ? l : 0;
+  const int64_t r_ex = static_cast<int64_t>(r) + 1;
+  hi = static_cast<int32_t>(r_ex < g.capacity ? r_ex : g.capacity);
+}
+
+// The walk of one inclusive query (l, r), by the whole warp.  Every lane
+// returns the answer.  Bounds outside [0, capacity) give an unspecified
+// answer but every read stays inside the hierarchy.
+template <typename T, bool TRACK>
+__device__ __forceinline__ void walk_query(const WalkGeo& g,
+                                           const int32_t* offs, const T* base,
+                                           const T* upper,
+                                           const int32_t* upper_pos,
+                                           const T* top_v,
+                                           const int32_t* top_p, int32_t l,
+                                           int32_t r, int lane, T& out_v,
+                                           int32_t& out_p) {
+  T v = pos_inf<T>();
+  int32_t p = kPadPos;
+  int32_t lo, hi;
+  level0_range(g, l, r, lo, hi);
+  walk_levels<T, TRACK>(g, offs, base, upper, upper_pos, top_v, top_p, 0, lo,
+                        hi, lane, v, p);
   out_v = v;
   out_p = p;
 }

@@ -29,7 +29,8 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("hierarchy_build", "hierarchy_fused", "rmq_fused", "rmq_scan")
+SOURCES = ("hierarchy_build", "hierarchy_fused", "rmq_fused", "rmq_scan",
+           "hierarchy_update", "rmq_short", "rmq_bulk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -19,7 +19,12 @@ Two counts exist side by side, for two different questions:
 
 Unlike the reference (which records while tracing, once per jit
 specialization), PyTorch runs eagerly: every call records.
-``timed_dispatch`` is not ported yet (ROADMAP A7).
+
+Two more tables ride on an active :func:`launch_registry`:
+:func:`record_config` files configuration decisions (the engine's
+``engine_tuned_config``) without touching any launch count, and
+``launch_registry(timing=True)`` makes :func:`timed_dispatch` time each
+dispatch site to completion (``torch.cuda.synchronize`` on the card).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import time
 from typing import Any, Dict, Iterator, List, Optional
 
 __all__ = [
@@ -36,7 +42,9 @@ __all__ = [
     "count_launches",
     "launch_registry",
     "operand_bytes",
+    "record_config",
     "record_launch",
+    "timed_dispatch",
 ]
 
 
@@ -75,13 +83,25 @@ class LaunchRecord:
 class LaunchRegistry:
     """Thread-safe collection of launch records, keyed by kernel name."""
 
-    def __init__(self):
+    def __init__(self, timing: bool = False):
         self._lock = threading.Lock()
+        self.timing = bool(timing)
         self.records: List[LaunchRecord] = []
+        self.timings: Dict[str, List[float]] = {}
+        self.configs: List[LaunchRecord] = []
 
     def add(self, name: str, meta: Dict[str, Any]) -> None:
         with self._lock:
             self.records.append(LaunchRecord(name, dict(meta)))
+
+    def add_config(self, name: str, meta: Dict[str, Any]) -> None:
+        """File a configuration decision; never a launch."""
+        with self._lock:
+            self.configs.append(LaunchRecord(name, dict(meta)))
+
+    def add_timing(self, name: str, seconds: float) -> None:
+        with self._lock:
+            self.timings.setdefault(name, []).append(float(seconds))
 
     @property
     def counts(self) -> Dict[str, int]:
@@ -111,6 +131,16 @@ def record_launch(name: str, **meta: Any) -> None:
         _registry.add(name, meta)
 
 
+def record_config(name: str, **meta: Any) -> None:
+    """Record a configuration decision (no-op when no registry is active).
+
+    It never touches the launch counts: :func:`count_launches` results
+    are the same whether or not an engine records its config.
+    """
+    if _registry is not None:
+        _registry.add_config(name, meta)
+
+
 @contextlib.contextmanager
 def count_launches() -> Iterator[Dict[str, int]]:
     """Collect ``{kernel name: launches}`` recorded inside the block."""
@@ -124,13 +154,36 @@ def count_launches() -> Iterator[Dict[str, int]]:
 
 
 @contextlib.contextmanager
-def launch_registry() -> Iterator[LaunchRegistry]:
-    """Collect full :class:`LaunchRecord`\\ s for the block."""
+def launch_registry(timing: bool = False) -> Iterator[LaunchRegistry]:
+    """Collect full :class:`LaunchRecord`\\ s for the block (and, with
+    ``timing=True``, the wall times of :func:`timed_dispatch` sites)."""
     global _registry
     prev = _registry
-    reg = LaunchRegistry()
+    reg = LaunchRegistry(timing=timing)
     _registry = reg
     try:
         yield reg
     finally:
         _registry = prev
+
+
+def timed_dispatch(name: str, fn, *args, **kwargs):
+    """Call ``fn(*args, **kwargs)``; under a timing registry, record the
+    wall time to completion.
+
+    With no timing registry active this is one global load and a tail
+    call.  With one, the call is followed by ``torch.cuda.synchronize()``
+    when a card is present, so device work is inside the time; that
+    barrier serializes dispatch sites, so timing is an offline mode.
+    """
+    reg = _registry
+    if reg is None or not reg.timing:
+        return fn(*args, **kwargs)
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    reg.add_timing(name, time.perf_counter() - t0)
+    return out

@@ -11,14 +11,13 @@ plain version, :func:`rmq_fused_batch_plain` (the plain walk), answers.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.hierarchy import Hierarchy
 from repro_torch.core.query import rmq_walk_batch
-from repro_torch.kernels import _build, _query, profiling
+from repro_torch.kernels import _query, profiling
 
 __all__ = [
     "LAUNCHES",
@@ -31,16 +30,6 @@ __all__ = [
 
 LAUNCHES = profiling.KernelCounter("rmq_fused")
 
-_SIGNATURES = {
-    "rmq_fused_query": (
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-    ),
-}
-
 rmq_fused_batch_plain = rmq_walk_batch
 
 
@@ -48,30 +37,8 @@ def rmq_fused_batch_cuda(
     h: Hierarchy, ls, rs, track_pos: bool
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One launch: ``(values, positions or None)`` for the batch."""
-    ls, rs = _query.kernel_bounds(h, ls, rs, "rmq_fused")
-    plan, dev = h.plan, h.base.device
-    m = ls.numel()
-    out_v = torch.empty(m, dtype=h.base.dtype, device=dev)
-    out_p = torch.empty(m, dtype=torch.int32, device=dev) \
-        if track_pos else None
-    if m == 0:
-        return out_v, out_p
-    offsets = torch.tensor(plan.offsets or (0,), dtype=torch.int32,
-                           device=dev)
-    padded = _query.int_array(plan.padded_lens)
-    lib = _build.load("rmq_fused", _SIGNATURES)
-    with torch.cuda.device(dev):
-        rc = lib.rmq_fused_query(
-            _build.dtype_code(h.base.dtype), int(track_pos), plan.capacity,
-            plan.c, plan.num_levels, ctypes.cast(padded, ctypes.c_void_p),
-            _query.stage_top(h, track_pos), _build.ptr(offsets),
-            _build.ptr(h.base), _build.ptr(h.upper),
-            _build.ptr(h.upper_pos if track_pos else None),
-            _build.ptr(ls), _build.ptr(rs), m, _build.ptr(out_v),
-            _build.ptr(out_p), _build.stream_of(dev))
-    _build.check(lib, rc, "rmq_fused")
-    LAUNCHES.hit()
-    return out_v, out_p
+    return _query.table_walk("rmq_fused", "rmq_fused_query", LAUNCHES, h,
+                             ls, rs, track_pos)
 
 
 def rmq_fused_batch(

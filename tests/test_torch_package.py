@@ -40,12 +40,40 @@ def test_port_imports_neither_jax_nor_the_reference(path):
         assert top not in ("jax", "jaxlib", "repro"), (path, name)
 
 
+SLICE_MODULES = [
+    "repro_torch.kernels.rmq_scan.ops",
+    "repro_torch.streaming.updates",
+    "repro_torch.streaming.structure",
+    "repro_torch.kernels.hierarchy_update.ops",
+    "repro_torch.kernels.rmq_short.ops",
+    "repro_torch.kernels.rmq_short.ref",
+    "repro_torch.kernels.rmq_bulk.ops",
+    "repro_torch.core.baselines",
+    "repro_torch.core.hybrid",
+    "repro_torch.qe.planner",
+    "repro_torch.qe.cache",
+    "repro_torch.qe.executors",
+    "repro_torch.qe.engine",
+    "repro_torch.obs.trace",
+    "repro_torch.obs.metrics",
+]
+
+
 def test_every_module_imports_without_nvcc_or_a_card():
     names = [m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch.")]
-    assert "repro_torch.kernels.rmq_scan.ops" in names
+    for name in SLICE_MODULES:
+        assert name in names
+        path = ROOT / "src" / (name.replace(".", "/") + ".py")
+        assert path in PORT_FILES  # under the import guard above
     for name in names:
         importlib.import_module(name)
+
+
+def test_every_cuda_source_is_built():
+    sources = {p.stem for p in (ROOT / "src/repro_torch/csrc").glob("*.cu")}
+    assert sources == set(_build.SOURCES)
+    assert {"hierarchy_update", "rmq_short", "rmq_bulk"} <= sources
 
 
 def test_build_defaults_to_the_card_and_never_falls_back(monkeypatch):
