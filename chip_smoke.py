@@ -47,7 +47,24 @@ outside the repository.  Phases:
    bounds, their plain versions and the comparison each exists for
    (``rmq_fused`` on the same spans; for ``hierarchy_update`` the
    ``index_select`` + ``torch.min`` pair at level 1), and the whole
-   ``RMQ.update`` call with and without the successor's copy.
+   ``RMQ.update`` call with and without the successor's copy;
+11. serving (F): llama3.2-3b at full width (28 layers, d_model 3072, 24
+   heads over 8 KV heads, head_dim 128, vocab 128256), bf16 weights from
+   a seeded ``torch.Generator`` on the card, through ``ServeEngine``:
+   batch 4, a 2048-token prompt, 64 new tokens, cache 2120, eviction with
+   ``launch/serve.py``'s settings (budget 1590, 16 protected, c = 16,
+   t = 4).  ``flash_attention`` (B8) launches once per layer of the
+   prefill; eviction runs ``hierarchy_build`` (B3), ``hierarchy_update``
+   (B6) and ``rmq_short`` (B5).  Every round's victims are held to the
+   plain (``eager``) manager's on the same scores and to a brute-force
+   leftmost argmin per window; B8 to its plain version at the prefill
+   shape (float32 within 2e-5, bfloat16 within 2e-2 and a max|diff| /
+   rms gate, with a control that must fail that gate); the model's
+   logits and greedy tokens with B8 to the same model with the plain
+   attention.  Times: B8 beside its operations bound, its plain version
+   and ``scaled_dot_product_attention`` (timed only; the port never calls
+   it), prefill, decode per token, eviction rounds, tokens/s, memory, and
+   a ``torch.profiler`` top-5 of a prefill and a decode step.
 
 Each phase sets every launch counter to 0 just before it drives its
 path and reads them just after.  The output ends with one
@@ -60,6 +77,7 @@ geometries, its times and bound) and, last, ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -69,6 +87,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 SECTOR = 32                # bytes of one device-memory access sector
 
 KERNELS = {
@@ -93,6 +112,9 @@ KERNELS = {
     "rmq_bulk": dict(
         source="src/repro_torch/csrc/rmq_bulk.cu",
         replaces="src/repro/kernels/rmq_bulk/kernel.py:189"),
+    "flash_attention": dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:101"),
 }
 
 
@@ -221,9 +243,9 @@ def partial_chunks(torch, ls, rs, c: int):
     return torch.cat([(lo // c)[a_hi > lo], (hi // c)[hi > b_lo]])
 
 
-def bound_ms(bytes_moved: float, ops: float):
+def bound_ms(bytes_moved: float, ops: float, ops_per_s=FP32_OPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -271,12 +293,13 @@ def counters():
     from repro_torch.kernels.rmq_bulk import ops as bulk_ops
     from repro_torch.kernels.rmq_fused import ops as qfused_ops
     from repro_torch.kernels.rmq_scan import ops as scan_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmq_short import ops as short_ops
 
     return {k.name: k for k in (
         fused_ops.LAUNCHES, qfused_ops.LAUNCHES, build_ops.LAUNCHES,
         scan_ops.LAUNCHES, upd_ops.LAUNCHES, short_ops.LAUNCHES,
-        bulk_ops.LAUNCHES)}
+        bulk_ops.LAUNCHES, fa_ops.LAUNCHES)}
 
 
 def zero_counts():
@@ -685,6 +708,369 @@ def stream_phase(torch, name, x, plan, seed):
             "err": {"hierarchy_update": err_u, "rmq_scan": err_q}}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: serving llama3.2-3b (F)
+# ---------------------------------------------------------------------------
+F_BATCH, F_PROMPT, F_NEW = 4, 2048, 64
+# bf16 gate on max|diff| / rms(plain), besides allclose at 2e-2.  The kernel
+# and the plain version each round a float32 result to bf16 once, so they
+# differ by rounding flips of one bf16 ulp (at most 2^-7 of the value).
+# Measured at the prefill shape on an H100: 0.085 (S 2048) and 0.041
+# (S 1971), flips of outputs near 1-2 against an rms of about 0.09; one
+# flip at the largest outputs (about 3, ulp 2^-6) would read 0.17.  The
+# limit is 3.5x the measured worst; hiding 64 keys from 64 rows (the
+# control) reads 0.93.
+BF16_RMS_LIMIT = 0.3
+
+
+def visible_pairs(s: int, window) -> int:
+    """(query, key) pairs that causal attention over ``s`` rows visits."""
+    w = s if window is None else min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def bf16_gate(torch, got, want):
+    """``(allclose at 2e-2, max|diff| / rms(want), passes both)``."""
+    g, w = got.float(), want.float()
+    close = bool(torch.allclose(g, w, atol=2e-2, rtol=2e-2))
+    ratio = float((g - w).abs().max() / w.pow(2).mean().sqrt())
+    return close, ratio, close and ratio <= BF16_RMS_LIMIT
+
+
+def attention_check(torch, seed):
+    """B8 against its plain version on the card, at the prefill shape
+    (and a ragged S), float32 and bfloat16, window None and 1024."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, hq, hkv, d = F_BATCH, 24, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (F_PROMPT, F_PROMPT - 77):
+            q, k, v = (torch.randn((b, h, s, d), generator=gen,
+                                   device="cuda").to(dtype)
+                       for h in (hq, hkv, hkv))
+            for window in (None, 1024):
+                got = fa_ops.attention(q, k, v, window=window)
+                want = attention_ref(q, k, v, window=window)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                worst = max(worst, err)
+                what = (f"F flash_attention vs plain: {dtype}, window "
+                        f"{window}, S {s}: max_abs_err {err}")
+                if dtype == torch.float32:
+                    ok = bool(torch.allclose(got, want, atol=2e-5,
+                                             rtol=2e-5))
+                    require(ok, f"{what} (tolerance 2e-5)")
+                    print(f"{what} (tolerance 2e-5)")
+                    continue
+                close, ratio, ok = bf16_gate(torch, got, want)
+                require(ok, f"{what}: allclose 2e-2 {close}, max|diff|/rms "
+                        f"{ratio} (limit {BF16_RMS_LIMIT})")
+                print(f"{what}, allclose 2e-2 {close}, max|diff|/rms(plain) "
+                      f"{ratio} (limit {BF16_RMS_LIMIT})")
+                if s == F_PROMPT and window is None:
+                    # control: the plain version with keys 0..63 hidden
+                    # from the last 64 rows must fail the same gate
+                    ctrl = want.clone()
+                    ctrl[:, :, -64:] = attention_ref(
+                        q[:, :, -64:], k[:, :, 64:], v[:, :, 64:])
+                    c_close, c_ratio, c_ok = bf16_gate(torch, ctrl, want)
+                    require(not c_ok, "F control: the bf16 gate accepted "
+                            "attention with 64 keys hidden")
+                    print(f"F control (plain, keys 0..63 hidden from the "
+                          f"last 64 rows): rejected by the bf16 gate; "
+                          f"allclose 2e-2 {c_close}, max|diff|/rms "
+                          f"{c_ratio}")
+            del q, k, v
+    return worst
+
+
+def time_attention(torch, seed):
+    """B8 at the prefill shape beside its bound, its plain version and
+    scaled_dot_product_attention (CUDA events)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, hq, hkv, s, d = F_BATCH, 24, 8, F_PROMPT, 128
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    out = {
+        "ms": time_ms(torch, lambda: fa_ops.flash_attention_cuda(q, k, v),
+                      10),
+        "plain_ms": time_ms(torch, lambda: attention_ref(q, k, v), 3,
+                            warmup=1),
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20),
+    }
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    out["float32_ms"] = time_ms(
+        torch, lambda: fa_ops.flash_attention_cuda(q32, k32, v32), 5)
+    sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                          enable_gqa=True)
+    out["sdpa_max_abs_err_vs_plain"] = float(
+        (sdpa.float() - attention_ref(q, k, v).float()).abs().max())
+    out["flops"] = visible_pairs(s, None) * b * hq * 4 * d
+    # q, k, v read once and the output (q's shape) written once
+    out["bytes"] = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    out["bound"] = bound_ms(out["bytes"], out["flops"], BF16_OPS_PER_S)
+    return out
+
+
+def profile_top(torch, fn, k: int = 5):
+    """Kernel time on the device (ms), the wall time of the traced call,
+    the device's idle share and the ``k`` kernels with the most time, from
+    a torch.profiler trace of one call of ``fn``.  Only kernel events are
+    summed (an operator's own device time repeats its kernels')."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            rows.append((e.key[:60], t / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"kernel_ms": busy, "wall_ms": wall_ms,
+            "idle_share": 1 - busy / wall_ms if rows else None,
+            "kernels": len(rows), "top": rows[:k]}
+
+
+def expected_rounds(sc, new_tokens: int):
+    """Rounds, victims and final position by budget arithmetic alone."""
+    pos, rounds, victims = F_PROMPT, 0, 0
+    for _ in range(new_tokens - 1):
+        pos += 1
+        if pos > sc.eviction_budget:
+            e = min(pos - sc.eviction_budget, pos - sc.eviction_window)
+            if e > 0:
+                rounds, victims, pos = rounds + 1, victims + e, pos - e
+    return rounds, victims, pos
+
+
+def serving_phase(torch, seed):
+    """Phase 11: llama3.2-3b through ServeEngine with eviction."""
+    import numpy as np
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.models import lm
+    from repro_torch.serve import engine as serve_engine
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.eviction import RMQEvictionManager
+
+    cfg = get_config("llama3.2-3b")
+    cache_len = F_PROMPT + F_NEW + 8
+    sc = ServeConfig(seq_len=cache_len, batch=F_BATCH,
+                     kv_cache_dtype="bfloat16", eviction_enabled=True,
+                     eviction_budget=cache_len * 3 // 4, eviction_window=16,
+                     rmq_chunk=16, rmq_threshold=4)
+    torch.cuda.empty_cache()
+    params, t_init = wall(torch, lambda: lm.init_params(
+        cfg, seed=seed, device="cuda"))
+    weights = 0
+    stack = [params]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, list):
+            stack.extend(node)
+        else:
+            weights += node.numel() * node.element_size()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (F_BATCH, F_PROMPT),
+                            generator=gen, device="cuda")
+    engine = ServeEngine(cfg, params, sc)
+    print(f"F: {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV, head_dim "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}; bf16 weights "
+          f"{weights} bytes made in {t_init:.3f} s; batch {F_BATCH}, "
+          f"prompt {F_PROMPT}, {F_NEW} new tokens, cache {cache_len}, "
+          f"budget {sc.eviction_budget}, protected {sc.eviction_window}, "
+          f"c {sc.rmq_chunk}, t {sc.rmq_threshold}")
+
+    # -- two runs; each eviction round timed (host clock, synchronized:
+    # the engine's host round trips synchronize every round anyway).  Run
+    # 1 also reads the launch counters around the prefill and around each
+    # eviction round -------------------------------------------------------
+    rounds, stages = [], []
+    by_stage = {"prefill": {}, "eviction rounds": {}}
+    orig_plan = RMQEvictionManager.plan_evictions_streaming
+    orig_evict = ServeEngine._evict
+    orig_prefill = serve_engine.prefill
+
+    def counted(stage, fn, *args, **kwargs):
+        if len(stages) != 1:
+            return fn(*args, **kwargs)
+        before = {k: c.launches for k, c in count.items()}
+        out = fn(*args, **kwargs)
+        acc = by_stage[stage]
+        for k, c in count.items():
+            acc[k] = acc.get(k, 0) + c.launches - before[k]
+        return out
+
+    def prefill(*args, **kwargs):
+        return counted("prefill", orig_prefill, *args, **kwargs)
+
+    def plan(self, index, scores, live):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index, victims = counted("eviction rounds", orig_plan, self, index,
+                                 scores, live)
+        torch.cuda.synchronize()
+        stages[-1]["plan"].append(time.perf_counter() - t0)
+        if len(stages) == 1:
+            rounds.append((scores.clone(), live, victims.clone()))
+        return index, victims
+
+    def evict(self, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_evict(self, *args)
+        torch.cuda.synchronize()
+        stages[-1]["evict"].append(time.perf_counter() - t0)
+        return out
+
+    RMQEvictionManager.plan_evictions_streaming = plan
+    ServeEngine._evict = evict
+    serve_engine.prefill = prefill
+    try:
+        # run 1: counted, every round's scores and victims captured
+        stages.append({"plan": [], "evict": []})
+        count = zero_counts()
+        out1, t_run1 = wall(torch, lambda: engine.generate(prompts, F_NEW))
+        launches = read(torch, count)
+        # run 2: warm, for tokens/s and memory
+        stages.append({"plan": [], "evict": []})
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out2, t_run2 = wall(torch, lambda: engine.generate(prompts, F_NEW))
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        RMQEvictionManager.plan_evictions_streaming = orig_plan
+        ServeEngine._evict = orig_evict
+        serve_engine.prefill = orig_prefill
+
+    want_rounds, want_victims, want_pos = expected_rounds(sc, F_NEW)
+    index_levels = engine.eviction.make_index(
+        cache_len, device="cuda").plan.num_levels
+    require(len(rounds) == want_rounds and out1["evicted"] == want_victims
+            and out1["final_pos"] == want_pos,
+            f"F generate: {len(rounds)} rounds, evicted {out1['evicted']}, "
+            f"final_pos {out1['final_pos']}; budget arithmetic says "
+            f"{want_rounds}, {want_victims}, {want_pos}")
+    rest = {k: v - by_stage["prefill"][k] - by_stage["eviction rounds"][k]
+            for k, v in launches.items()}
+    expect("F prefill", by_stage["prefill"], flash_attention=cfg.num_layers)
+    expect("F eviction rounds", {
+        k: v for k, v in by_stage["eviction rounds"].items()
+        if k not in ("rmq_short", "rmq_scan")},
+        hierarchy_update=want_rounds * (index_levels - 1))
+    expect("F decode and make_index", rest,
+           hierarchy_build=index_levels - 1)
+    require(by_stage["eviction rounds"]["rmq_short"] > 0,
+            "F generate: rmq_short never ran")
+    print(f"F launches by stage: {json.dumps(by_stage)}, decode and "
+          f"make_index {json.dumps(rest)}")
+    toks = out1["tokens"]
+    require(toks.shape == (F_BATCH, F_NEW) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+        f"F generate: tokens {tuple(toks.shape)} out of range")
+
+    # -- every round's victims: the plain manager and brute force ---------
+    plain = RMQEvictionManager(
+        budget=sc.eviction_budget, protected_window=sc.eviction_window,
+        c=sc.rmq_chunk, t=sc.rmq_threshold, backend="eager")
+    pidx = plain.make_index(cache_len, device="cuda")
+    same_plain = same_brute = total = 0
+    for scores, live, victims in rounds:
+        pidx, want = orig_plan(plain, pidx, scores, live)
+        same_plain += int(torch.equal(want, victims))
+        evictable, n_evict = plain._plan_round(live)
+        ls, rs = plain._windows(evictable, n_evict)
+        sn = scores.cpu().numpy()
+        brute = np.sort([l + int(np.argmin(sn[l:r + 1]))
+                         for l, r in zip(ls, rs)])
+        same_brute += int(np.array_equal(victims.cpu().numpy(), brute))
+        total += victims.numel()
+    print(f"F eviction victims: {same_plain}/{len(rounds)} rounds equal to "
+          f"the plain manager's (backend eager, same scores, on the card), "
+          f"{same_brute}/{len(rounds)} equal to a brute-force leftmost "
+          f"argmin per window; {total} victims")
+    require(same_plain == same_brute == len(rounds),
+            "F eviction: victims differ from the plain path or brute force")
+    print(f"F generate: launches {launches}, eviction rounds {len(rounds)}, "
+          f"evicted {out1['evicted']}, final_pos {out1['final_pos']}")
+
+    times = {"generate_s": t_run2,
+             "tokens_per_s": F_BATCH * F_NEW / t_run2,
+             "generate_s_run1": t_run1}
+    times["prefill_ms"] = time_ms(torch, lambda: lm.prefill(
+        cfg, params, prompts, cache_len), 3, warmup=1)
+    _, cache = lm.prefill(cfg, params, prompts, cache_len)
+    token = toks[:, 0]
+    times["decode_ms_per_token"] = time_ms(torch, lambda: lm.decode_step(
+        cfg, params, token, cache, F_PROMPT, return_attn_mass=True), 8)
+    for name, st in (("run1", stages[0]), ("run2", stages[1])):
+        per = [1e3 * (a + b) for a, b in zip(st["plan"], st["evict"])]
+        times[f"evict_ms_first_round_{name}"] = per[0]
+        times[f"evict_ms_per_later_round_{name}"] = (
+            sum(per[1:]) / max(len(per) - 1, 1))
+        times[f"evict_plan_ms_first_round_{name}"] = 1e3 * st["plan"][0]
+    print(f"F times (host clock to the end of device work; run 1 is the "
+          f"first, counted run, run 2 the warm one): {json.dumps(times)}")
+    print(f"F memory: weights {weights} bytes, held before run 2 {held}, "
+          f"peak in run 2 {peak}; run 2 tokens equal run 1's: "
+          f"{bool(torch.equal(out2['tokens'], toks))}")
+    try:
+        print("F prefill under torch.profiler: " + json.dumps(profile_top(
+            torch, lambda: lm.prefill(cfg, params, prompts, cache_len))))
+        print("F decode step under torch.profiler: " + json.dumps(
+            profile_top(torch, lambda: lm.decode_step(
+                cfg, params, token, cache, F_PROMPT,
+                return_attn_mass=True))))
+    except Exception as exc:  # a trace is a reading, not a check
+        print(f"F torch.profiler failed: {exc!r}")
+    del cache
+
+    # -- the whole model with B8 against the same model, plain attention --
+    logits_k, _ = lm.prefill(cfg, params, prompts, cache_len)
+    logits_p, _ = lm.prefill(cfg, params, prompts, cache_len,
+                             attn_impl="ref")
+    rel = float((logits_k - logits_p).abs().max() / logits_p.abs().max())
+    full_k = lm.forward(cfg, params, prompts)[0].argmax(-1)
+    full_p = lm.forward(cfg, params, prompts, attn_impl="ref")[0].argmax(-1)
+    agree = float((full_k == full_p).float().mean())
+    require(bool(torch.isfinite(logits_k).all()), "F prefill: logits are "
+            "not finite")
+    print(f"F prefill last-position logits, kernel vs plain attention: "
+          f"max|diff| / max|plain| = {rel}; greedy tokens that agree over "
+          f"all {full_k.numel()} positions of forward: {agree}; generate's "
+          f"first tokens are the kernel prefill's argmax: "
+          f"{bool(torch.equal(logits_k.argmax(-1).to(toks.dtype), toks[:, 0]))}")
+    require(rel < 5e-2 and agree > 0.8,
+            f"F: the model with B8 strays from the plain attention "
+            f"(logits {rel}, greedy agreement {agree})")
+    del params, engine, logits_k, logits_p, full_k, full_p
+    torch.cuda.empty_cache()
+    return launches
+
+
 def run(torch, seed: int):
     from repro_torch.core import build_hierarchy, make_plan, rmq_walk_batch
     from repro_torch.kernels.hierarchy_build.ops import (
@@ -837,6 +1223,26 @@ def run(torch, seed: int):
                 errors[key] = max(errors[key], e)
         del x, ls, rs
         torch.cuda.empty_cache()
+
+    # -- phase 11: serving llama3.2-3b -------------------------------------
+    gc.collect()  # the earlier phases' engines hold their indexes in cycles
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("F: torch.backends.cuda.matmul.allow_tf32 = False and "
+          "torch.backends.cudnn.allow_tf32 = False (plain versions in full "
+          "float32)")
+    errors["flash_attention"] = attention_check(torch, seed)
+    t_fa = time_attention(torch, seed)
+    print(f"F flash_attention at ({F_BATCH}, 24, {F_PROMPT}, 128) / "
+          f"({F_BATCH}, 8, {F_PROMPT}, 128) bfloat16 (ms, CUDA events): "
+          f"{json.dumps(t_fa)}")
+    ms["flash_attention"] = t_fa["ms"]
+    plain["flash_attention"] = t_fa["plain_ms"]
+    bounds["flash_attention"] = t_fa["bound"]
+    library["flash_attention"] = t_fa["library_ms"]
+    served = serving_phase(torch, seed)
+    main_launches["flash_attention"] = served["flash_attention"]
 
     out = []
     for name, meta in KERNELS.items():

@@ -1,0 +1,164 @@
+"""Dispatching wrapper of B8: the CUDA flash kernel on the card, the plain
+version on the CPU.
+
+The port of ``repro.kernels.flash_attention.ops``.  On a CUDA tensor
+:func:`attention` launches ``csrc/flash_attention.cu`` or raises
+``ValueError`` for what the kernel does not take; there is no fallback.
+On a CPU tensor it routes as the reference's ``impl="auto"`` does off the
+TPU: :func:`blocked_attention` for ``S >= 2048`` with ``S % 512 == 0``,
+:func:`attention_ref` otherwise.  The reference's ``"pallas"`` is this
+port's ``"cuda"``.
+
+The kernel takes float32 and bfloat16, head dims 16 / 32 / 64 / 128, any
+S (the reference sends ``S % 128 != 0`` to its jnp path), equal query and
+key lengths, causal attention and a static ``window`` (an int >= 1 or
+None).  The launch counter and ``record_launch("flash_attention")`` move
+only after a launch succeeded: a refused call counts nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build, profiling
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref,
+    blocked_attention,
+)
+
+__all__ = [
+    "BLOCKED_MIN_SEQ",
+    "HEAD_DIMS",
+    "LAUNCHES",
+    "attention",
+    "flash_attention_cuda",
+]
+
+BLOCKED_MIN_SEQ = 2048  # below this the dense reference is cheaper
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+LAUNCHES = profiling.KernelCounter("flash_attention")
+
+_SIGNATURES = {
+    "flash_attention_fwd": (
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ),
+}
+
+
+def _check_window(window) -> int:
+    """The kernel's window argument: 0 for none, else an int >= 1."""
+    if window is None:
+        return 0
+    if isinstance(window, bool) or not isinstance(window, int) or window < 1:
+        raise ValueError(
+            f"flash_attention: window must be None or an int >= 1, got "
+            f"{window!r}")
+    return window
+
+
+def _check_operands(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q, k, v must be (B, H, S, D)")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"flash_attention: q, k, v must all be float32 or bfloat16, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}")
+    b, hq, s, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(
+            f"flash_attention: k {tuple(k.shape)} and v {tuple(v.shape)} do "
+            f"not fit q {tuple(q.shape)}")
+    if k.shape[2] != s:
+        raise ValueError(
+            f"flash_attention: the kernel needs equal query and key lengths, "
+            f"got {s} and {k.shape[2]}")
+    if d not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention: head_dim {d} is not one of {HEAD_DIMS}")
+    hkv = k.shape[1]
+    if hkv == 0 or hq % hkv:
+        raise ValueError(
+            f"flash_attention: query heads {hq} are not a multiple of KV "
+            f"heads {hkv}")
+    if s == 0 or b == 0 or hq == 0:
+        raise ValueError("flash_attention: empty operands")
+    if b > 65535 or hq > 65535:
+        raise ValueError("flash_attention: batch and heads must be < 65536")
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """One launch of the CUDA kernel: causal attention ``(B, Hq, S, D)``."""
+    _check_operands(q, k, v)
+    win = _check_window(window)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _build.require_cuda("flash_attention", q, k, v)
+    b, hq, s, d = q.shape
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    out = torch.empty_like(q)
+    lib = _build.load("flash_attention", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_fwd(
+            _DTYPES[q.dtype], b, hq, k.shape[1], s, d, float(scale), win,
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+            _build.stream_of(q.device))
+    _build.check(lib, rc, "flash_attention")
+    LAUNCHES.hit()
+    profiling.record_launch(
+        "flash_attention", lowering="cuda", shape=tuple(q.shape),
+        kv_heads=int(k.shape[1]), window=window, dtype=str(q.dtype),
+        operand_bytes=profiling.operand_bytes(q, k, v, out))
+    return out
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    window: Optional[int] = None,
+    causal: bool = True,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """impl: ``"auto"`` | ``"cuda"`` | ``"ref"`` | ``"blocked"``.
+
+    A CUDA ``q`` takes the kernel (``"auto"`` or ``"cuda"``; anything the
+    kernel does not take raises).  A CPU ``q`` takes the plain version:
+    ``"auto"`` blocked for long sequences and the dense reference
+    otherwise, ``"blocked"`` blocked where ``S % 512 == 0`` and causal.
+    """
+    if impl not in ("auto", "cuda", "ref", "blocked"):
+        raise ValueError(f"attention: unknown impl {impl!r}")
+    if q.is_cuda:
+        if impl not in ("auto", "cuda"):
+            raise ValueError(
+                f"attention: a CUDA tensor launches the kernel (impl 'auto' "
+                f"or 'cuda'), got impl={impl!r}; call "
+                f"flash_attention.ref.attention_ref for the plain version")
+        if not causal:
+            raise ValueError("flash_attention: the kernel is causal only")
+        return flash_attention_cuda(q, k, v, scale=scale, window=window)
+    if impl == "cuda":
+        raise ValueError("flash_attention: the kernel needs CUDA tensors")
+    s = q.shape[2]
+    if impl == "auto":
+        impl = "blocked" if s >= BLOCKED_MIN_SEQ and s % 512 == 0 else "ref"
+    if impl == "blocked" and s % 512 == 0 and causal:
+        return blocked_attention(q, k, v, scale=scale, window=window,
+                                 causal=causal)
+    return attention_ref(q, k, v, scale=scale, window=window, causal=causal)
+

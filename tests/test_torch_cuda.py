@@ -5,8 +5,11 @@ inside the test, never at import).  Run on a machine with a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py
 
-Min and argmin are exact, so every comparison is bit-for-bit (tolerance
-0): values, leftmost positions and the +inf / PAD_POS padding.
+Min and argmin are exact, so every RMQ comparison is bit-for-bit
+(tolerance 0): values, leftmost positions and the +inf / PAD_POS padding.
+Attention (B8) is held to its plain version within 2e-5 in float32 (the
+same softmax summed in another order) and 2e-2 in bfloat16 (8-bit
+mantissa inputs and output), the reference's own kernel-test tolerances.
 """
 
 import numpy as np
@@ -140,6 +143,15 @@ SLICE2_GEOMETRIES = [
 ]
 
 
+# The eviction index of llama3.2-3b serving: c = 16, t = 4 over the 2120
+# score slots (cache 2048 + 64 + 8), live regions of every round.
+EVICTION_GEOMETRIES = [
+    (2120, 16, 4, None),
+    (2033, 16, 4, 2120),
+    (1575, 16, 4, 2120),
+]
+
+
 def _short_spans(rng, n, c, m=512):
     ls = rng.integers(0, n, m)
     rs = np.minimum((ls // c + rng.integers(0, 2, m)) * c
@@ -149,7 +161,8 @@ def _short_spans(rng, n, c, m=512):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,c,t,cap", SLICE2_GEOMETRIES)
+@pytest.mark.parametrize("n,c,t,cap", SLICE2_GEOMETRIES
+                         + EVICTION_GEOMETRIES)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("with_pos", [False, True])
 def test_update_kernel_matches_plain(card, n, c, t, cap, dtype, with_pos):
@@ -188,7 +201,8 @@ def test_update_kernel_matches_plain(card, n, c, t, cap, dtype, with_pos):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,c,t,cap", SLICE2_GEOMETRIES)
+@pytest.mark.parametrize("n,c,t,cap", SLICE2_GEOMETRIES
+                         + EVICTION_GEOMETRIES)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_short_kernel_matches_plain(card, n, c, t, cap, dtype):
     from repro_torch.kernels.rmq_short import ops as short_ops
@@ -328,3 +342,140 @@ def test_streaming_on_card(card, dtype):
     bv, bp = brute_force(arr, ls, rs)
     np.testing.assert_array_equal(s.query(ls, rs).cpu().numpy(), bv)
     np.testing.assert_array_equal(s.query_index(ls, rs).cpu().numpy(), bp)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention (B8)
+# ---------------------------------------------------------------------------
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _attn_inputs(card, seed, b, hq, hkv, s, d, dtype):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn((b, h, s, d), generator=g, device=card).to(dtype)
+            for h in (hq, hkv, hkv)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 3, 8])
+@pytest.mark.parametrize("window", [None, 128, 1024])
+@pytest.mark.parametrize("s", [128, 1971, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(card, d, group, window, s, dtype):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b = 2 if s == 128 else 1
+    q, k, v = _attn_inputs(card, d * s + group, b, 2 * group, 2, s, d,
+                           dtype)
+    before = fa_ops.LAUNCHES.launches
+    got = fa_ops.attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES.launches - before == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = attention_ref(q, k, v, window=window)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_first_token_and_scale(card):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = _attn_inputs(card, 0, 1, 2, 1, 300, 64, torch.float32)
+    out = fa_ops.attention(q, k, v)
+    torch.testing.assert_close(out[0, :, 0], v[0, :, 0].expand(2, 64),
+                               atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(fa_ops.attention(q, k, v, scale=0.3),
+                               attention_ref(q, k, v, scale=0.3),
+                               atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+def test_flash_refusals_on_card_count_nothing(card):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.profiling import count_launches
+
+    q, k, v = _attn_inputs(card, 1, 1, 4, 2, 64, 32, torch.float32)
+    bad = [
+        (lambda: fa_ops.attention(q, k, v, causal=False), "causal"),
+        (lambda: fa_ops.attention(q, k, v, impl="ref"), "launches the"),
+        (lambda: fa_ops.attention(q.half(), k.half(), v.half()),
+         "float32 or bfloat16"),
+        (lambda: fa_ops.attention(q[..., :24], k[..., :24], v[..., :24]),
+         "head_dim"),
+        (lambda: fa_ops.attention(q, k[:, :, :32], v[:, :, :32]), "equal"),
+        (lambda: fa_ops.attention(q, k, v, window=0), "window"),
+        (lambda: fa_ops.attention(q, k.cpu(), v.cpu()), "CUDA device"),
+    ]
+    before = fa_ops.LAUNCHES.launches
+    with count_launches() as counts:
+        for call, match in bad:
+            with pytest.raises(ValueError, match=match):
+                call()
+    assert counts == {}
+    assert fa_ops.LAUNCHES.launches == before
+
+
+@pytest.mark.gpu
+def test_smoke_model_on_card_launches_flash_per_layer(card):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import lm
+
+    cfg = get_smoke_config("llama3.2-3b")
+    params = lm.init_params(cfg, seed=0, device=card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 200), device=card)
+    before = fa_ops.LAUNCHES.launches
+    logits, cache = lm.prefill(cfg, params, toks, 256,
+                               cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES.launches - before == cfg.num_layers
+    want, _ = lm.prefill(cfg, params, toks, 256, cache_dtype=torch.float32,
+                         attn_impl="ref")
+    torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
+    full, _ = lm.forward(cfg, params, toks)
+    plain, _ = lm.forward(cfg, params, toks, attn_impl="ref")
+    torch.testing.assert_close(full, plain, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_serving_on_card_picks_the_plain_victims(card, monkeypatch):
+    """ServeEngine on the card with eviction: every round's victims equal
+    the plain (eager) manager's on the same scores and a brute-force
+    leftmost argmin per window."""
+    from repro_torch.configs import ServeConfig, get_smoke_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.eviction import RMQEvictionManager
+
+    rounds = []
+    orig = RMQEvictionManager.plan_evictions_streaming
+
+    def wrapped(self, index, slot_scores, live):
+        index, victims = orig(self, index, slot_scores, live)
+        rounds.append((slot_scores.clone(), live, victims.clone()))
+        return index, victims
+
+    monkeypatch.setattr(RMQEvictionManager, "plan_evictions_streaming",
+                        wrapped)
+    cfg = get_smoke_config("llama3.2-3b")
+    sc = ServeConfig(seq_len=96, batch=2, kv_cache_dtype="float32",
+                     eviction_enabled=True, eviction_budget=48,
+                     eviction_window=16, rmq_chunk=16, rmq_threshold=4)
+    params = lm.init_params(cfg, seed=0, device=card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), device=card)
+    out = ServeEngine(cfg, params, sc).generate(toks, 48)
+    assert out["evicted"] > 0 and out["tokens"].device.type == "cuda"
+    plain = RMQEvictionManager(budget=48, protected_window=16, c=16, t=4,
+                               backend="eager")
+    index = plain.make_index(96, device=card)
+    for scores, live, victims in rounds:
+        index, want = orig(plain, index, scores, live)
+        _assert_same(want, victims)
+        ls, rs = plain._windows(live - 16, victims.numel())
+        s = scores.cpu().numpy()
+        brute = [l + int(np.argmin(s[l:r + 1])) for l, r in zip(ls, rs)]
+        np.testing.assert_array_equal(victims.cpu().numpy(), brute)

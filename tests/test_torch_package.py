@@ -56,6 +56,16 @@ SLICE_MODULES = [
     "repro_torch.qe.engine",
     "repro_torch.obs.trace",
     "repro_torch.obs.metrics",
+    "repro_torch.configs.base",
+    "repro_torch.configs.llama3_2_3b",
+    "repro_torch.kernels.flash_attention.ref",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.models.layers",
+    "repro_torch.models.lm",
+    "repro_torch.models.interop",
+    "repro_torch.serve.eviction",
+    "repro_torch.serve.engine",
+    "repro_torch.launch.serve",
 ]
 
 
@@ -73,7 +83,8 @@ def test_every_module_imports_without_nvcc_or_a_card():
 def test_every_cuda_source_is_built():
     sources = {p.stem for p in (ROOT / "src/repro_torch/csrc").glob("*.cu")}
     assert sources == set(_build.SOURCES)
-    assert {"hierarchy_update", "rmq_short", "rmq_bulk"} <= sources
+    assert {"hierarchy_update", "rmq_short", "rmq_bulk",
+            "flash_attention"} <= sources
 
 
 def test_build_defaults_to_the_card_and_never_falls_back(monkeypatch):
