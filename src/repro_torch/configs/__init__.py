@@ -1,9 +1,10 @@
-"""Model and serving configs (the port's copy, pure data)."""
+"""Model, training and serving configs (the port's copy, pure data)."""
 
 from repro_torch.configs.base import (
     ARCH_IDS,
     ModelConfig,
     ServeConfig,
+    TrainConfig,
     get_config,
     get_smoke_config,
     registry,
@@ -13,6 +14,7 @@ __all__ = [
     "ARCH_IDS",
     "ModelConfig",
     "ServeConfig",
+    "TrainConfig",
     "get_config",
     "get_smoke_config",
     "registry",

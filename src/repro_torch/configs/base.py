@@ -1,14 +1,14 @@
-"""Config dataclasses: model architecture and serving.
+"""Config dataclasses: model architecture, training and serving.
 
 The port's own copy of ``repro.configs.base`` (pure data; the port imports
-nothing of the reference package).  The training and standalone-RMQ
-configs wait for the slices that use them.  All configs are frozen
+nothing of the reference package).  The standalone-RMQ config waits for
+the slice that uses it.  All configs are frozen
 dataclasses, hashable and serializable to/from dicts.  One file per assigned
 architecture lives next to this module (``repro_torch/configs/<id>.py``)
 exposing ``config()`` (exact assigned geometry) and ``smoke_config()``
 (reduced same-family geometry for CPU tests).  The port's models run the
-dense GQA family; the others are here as data and refused by
-:mod:`repro_torch.models.lm`.
+dense GQA family and, for training, the SSM family; the others are here as
+data and refused by :mod:`repro_torch.models.lm`.
 """
 
 from __future__ import annotations
@@ -16,8 +16,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-__all__ = ["ModelConfig", "ServeConfig", "registry", "get_config",
-           "get_smoke_config", "ARCH_IDS"]
+__all__ = ["ModelConfig", "ServeConfig", "TrainConfig", "registry",
+           "get_config", "get_smoke_config", "ARCH_IDS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +152,29 @@ class ModelConfig:
         all_experts = moe_layers * self.num_experts * 3 * d * self.moe_d_ff
         active = moe_layers * self.num_experts_per_tok * 3 * d * self.moe_d_ff
         return total - all_experts + active
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seq_len: int = 4096
+    global_batch: int = 256
+    microbatches: int = 1            # grad accumulation
+    remat_policy: str = "minimal"    # none | minimal | full | names
+    optimizer_state_dtype: str = "float32"   # float32 | bfloat16
+    grad_allreduce_dtype: str = "bfloat16"   # gradient compression knob
+    loss_chunk: int = 0              # >0: chunked xent, logits never full
+    seed: int = 0
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    async_checkpoint: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

@@ -2,7 +2,7 @@
 
 SSD (state-space duality, arXiv:2405.21060): d_inner = 2·d_model = 4096,
 headdim = 64 ⇒ 64 SSD heads, ngroups = 1, conv4.  The chunked SSD scan is
-the Pallas kernel in ``repro.kernels.ssd_scan``.
+the CUDA kernel B9 in ``repro_torch.kernels.ssd_scan``.
 
 §Arch-applicability (DESIGN.md): the paper's RMQ-backed KV eviction is
 INAPPLICABLE here — constant-size SSM state, no per-token cache, no

@@ -30,7 +30,8 @@ __all__ = [
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("hierarchy_build", "hierarchy_fused", "rmq_fused", "rmq_scan",
-           "hierarchy_update", "rmq_short", "rmq_bulk", "flash_attention")
+           "hierarchy_update", "rmq_short", "rmq_bulk", "flash_attention",
+           "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

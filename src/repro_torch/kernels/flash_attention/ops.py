@@ -14,6 +14,13 @@ S (the reference sends ``S % 128 != 0`` to its jnp path), equal query and
 key lengths, causal attention and a static ``window`` (an int >= 1 or
 None).  The launch counter and ``record_launch("flash_attention")`` move
 only after a launch succeeded: a refused call counts nothing.
+
+Gradient: :func:`flash_attention_cuda` goes through :class:`FlashAttention`,
+whose forward launches the kernel and whose backward recomputes the plain
+:func:`attention_ref` on detached copies of q, k, v and returns
+``torch.autograd.grad`` of it (the JAX package differentiates its own
+graph; the TPU kernel has no backward kernel).  The backward launches no
+kernel.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from repro_torch.kernels.flash_attention.ref import (
 
 __all__ = [
     "BLOCKED_MIN_SEQ",
+    "FlashAttention",
     "HEAD_DIMS",
     "LAUNCHES",
     "attention",
@@ -94,14 +102,8 @@ def _check_operands(q, k, v) -> None:
         raise ValueError("flash_attention: batch and heads must be < 65536")
 
 
-def flash_attention_cuda(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    scale: Optional[float] = None,
-    window: Optional[int] = None,
-) -> torch.Tensor:
-    """One launch of the CUDA kernel: causal attention ``(B, Hq, S, D)``."""
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            scale: Optional[float], window: Optional[int]) -> torch.Tensor:
     _check_operands(q, k, v)
     win = _check_window(window)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -123,6 +125,40 @@ def flash_attention_cuda(
         kv_heads=int(k.shape[1]), window=window, dtype=str(q.dtype),
         operand_bytes=profiling.operand_bytes(q, k, v, out))
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """B8 with a gradient: the kernel forward, the plain backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, window):
+        out = _launch(q, k, v, scale, window)
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.window = scale, window
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            out = attention_ref(*inputs, scale=ctx.scale, window=ctx.window)
+            wanted = [t for t in inputs if t.requires_grad]
+            got = iter(torch.autograd.grad(out, wanted, grad_out))
+        grads = [next(got) if t.requires_grad else None for t in inputs]
+        return (*grads, None, None)
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: Optional[float] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """One launch of the CUDA kernel: causal attention ``(B, Hq, S, D)``,
+    differentiable through :class:`FlashAttention`."""
+    return FlashAttention.apply(q, k, v, scale, window)
 
 
 def attention(

@@ -1,30 +1,42 @@
-"""LM assembly for the dense GQA family: init / forward / prefill / decode.
+"""LM assembly: init / forward / prefill / decode for the ported families.
 
-The port of ``repro.models.lm`` for ``family == "dense"`` with GQA
-attention (llama3.2-3b, qwen1.5-0.5b, command-r-plus-104b): RMSNorm,
-SwiGLU, RoPE, optional ``qkv_bias``, ``parallel_block``,
-``sliding_window`` and ``logit_softcap`` where the reference has them.
+The port of ``repro.models.lm`` for two families:
+
+* ``dense`` with GQA attention (llama3.2-3b, qwen1.5-0.5b,
+  command-r-plus-104b): RMSNorm, SwiGLU, RoPE, optional ``qkv_bias``,
+  ``parallel_block``, ``sliding_window`` and ``logit_softcap`` where the
+  reference has them; every entry point.
+* ``ssm`` (mamba2-1.3b): Mamba-2 blocks only, attention-free, through
+  :mod:`repro_torch.models.ssm` and the SSD scan B9.  :func:`init_params`
+  and :func:`forward` (the train path) take it; :func:`prefill`,
+  :func:`decode_step` and :func:`make_decode_cache` still refuse it.
+
 The reference's ``lax.scan`` over stacked layer parameters becomes a
-Python loop over a list of per-layer dicts.  MoE, SSM, hybrid, MLA and
-the modality frontends raise ``NotImplementedError`` (ROADMAP A12).
+Python loop over a list of per-layer dicts; its ``remat`` wrapper of the
+scan body becomes a wrapper of each block (``train.train_step.make_remat``).
+MoE, hybrid, MLA and the modality frontends raise ``NotImplementedError``
+(ROADMAP A12).
 
 Parameters: ``{"embed": {"w"}, "layers": [layer, ...], "final_norm":
-{"scale"}, "lm_head": {"w"}}`` (no ``lm_head`` with tied embeddings).
-:func:`init_params` draws them from a seeded ``torch.Generator`` on the
-target device; :func:`repro_torch.models.interop.params_from_reference`
-carries the reference's parameters across.  Entry points run on the
-card unless the caller passes ``device="cpu"``.
+{"scale"}, "lm_head": {"w"}}`` (no ``lm_head`` with tied embeddings); a
+dense layer is ``{"ln1", "attn", "mlp"[, "ln2"]}``, an SSM layer
+``{"ln", "ssm"}``.  :func:`init_params` draws them from a seeded
+``torch.Generator`` on the target device;
+:func:`repro_torch.models.interop.params_from_reference` carries the
+reference's parameters across.  Entry points run on the card unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 __all__ = [
     "check_supported",
@@ -36,10 +48,15 @@ __all__ = [
 ]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Refuse every family but dense GQA (ROADMAP A12)."""
-    if cfg.family == "hybrid" or cfg.is_attention_free:
-        what = "SSM and hybrid models"
+def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
+    """Refuse what is not ported (ROADMAP A12): every family but dense GQA
+    and, for the train path (``serving=False``), the SSM family."""
+    if cfg.family == "hybrid":
+        what = "hybrid models"
+    elif cfg.is_attention_free:
+        if not serving:
+            return
+        what = "SSM models in prefill / decode"
     elif cfg.uses_moe:
         what = "MoE models"
     elif cfg.attention_type == "mla":
@@ -50,7 +67,7 @@ def check_supported(cfg: ModelConfig) -> None:
         return
     raise NotImplementedError(
         f"{cfg.name}: {what} are not ported yet (ROADMAP A12); the port "
-        f"serves the dense GQA family")
+        f"serves the dense GQA family and trains it and the SSM family")
 
 
 # ---------------------------------------------------------------------------
@@ -67,22 +84,32 @@ def _init_dense_layer(gen: torch.Generator, cfg: ModelConfig, dtype):
     return p
 
 
+def _init_ssm_layer(gen: torch.Generator, cfg: ModelConfig, dtype):
+    return {
+        "ln": L.rmsnorm_init(cfg.d_model, gen.device),
+        "ssm": SSM.ssm_init(gen, cfg, dtype),
+    }
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Random parameters from ``torch.Generator(device).manual_seed(seed)``.
 
-    Matrices are held in ``dtype`` (default: the compute dtype), vectors
-    in float32.  The draws differ from the reference's ``jax.random``.
+    Matrices are held in ``dtype`` (default: the compute dtype; the train
+    path asks for float32 masters), vectors and the SSM's ``conv_w`` in
+    float32.  The draws differ from the reference's ``jax.random``.
     """
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = dtype or L.cdtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    init_layer = (_init_ssm_layer if cfg.is_attention_free
+                  else _init_dense_layer)
     embed = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
                         device=dev, dtype=torch.float32) * 0.02
     params = {
         "embed": {"w": embed.to(dtype)},
-        "layers": [_init_dense_layer(gen, cfg, dtype)
+        "layers": [init_layer(gen, cfg, dtype)
                    for _ in range(cfg.num_layers)],
         "final_norm": L.rmsnorm_init(cfg.d_model, dev),
     }
@@ -117,6 +144,11 @@ def _dense_block(cfg: ModelConfig, p, x: torch.Tensor, positions,
     return x + L.mlp(p["mlp"], h, cfg), kv
 
 
+def _ssm_block(cfg: ModelConfig, p, x: torch.Tensor):
+    h = L.rmsnorm(p["ln"], x, cfg.norm_eps)
+    return x + SSM.ssm_apply(p["ssm"], h, cfg)
+
+
 # ---------------------------------------------------------------------------
 # Forward (train path): logits
 # ---------------------------------------------------------------------------
@@ -125,16 +157,37 @@ def forward(
     params: Dict[str, Any],
     tokens: torch.Tensor,                    # (B, S)
     attn_impl: str = "auto",
+    remat: Optional[Callable] = None,
+    return_hidden: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(logits (B, S, V) float32, aux)``; ``aux`` is the MoE
-    auxiliary loss of the reference, 0 for the dense family."""
+    auxiliary loss of the reference, 0 for the ported families.
+
+    ``remat`` wraps each block's function (the reference wraps its scan
+    body), e.g. in ``torch.utils.checkpoint``; ``return_hidden=True``
+    skips the LM head and returns the final-normed hidden states (the
+    chunked loss applies the head per sequence chunk).  ``attn_impl`` goes
+    to the attention of dense blocks.
+    """
     check_supported(cfg)
     x = _embed(params, tokens, cfg)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    if cfg.is_attention_free:
+        def block(x, p):
+            return _ssm_block(cfg, p, x)
+    else:
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+
+        def block(x, p):
+            return _dense_block(cfg, p, x, positions, attn_impl)[0]
+    if remat is not None:
+        block = remat(block)
     for p in params["layers"]:
-        x, _ = _dense_block(cfg, p, x, positions, attn_impl)
+        x = block(x, p)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
     logits = x @ L.cast(_head_w(params, cfg), cfg)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
@@ -148,7 +201,7 @@ def make_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
                       dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
     """Zero-initialized decode cache sized for ``seq_len`` positions:
     ``k`` and ``v`` of shape (layers, B, Hkv, seq_len, head_dim)."""
-    check_supported(cfg)
+    check_supported(cfg, serving=True)
     dev = resolve_device(device)
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, seq_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -168,7 +221,7 @@ def prefill(
     Returns (last-position logits (B, V) float32, cache).  As in the
     reference, prefill applies no ``logit_softcap``.
     """
-    check_supported(cfg)
+    check_supported(cfg, serving=True)
     x = _embed(params, tokens, cfg)
     s = x.shape[1]
     if s > cache_len:
@@ -214,7 +267,7 @@ def decode_step(
     RMQ eviction manager indexes.  The cache is written in place (the
     new token's k / v at ``pos``) and returned.
     """
-    check_supported(cfg)
+    check_supported(cfg, serving=True)
     x = _embed(params, token[:, None], cfg)
     s_cache = cache["k"].shape[-2]
     mass = torch.zeros((token.shape[0], max(s_cache, 1)),

@@ -30,7 +30,7 @@ class ServeEngine:
         sc: ServeConfig,
         serving_tier: Optional[Any] = None,
     ):
-        check_supported(cfg)
+        check_supported(cfg, serving=True)
         if serving_tier is not None:
             raise NotImplementedError(
                 "serving_tier= needs repro_torch.serving, which is not "

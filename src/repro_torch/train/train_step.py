@@ -1,0 +1,192 @@
+"""The train step: remat, microbatched gradient accumulation, AdamW.
+
+The port of ``repro.train.train_step``.  The returned function is
+``train_step(state, batch) -> (state, metrics)``; PyTorch runs it eagerly
+on the device the state lives on.
+
+* **Masters** are float32 (:func:`init_train_state`).  Inside the loss the
+  weights of rank >= 2 (by the reference's stacked rank,
+  :func:`repro_torch.train.tree.stacked_ndim`) are cast to ``cfg.dtype``,
+  as the reference's ``cast_params`` does, so the cast is differentiated
+  and the gradients arrive in float32.
+* **Gradients** go to ``grad_allreduce_dtype`` (bf16 by default) before
+  AdamW; with ``microbatches > 1`` they are accumulated in that dtype in a
+  Python loop (the reference's ``lax.scan``) and divided by the count.
+* **Remat** (:func:`make_remat`) wraps each block of ``models.lm.forward``;
+  it changes memory, never numbers:
+
+  - ``none``: autograd keeps every activation;
+  - ``full``: ``torch.utils.checkpoint`` (non-reentrant) around each block,
+    which keeps only the block's input (the reference's
+    ``nothing_saveable``);
+  - ``names``: the same per-block checkpoint.  The reference saves the
+    block outputs tagged ``blk_ssm`` / ``blk_attn`` / ``blk_ffn``; a
+    block's output is the next block's input, which the checkpoint keeps;
+  - ``minimal``: selective activation checkpointing that saves the outputs
+    of matrix products (``aten.mm`` / ``aten.addmm``, the reference's
+    ``dots_with_no_batch_dims_saveable``) and recomputes the rest.
+
+  Under ``full``, ``names`` and ``minimal`` the backward re-runs each
+  block's forward, so a CUDA kernel in a block (B8, B9) launches twice a
+  step; under ``none`` once.
+
+AdamW updates the masters and moments in place (see
+:mod:`repro_torch.train.optimizer`); the returned state shares them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable, Dict, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.models.layers import cdtype
+from repro_torch.models.lm import forward, init_params
+from repro_torch.train.loss import chunked_next_token_loss, next_token_loss
+from repro_torch.train.optimizer import AdamWState, adamw_init, adamw_update
+from repro_torch.train.tree import leaves_with_path, stacked_ndim, tree_map
+
+__all__ = ["TrainState", "build_train_step", "init_train_state",
+           "make_remat"]
+
+REMAT_POLICIES = ("none", "minimal", "full", "names")
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any
+    opt: AdamWState
+    step: torch.Tensor           # () int32
+
+
+def init_train_state(cfg: ModelConfig, tc: TrainConfig, seed: Optional[int]
+                     = None, device=None) -> TrainState:
+    """float32 masters from ``init_params(seed)`` (default ``tc.seed``) and
+    zeroed AdamW moments in ``tc.optimizer_state_dtype``."""
+    params = init_params(cfg, seed=tc.seed if seed is None else seed,
+                         device=device, dtype=torch.float32)
+    return TrainState(
+        params=params,
+        opt=adamw_init(params, tc.optimizer_state_dtype),
+        step=torch.zeros((), dtype=torch.int32,
+                         device=params["embed"]["w"].device),
+    )
+
+
+def _checkpointed(fn: Callable, **kwargs) -> Callable:
+    @functools.wraps(fn)
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return run
+
+
+def _save_matmuls():
+    """``context_fn`` of selective checkpointing that saves matrix products."""
+    try:
+        from torch.utils.checkpoint import (
+            CheckpointPolicy,
+            create_selective_checkpoint_contexts,
+        )
+    except ImportError as exc:  # selective checkpointing needs torch >= 2.4
+        raise NotImplementedError(
+            "remat policy 'minimal' needs torch.utils.checkpoint's selective "
+            "checkpointing, which this torch lacks (ROADMAP A12)") from exc
+    saved = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def make_remat(policy: str) -> Optional[Callable]:
+    """A wrapper of a block's function, or None (see the module doc)."""
+    if policy == "none":
+        return None
+    if policy in ("full", "names"):
+        return _checkpointed
+    if policy == "minimal":
+        context_fn = _save_matmuls()
+        return functools.partial(_checkpointed, context_fn=context_fn)
+    raise ValueError(f"unknown remat policy {policy!r}; one of "
+                     f"{REMAT_POLICIES}")
+
+
+def cast_params(params, dtype: torch.dtype):
+    """float32 weights of the reference's rank >= 2 in ``dtype`` (the
+    reference's ``cast_params``); everything else as it is."""
+    def one(path, p):
+        if stacked_ndim(path, p) < 2 or p.dtype != torch.float32:
+            return p
+        return p.to(dtype)
+    return tree_map(one, params, with_path=True)
+
+
+def build_train_step(cfg: ModelConfig, tc: TrainConfig,
+                     attn_impl: str = "auto"):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``batch``: ``{"tokens": (B, S) integer tensor}`` on the state's device.
+    ``attn_impl`` goes to ``forward``.
+    """
+    remat = make_remat(tc.remat_policy)
+    if cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: frontend prefixes are not ported yet (ROADMAP A12)")
+    acc_dtype = getattr(torch, tc.grad_allreduce_dtype)
+    compute = cdtype(cfg)
+
+    def loss_fn(params, tokens):
+        params = cast_params(params, compute)
+        out, aux = forward(cfg, params, tokens, attn_impl=attn_impl,
+                           remat=remat, return_hidden=tc.loss_chunk > 0)
+        if tc.loss_chunk > 0:
+            loss = chunked_next_token_loss(cfg, params, out, tokens,
+                                           chunk=tc.loss_chunk)
+        else:
+            loss = next_token_loss(out, tokens)
+        return loss + aux, loss, aux
+
+    def single_micro(params, tokens):
+        """Gradients in ``acc_dtype`` (a tree like ``params``), loss, aux."""
+        with torch.enable_grad():
+            leaves = tree_map(lambda p: p.detach().requires_grad_(True),
+                              params)
+            total, loss, aux = loss_fn(leaves, tokens)
+            flat = [t for _, t in leaves_with_path(leaves)]
+            grads = iter(torch.autograd.grad(total, flat))
+        grads = tree_map(lambda _: next(grads).to(acc_dtype), params)
+        return grads, loss.detach(), aux.detach()
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        tokens = batch["tokens"]
+        k = tc.microbatches
+        if k == 1:
+            grads, loss, aux = single_micro(state.params, tokens)
+        else:
+            b = tokens.shape[0]
+            if b % k:
+                raise ValueError(f"batch {b} is not a multiple of "
+                                 f"{k} microbatches")
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=acc_dtype, device=p.device), state.params)
+            loss = aux = torch.zeros((), dtype=torch.float32,
+                                     device=tokens.device)
+            for t in tokens.reshape(k, b // k, *tokens.shape[1:]):
+                g, l_i, a_i = single_micro(state.params, t)
+                grads = tree_map(torch.add, grads, g)
+                loss, aux = loss + l_i, aux + a_i
+            grads = tree_map(lambda g: g / k, grads)
+            loss, aux = loss / k, aux / k
+        params, opt, opt_metrics = adamw_update(grads, state.opt,
+                                                state.params, tc)
+        metrics = {"loss": loss, "aux_loss": aux, "step": state.step + 1,
+                   **opt_metrics}
+        return TrainState(params=params, opt=opt, step=state.step + 1), metrics
+
+    return train_step

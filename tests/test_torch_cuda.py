@@ -10,6 +10,9 @@ Min and argmin are exact, so every RMQ comparison is bit-for-bit
 Attention (B8) is held to its plain version within 2e-5 in float32 (the
 same softmax summed in another order) and 2e-2 in bfloat16 (8-bit
 mantissa inputs and output), the reference's own kernel-test tolerances.
+The SSD scan (B9) is held within 1e-4 of max|plain| (the reference's SSD
+test tolerance; float32 sums in other orders), its gradient and the
+train steps on the card as stated at each test.
 """
 
 import numpy as np
@@ -479,3 +482,248 @@ def test_serving_on_card_picks_the_plain_victims(card, monkeypatch):
         s = scores.cpu().numpy()
         brute = [l + int(np.argmin(s[l:r + 1])) for l, r in zip(ls, rs)]
         np.testing.assert_array_equal(victims.cpu().numpy(), brute)
+
+
+# ---------------------------------------------------------------------------
+# B9: the SSD chunk scan.  The kernel and the plain chunked version compute
+# the same float32 chunk algebra with sums in other orders (FMA tiles
+# against einsums), so they are held within 1e-4 of max|plain|, the
+# reference's own kernel-test tolerance; measured errors are about 1e-6.
+# ---------------------------------------------------------------------------
+SSD_CASES = [
+    # (batch, L, H, P, N, chunk)
+    (2, 256, 4, 64, 128, 128),   # mamba2 geometry
+    (1, 128, 2, 64, 16, 128),    # test_kernels.py's hymba case
+    (1, 512, 1, 32, 64, 128),
+    (2, 256, 3, 32, 16, 128),    # hymba-1.5b (P 32, N 16)
+    (2, 96, 4, 32, 16, 32),      # mamba2-smoke (P 32, N 16, Q 32)
+    (1, 60, 2, 24, 10, 20),      # ragged tiles: Q, P, N not multiples of 32
+]
+
+
+def _ssd_inputs(card, seed, b, l, h, p, n):
+    g = torch.Generator(device=card).manual_seed(seed)
+    dtx = torch.randn((b, l, h, p), generator=g, device=card) * 0.1
+    la = -torch.rand((b, l, h), generator=g, device=card) * 0.1
+    bm = torch.randn((b, l, n), generator=g, device=card) * 0.3
+    cm = torch.randn((b, l, n), generator=g, device=card) * 0.3
+    return dtx, la, bm, cm
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,h,p,n,q", SSD_CASES)
+@pytest.mark.parametrize("with_init", [False, True])
+def test_ssd_kernel_matches_plain(card, b, l, h, p, n, q, with_init):
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_ref
+
+    dtx, la, bm, cm = _ssd_inputs(card, l * h + p, b, l, h, p, n)
+    init = (torch.randn((b, h, p, n), device=card) * 0.5
+            if with_init else None)
+    before = ssd_ops.LAUNCHES.launches
+    y, s = ssd_ops.ssd_scan_cuda(dtx, la, bm, cm, chunk=q, init_state=init,
+                                 return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES.launches - before == 1
+    y_ref, s_ref = ssd_chunked_ref(dtx, la, bm, cm, chunk=q, init_state=init)
+    assert _rel(y, y_ref) < 1e-4 and _rel(s, s_ref) < 1e-4
+    if l <= 256:
+        y_naive, s_naive = ssd_ref(dtx, la, bm, cm, init_state=init)
+        assert _rel(y, y_naive) < 1e-4 and _rel(s, s_naive) < 1e-4
+    # the routed entry points launch the same kernel
+    torch.testing.assert_close(ssd_ops.ssd(dtx, la, bm, cm, chunk=q,
+                                           init_state=init), y, atol=0, rtol=0)
+    y2, s2 = ssd_ops.ssd_with_state(dtx, la, bm, cm, chunk=q,
+                                    init_state=init)
+    assert torch.equal(y2, y) and torch.equal(s2, s)
+    assert ssd_ops.LAUNCHES.launches - before == 3
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_state_continuity(card):
+    """Two launches chained through the final state equal one long one."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    dtx, la, bm, cm = _ssd_inputs(card, 7, 1, 256, 2, 32, 64)
+    y_full, s_full = ssd_ops.ssd_with_state(dtx, la, bm, cm, chunk=64)
+    y_a, s_a = ssd_ops.ssd_with_state(dtx[:, :128].contiguous(),
+                                      la[:, :128].contiguous(),
+                                      bm[:, :128].contiguous(),
+                                      cm[:, :128].contiguous(), chunk=64)
+    y_b, s_b = ssd_ops.ssd_with_state(dtx[:, 128:].contiguous(),
+                                      la[:, 128:].contiguous(),
+                                      bm[:, 128:].contiguous(),
+                                      cm[:, 128:].contiguous(), chunk=64,
+                                      init_state=s_a)
+    assert _rel(torch.cat([y_a, y_b], 1), y_full) < 1e-5
+    assert _rel(s_b, s_full) < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_kernel_gradient_matches_plain(card, with_state):
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
+
+    b, l, h, p, n, q = 2, 128, 3, 32, 16, 32
+    base = list(_ssd_inputs(card, 11, b, l, h, p, n))
+    base.append(torch.randn((b, h, p, n), device=card) * 0.5)
+    weights = torch.randn((b, l, h, p), device=card)
+    wstate = torch.randn((b, h, p, n), device=card)
+
+    def grads(fn):
+        xs = [t.clone().requires_grad_(True) for t in base]
+        y, s = fn(*xs)
+        loss = (y * weights).sum() + ((s * wstate).sum() if with_state
+                                      else 0.0)
+        return torch.autograd.grad(loss, xs)
+
+    before = ssd_ops.LAUNCHES.launches
+    got = grads(lambda *xs: (ssd_ops.SSDScan.apply(*xs, q, True)
+                             if with_state else
+                             (ssd_ops.SSDScan.apply(*xs, q, False), None)))
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES.launches - before == 1  # the backward launches none
+    want = grads(lambda *xs: ssd_chunked_ref(*xs[:4], chunk=q,
+                                             init_state=xs[4]))
+    for g, w in zip(got, want):
+        assert g is not None and _rel(g, w) < 1e-5
+
+
+@pytest.mark.gpu
+def test_ssd_refusals_on_card_count_nothing(card):
+    from repro_torch.kernels.profiling import count_launches
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    dtx, la, bm, cm = _ssd_inputs(card, 3, 1, 256, 2, 64, 128)
+    bad = [
+        (lambda: ssd_ops.ssd(dtx, la, bm, cm, chunk=96), "L % chunk"),
+        (lambda: ssd_ops.ssd(dtx, la, bm, cm, chunk=256), "chunk <= 128"),
+        (lambda: ssd_ops.ssd(dtx.double(), la, bm, cm), "float32"),
+        (lambda: ssd_ops.ssd(dtx.bfloat16(), la, bm, cm), "float32"),
+        (lambda: ssd_ops.ssd(dtx.transpose(2, 3).contiguous().transpose(
+            2, 3), la, bm, cm), "contiguous"),
+        (lambda: ssd_ops.ssd(dtx, la, bm.cpu(), cm), "CUDA device"),
+        (lambda: ssd_ops.ssd(dtx, la, bm, cm, impl="pallas"), "impl"),
+        (lambda: ssd_ops.ssd(dtx, la, bm, cm,
+                             init_state=torch.zeros(1, 2, 64, 64,
+                                                    device=card)),
+         "init_state"),
+        (lambda: ssd_ops.ssd_scan_cuda(
+            torch.zeros(1, 128, 1, 128, device=card), la[:, :128, :1],
+            torch.zeros(1, 128, 256, device=card),
+            torch.zeros(1, 128, 256, device=card)), "shared memory"),
+    ]
+    before = ssd_ops.LAUNCHES.launches
+    with count_launches() as counts:
+        for call, match in bad:
+            with pytest.raises(ValueError, match=match):
+                call()
+    assert counts == {}
+    assert ssd_ops.LAUNCHES.launches == before
+
+
+# ---------------------------------------------------------------------------
+# Gradients and the train path on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_gradient_matches_plain(card, window, dtype):
+    """B8's output carries a graph; q / k / v gradients through it equal the
+    plain attention's (float32 within 2e-5: the backward is the plain
+    version's own; bf16 within 2e-2 of max|plain| for the forward's
+    rounding)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    base = _attn_inputs(card, 5, 2, 4, 2, 200, 32, dtype)
+    w = torch.randn((2, 4, 200, 32), device=card)
+
+    def grads(fn):
+        xs = [t.clone().requires_grad_(True) for t in base]
+        out = fn(*xs)
+        assert out.grad_fn is not None
+        return torch.autograd.grad((out.float() * w).sum(), xs)
+
+    before = fa_ops.LAUNCHES.launches
+    got = grads(lambda q, k, v: fa_ops.attention(q, k, v, window=window))
+    got_raw = grads(lambda q, k, v: fa_ops.flash_attention_cuda(
+        q, k, v, window=window))
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES.launches - before == 2   # backwards launch none
+    want = grads(lambda q, k, v: attention_ref(q, k, v, window=window))
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for g, g2, wnt in zip(got, got_raw, want):
+        assert torch.equal(g, g2)
+        assert float((g.float() - wnt.float()).abs().max()
+                     / wnt.float().abs().max()) < tol
+
+
+@pytest.mark.gpu
+def test_dense_train_step_on_card_gets_attention_gradients(card):
+    """A dense model's train step through B8 equals the step through the
+    plain attention: the gradient reaches q, k and v."""
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.train.train_step import build_train_step, \
+        init_train_state
+
+    cfg = get_smoke_config("llama3.2-3b")
+    tc = TrainConfig(warmup_steps=1, remat_policy="full",
+                     grad_allreduce_dtype="float32")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=card)
+    out = {}
+    for impl in ("auto", "ref"):
+        state = init_train_state(cfg, tc, device=card)
+        state, m = build_train_step(cfg, tc, attn_impl=impl)(
+            state, {"tokens": toks})
+        out[impl] = (state, m)
+    (s_k, m_k), (s_p, m_p) = out["auto"], out["ref"]
+    assert float(m_k["loss"]) == pytest.approx(float(m_p["loss"]), rel=1e-5)
+    assert float(m_k["grad_norm"]) == pytest.approx(float(m_p["grad_norm"]),
+                                                    rel=1e-4)
+    for name in ("q", "k", "v"):
+        torch.testing.assert_close(
+            s_k.params["layers"][0]["attn"][name]["w"],
+            s_p.params["layers"][0]["attn"][name]["w"], atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy,per_layer", [
+    ("none", 1), ("full", 2), ("names", 2), ("minimal", 2)])
+def test_ssm_train_step_on_card(card, policy, per_layer, monkeypatch):
+    """mamba2-smoke trains on the card through B9: one launch per layer per
+    forward (twice with remat), nothing else counted, and the step equals
+    the step through the plain chunked scan (loss 1e-5, parameters 1e-4)."""
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import ssm
+    from repro_torch.train.train_step import build_train_step, \
+        init_train_state
+
+    cfg = get_smoke_config("mamba2-1.3b")
+    tc = TrainConfig(warmup_steps=1, remat_policy=policy)
+    toks = torch.randint(0, cfg.vocab_size, (2, 96), device=card)
+    state = init_train_state(cfg, tc, device=card)
+    before = ssd_ops.LAUNCHES.launches
+    state, m = build_train_step(cfg, tc)(state, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES.launches - before == per_layer * cfg.num_layers
+    # every SSM block's scan through the plain chunked version, asked for
+    monkeypatch.setattr(ssm, "ssd", lambda *a, impl, **k: ssd_ops.ssd(
+        *a, impl="chunked_ref", **k))
+    plain = init_train_state(cfg, tc, device=card)
+    plain, mp = build_train_step(cfg, tc)(plain, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert ssd_ops.LAUNCHES.launches - before == per_layer * cfg.num_layers
+    assert float(m["loss"]) == pytest.approx(float(mp["loss"]), rel=1e-5)
+    assert float(m["grad_norm"]) == pytest.approx(float(mp["grad_norm"]),
+                                                  rel=1e-4)
+    for a, b in zip(state.params["layers"], plain.params["layers"]):
+        torch.testing.assert_close(a["ssm"]["in_proj"]["w"],
+                                   b["ssm"]["in_proj"]["w"], atol=1e-4,
+                                   rtol=1e-4)

@@ -66,6 +66,17 @@ SLICE_MODULES = [
     "repro_torch.serve.eviction",
     "repro_torch.serve.engine",
     "repro_torch.launch.serve",
+    "repro_torch.configs.mamba2_1_3b",
+    "repro_torch.kernels.ssd_scan.ref",
+    "repro_torch.kernels.ssd_scan.ops",
+    "repro_torch.models.ssm",
+    "repro_torch.train.tree",
+    "repro_torch.train.loss",
+    "repro_torch.train.optimizer",
+    "repro_torch.train.train_step",
+    "repro_torch.data.pipeline",
+    "repro_torch.checkpoint.checkpoint",
+    "repro_torch.launch.train",
 ]
 
 
@@ -83,8 +94,9 @@ def test_every_module_imports_without_nvcc_or_a_card():
 def test_every_cuda_source_is_built():
     sources = {p.stem for p in (ROOT / "src/repro_torch/csrc").glob("*.cu")}
     assert sources == set(_build.SOURCES)
+    assert len(_build.SOURCES) == 9
     assert {"hierarchy_update", "rmq_short", "rmq_bulk",
-            "flash_attention"} <= sources
+            "flash_attention", "ssd_scan"} <= sources
 
 
 def test_build_defaults_to_the_card_and_never_falls_back(monkeypatch):
