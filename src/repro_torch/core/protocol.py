@@ -178,14 +178,15 @@ def mutation_backend(backend: str, device) -> str:
 def coerce_values(x, device) -> torch.Tensor:
     """The input as a contiguous 1-D float32/float64 tensor on ``device``.
 
-    Other real dtypes become float32, as in the reference.  bfloat16
-    (and float16) inputs are refused: the port has no bf16 path yet
-    (ROADMAP).
+    Other real dtypes, float16 included, become float32 (exactly, for
+    float16), as in the reference.  bfloat16 inputs are refused: the
+    reference keeps them as bf16 and the port has no bf16 path yet
+    (ROADMAP A3).
     """
     x = torch.as_tensor(x)
     if x.ndim != 1:
         raise ValueError(f"input must be rank-1, got shape {tuple(x.shape)}")
-    if x.dtype in (torch.bfloat16, torch.float16):
+    if x.dtype == torch.bfloat16:
         raise TypeError(
             f"{x.dtype} inputs are not supported by the port yet; pass "
             "float32 or float64 values")

@@ -12,8 +12,11 @@ port's ``"cuda"``.
 The kernel takes float32 and bfloat16, head dims 16 / 32 / 64 / 128, any
 S (the reference sends ``S % 128 != 0`` to its jnp path), equal query and
 key lengths, causal attention and a static ``window`` (an int >= 1 or
-None).  The launch counter and ``record_launch("flash_attention")`` move
-only after a launch succeeded: a refused call counts nothing.
+None).  bfloat16 runs on the tensor cores (``wgmma``, P rounded to bf16
+before P v), float32 on the CUDA cores (float32 throughout); both are
+hand-written kernels of ``csrc/flash_attention.cu``, chosen by dtype.
+The launch counter and ``record_launch("flash_attention")`` move only
+after a launch succeeded: a refused call counts nothing.
 
 Gradient: :func:`flash_attention_cuda` goes through :class:`FlashAttention`,
 whose forward launches the kernel and whose backward recomputes the plain
@@ -108,6 +111,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     win = _check_window(window)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _build.require_cuda("flash_attention", q, k, v)
+    # the kernels copy 16 bytes at a time: a view at an odd offset is copied
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     b, hq, s, d = q.shape
     if scale is None:
         scale = 1.0 / (d ** 0.5)

@@ -129,3 +129,44 @@ def test_explicit_plan_and_capacity():
                      with_positions=True, backend="jax")
     np.testing.assert_array_equal(r.query_index(ls, rs).numpy(),
                                   np.asarray(ref.query_index(ls, rs)))
+
+
+def _assert_same_planes(port_h, ref_h):
+    for name in ("base", "upper", "upper_pos"):
+        got = getattr(port_h, name).numpy()
+        want = np.asarray(getattr(ref_h, name))
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_float16_input_is_cast_as_the_reference_casts_it(backend):
+    x = tied_input(np.random.default_rng(16), 5000, np.float16)
+    ls, rs = make_queries(5000, 300, "mixed", seed=17)
+    ref = JRMQ.build(jnp.asarray(x), c=16, t=4, with_positions=True,
+                     backend="jax")
+    got = RMQ.build(x, c=16, t=4, with_positions=True, backend=backend,
+                    device="cpu")
+    assert got.value_dtype == torch.float32
+    _assert_same_planes(got.hierarchy, ref.hierarchy)
+    np.testing.assert_array_equal(got.query(ls, rs).numpy(),
+                                  np.asarray(ref.query(ls, rs)))
+    np.testing.assert_array_equal(got.query_index(ls, rs).numpy(),
+                                  np.asarray(ref.query_index(ls, rs)))
+
+
+def test_float16_input_through_streaming_from_array():
+    from repro.streaming import StreamingRMQ as JStreaming
+    from repro_torch.streaming import StreamingRMQ
+
+    x = tied_input(np.random.default_rng(18), 3000, np.float16)
+    ls, rs = make_queries(3000, 300, "mixed", seed=19)
+    ref = JStreaming.from_array(jnp.asarray(x), c=8, t=2, capacity=4096,
+                                with_positions=True, backend="jax")
+    got = StreamingRMQ.from_array(x, c=8, t=2, capacity=4096,
+                                  with_positions=True, device="cpu")
+    _assert_same_planes(got.hierarchy, ref.hierarchy)
+    np.testing.assert_array_equal(got.query(ls, rs).numpy(),
+                                  np.asarray(ref.query(ls, rs)))
+    np.testing.assert_array_equal(got.query_index(ls, rs).numpy(),
+                                  np.asarray(ref.query_index(ls, rs)))

@@ -150,3 +150,57 @@ def _t(*shape, dtype=torch.float32):
         "unknown-impl"])
 def test_wrapper_refusals_count_nothing(case, match):
     _refused(case, match)
+
+
+# The card's bf16 gate on B8 (chip_smoke.py's ``bf16_gate``): allclose at
+# 2e-2 and max|diff| / rms(plain) <= BF16_RMS_LIMIT.
+BF16_RMS_LIMIT = 0.3
+
+
+def _emulate_bf16_kernel(q, k, v, window, keys_per_tile=64):
+    """The bf16 tensor-core kernel's rounding, in plain float32: bf16 q / k
+    / v enter the products exactly, the scale (folded with log2 e) is
+    applied to the float32 scores, the online softmax runs per tile of 64
+    keys from the diagonal down, P is rounded to bf16 before P v, o is
+    summed in float32 and rounded to bf16 once."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    scale_log2 = torch.tensor(1.0 / d ** 0.5, dtype=torch.float32) * \
+        torch.tensor(np.log2(np.e), dtype=torch.float32)
+    rows = torch.arange(s)[:, None]
+    m = torch.full((b, hq, s, 1), -1e30)
+    l = torch.zeros((b, hq, s, 1))
+    acc = torch.zeros((b, hq, s, d))
+    for j in reversed(range(-(-s // keys_per_tile))):
+        keys = torch.arange(j * keys_per_tile,
+                            min((j + 1) * keys_per_tile, s))[None, :]
+        sc = qf @ kf[:, :, keys[0]].transpose(-1, -2) * scale_log2
+        hidden = keys > rows
+        if window is not None:
+            hidden |= keys <= rows - window
+        sc = sc.masked_fill(hidden, -1e30)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(sc - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, keys[0]]
+        m = m_new
+    return (acc / torch.where(l == 0, torch.ones_like(l), l)).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("window", [None, 128])
+def test_bf16_kernel_rounding_passes_the_card_gate(window):
+    """Rounding P to bf16 before P v, as the tensor-core kernel does, stays
+    inside the card's bf16 gate against the plain attention."""
+    _, (q, k, v) = _qkv(1024 + (window or 0), 1, 6, 2, 1024, 128,
+                        "bfloat16")
+    got = _emulate_bf16_kernel(q, k, v, window).float()
+    want = attention_ref(q, k, v, window=window).float()
+    assert torch.isfinite(got).all()
+    close = torch.allclose(got, want, atol=2e-2, rtol=2e-2)
+    ratio = float((got - want).abs().max() / want.pow(2).mean().sqrt())
+    assert close and ratio <= BF16_RMS_LIMIT, (close, ratio)

@@ -362,10 +362,12 @@ def _attn_inputs(card, seed, b, hq, hkv, s, d, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("group", [1, 3, 8])
-@pytest.mark.parametrize("window", [None, 128, 1024])
-@pytest.mark.parametrize("s", [128, 1971, 2048])
+@pytest.mark.parametrize("window", [None, 128, 1024, 1, 63, 64, 65])
+@pytest.mark.parametrize("s", [128, 1971, 2048, 63, 64, 65, 127, 129])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(card, d, group, window, s, dtype):
+    """Lengths and windows at and beside the bf16 kernel's tiles (128
+    query rows, 64 keys), where it masks; interior tiles go unmasked."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -394,6 +396,29 @@ def test_flash_first_token_and_scale(card):
     torch.testing.assert_close(fa_ops.attention(q, k, v, scale=0.3),
                                attention_ref(q, k, v, scale=0.3),
                                atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_views_at_odd_offsets(card, dtype):
+    """The kernels copy 16 bytes at a time; a contiguous view that starts
+    off a 16-byte boundary is copied by the wrapper, not misread."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = _attn_inputs(card, 7, 1, 4, 2, 200, 64, dtype)
+    flat = torch.empty(q.numel() + 1, dtype=dtype, device=card)
+    flat[1:] = q.flatten()
+    q_odd = flat[1:].view(q.shape)
+    assert q_odd.is_contiguous() and q_odd.data_ptr() % 16
+    before = fa_ops.LAUNCHES.launches
+    got = fa_ops.attention(q_odd, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES.launches - before == 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(),
+                               attention_ref(q, k, v).float(),
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.gpu
