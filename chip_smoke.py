@@ -79,7 +79,9 @@ outside the repository.  Phases:
    and no other kernel runs.  B9 is held to its plain chunked version at
    the training shape (y and the final state, with and without an initial
    state, max|diff| / max|plain| under 1e-4, with a control that drops the
-   carried state and must fail), the autograd wiring of its gradient
+   carried state and must fail, and a second control, the plain version
+   with one TF32 pass per product, which must fail too), the autograd
+   wiring of its gradient
    (``SSDScan``'s backward is autograd of the plain version; the CPU tests
    hold the gradients to ``jax.grad``), the whole model's step 0 (loss,
    grad norm) to the same step through the plain scan (limits set between
@@ -87,8 +89,12 @@ outside the repository.  Phases:
    must fail), and a restart drill (``--smoke``, a failure before step 2)
    to the final loss of an uninterrupted run.  Times: step
    time, tokens/s, model FLOPs and their share of the bf16 peak, B9 beside
-   its operations bound and its plain version, a ``torch.profiler`` top-12
-   of one step, peak memory.
+   its bound at float32 accuracy on the tensor cores (its products split
+   3xTF32: three TF32 passes at 495 TFLOP/s, or its bytes) and the
+   CUDA-core figure, its three CUDA kernels' shares of a call
+   (``torch.profiler``) with their ``-Xptxas -v`` registers and spills,
+   its plain version, a ``torch.profiler`` top-12 of one step, peak
+   memory.
 
 Each phase sets every launch counter to 0 just before it drives its
 path and reads them just after.  The output ends with one
@@ -115,6 +121,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12    # H100 SXM TF32 tensor cores, dense
 BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 SECTOR = 32                # bytes of one device-memory access sector
 
@@ -1169,21 +1176,23 @@ def serving_phase(torch, seed):
 # ---------------------------------------------------------------------------
 G_BATCH, G_SEQ, G_STEPS = 8, 2048, 5   # one warm-up step, then four timed
 # B9 against its plain version: max|diff| / max|plain| of y and the final
-# state.  Both compute the same float32 chunk algebra with sums in other
-# orders; measured 1.6e-6 (y) and 1.3e-6 (state) at the training shape on
-# an "NVIDIA H100 80GB HBM3, 700.00 W".  The limit is the reference's own
-# SSD test tolerance, 60x the measured value; the control (the state
-# carried into the middle chunk dropped) reads 0.52.
+# state.  Both compute the same chunk algebra at float32 accuracy (B9's
+# products split 3xTF32) with sums in other orders; measured 2.6e-6 (y)
+# and 1.5e-6 (state) at the training shape on an "NVIDIA H100 80GB HBM3,
+# 700.00 W".  The limit is the reference's own SSD test tolerance, about
+# 40x the measured value; the controls read 0.52 (the state carried into
+# the middle chunk dropped) and 5.6e-4 (the plain version at one TF32
+# pass per product).
 SSD_REL_LIMIT = 1e-4
 # The whole model with B9 against the same model with the plain scan, step
 # 0: both run bf16 matmuls on the same weights and data; the scan outputs
 # differ by about 1e-6 relative before they are rounded to bf16, so a bf16
 # rounding flip now and then is carried through 48 layers.  Measured on an
-# "NVIDIA H100 80GB HBM3, 700.00 W" (the same in every run): 6.0e-6 (loss)
-# and 1.6e-4 (grad norm) relative; the control (every layer's plain scan
-# with the state carried into the middle chunk dropped) reads 2.8e-4 and
-# 1.8e-2.  Each limit sits about 7x above the first reading and 7-12x
-# below the control's.
+# "NVIDIA H100 80GB HBM3, 700.00 W" (the same in every run of a kernel):
+# with the CUDA-core B9 6.0e-6 (loss) and 1.6e-4 (grad norm) relative,
+# with the 3xTF32 B9 2.6e-5 and 9.5e-6; the control (every layer's plain
+# scan with the state carried into the middle chunk dropped) reads 2.8e-4
+# and 1.8e-2, 7-12x above the limits.
 G_LOSS_RTOL, G_GNORM_RTOL = 4e-5, 1.5e-3
 
 
@@ -1271,7 +1280,22 @@ def ssd_check(torch, seed):
           f"max|diff|/max|plain| {c}")
     require(c > SSD_REL_LIMIT, "G control: the ssd limit accepted a scan "
             "with its carried state dropped")
-    del y_ref
+    # second control: the plain version with its products at one TF32 pass
+    # (what the kernel would compute without its 3xTF32 split)
+    keep = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y_tf32, s_tf32 = ssd_chunked_ref(dtx, la, bm, cm, chunk=q)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = keep
+    _, s_ref = ssd_chunked_ref(dtx, la, bm, cm, chunk=q)
+    one = max(rel_err(y_tf32, y_ref), rel_err(s_tf32, s_ref))
+    print(f"G control (plain, allow_tf32 = True: one TF32 pass per product):"
+          f" max|diff|/max|plain| y {rel_err(y_tf32, y_ref)}, final state "
+          f"{rel_err(s_tf32, s_ref)}; allow_tf32 set back to {keep}")
+    require(one > SSD_REL_LIMIT, "G control: the ssd limit accepted the "
+            "plain version at one TF32 pass per product")
+    del y_ref, y_tf32, s_tf32, s_ref
 
     # the gradient's autograd wiring: SSDScan's backward is autograd of the
     # plain version, so this reads 0 unless the wiring is wrong (the CPU
@@ -1297,8 +1321,10 @@ def ssd_check(torch, seed):
     return worst
 
 
-def time_ssd(torch, seed):
-    """B9 at the training shape beside its bound and its plain version."""
+def time_ssd(torch, seed, report: str):
+    """B9 at the training shape beside its bound, the CUDA-core figure and
+    its plain version; each CUDA kernel's share of a call from
+    ``torch.profiler`` and its registers and spills from ``report``."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 
@@ -1317,8 +1343,24 @@ def time_ssd(torch, seed):
         "plain_ms": time_ms(torch, lambda: ssd_chunked_ref(
             dtx, la, bm, cm, chunk=q), 3, warmup=1),
         "flops": 2 * macs, "bytes": nbytes,
-        "bound": bound_ms(nbytes, 2 * macs),
+        # float32 accuracy on the tensor cores: three TF32 passes
+        "bound": bound_ms(nbytes, 3 * 2 * macs, TF32_OPS_PER_S),
+        "cuda_core_bound": bound_ms(nbytes, 2 * macs),
     }
+    out["bound_share"] = out["bound"][0] / out["ms"]
+    prof = profile_top(torch, lambda: [ssd_ops.ssd_scan_cuda(
+        dtx, la, bm, cm, chunk=q) for _ in range(5)], k=8)
+    if prof is not None:
+        mine = [r for r in prof["top"] if "ssd::" in r[0]]
+        busy = sum(r[1] for r in mine)
+        out["kernel_shares"] = {r[0].split("(")[0].split("ssd::")[1]:
+                                [r[1] / 5, r[1] / busy] for r in mine}
+    out["ptxas"] = {k: ptxas_of(report, entry) for k, entry in (
+        ("prep_kernel", "prep_kernel"),
+        ("state_kernel<true>", "state_kernelILb1"),
+        ("state_kernel<false>", "state_kernelILb0"),
+        ("chunk_kernel<true>", "chunk_kernelILb1"),
+        ("chunk_kernel<false>", "chunk_kernelILb0"))}
     # the backward a train step runs once per layer: the plain chunked
     # scan recomputed and differentiated
     xs = [t.requires_grad_(True) for t in (dtx, la, bm, cm)]
@@ -1363,7 +1405,7 @@ def restart_drill(torch):
             "uninterrupted one")
 
 
-def training_phase(torch, seed):
+def training_phase(torch, seed, report: str):
     """Phase 12: mamba2-1.3b through launch/train.py on the card."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data import SyntheticTokenDataset
@@ -1406,7 +1448,7 @@ def training_phase(torch, seed):
     step_s = sum(timed) / len(timed)
     flops = {"6NT": 6 * n_params * tokens,
              "remat forward 2NT": 2 * n_params * tokens}
-    b9 = time_ssd(torch, seed)
+    b9 = time_ssd(torch, seed, report)
     flops["ssd_scan"] = per_step * b9["flops"]
     total = sum(flops.values())
     print(f"G train loop: launches {launches} ({per_step} ssd_scan a step: "
@@ -1670,10 +1712,17 @@ def run(torch, seed: int):
     gc.collect()
     torch.cuda.empty_cache()
     errors["ssd_scan"] = ssd_check(torch, seed)
-    trained, t_ssd = training_phase(torch, seed)
+    trained, t_ssd = training_phase(torch, seed,
+                                    reports.get("ssd_scan", ""))
     main_launches["ssd_scan"] = trained["ssd_scan"]
     print(f"G ssd_scan at {ssd_shape()[:5]}, chunk {ssd_shape()[5]} (ms, "
           f"CUDA events): {json.dumps(t_ssd)}")
+    print(f"G ssd_scan: {t_ssd['ms']} ms, bound {t_ssd['bound'][0]} ms "
+          f"({t_ssd['bound'][1]}; 3 x {t_ssd['flops']} flop at 495 TFLOP/s "
+          f"TF32) = {t_ssd['bound_share']} of its time; CUDA-core figure "
+          f"{t_ssd['cuda_core_bound'][0]} ms; per kernel [ms a call, share "
+          f"of the kernels' time]: {json.dumps(t_ssd.get('kernel_shares'))}"
+          f"; ptxas: {json.dumps(t_ssd['ptxas'])}")
     ms["ssd_scan"] = t_ssd["ms"]
     plain["ssd_scan"] = t_ssd["plain_ms"]
     bounds["ssd_scan"] = t_ssd["bound"]

@@ -54,21 +54,23 @@ LAUNCHES = profiling.KernelCounter("ssd_scan")
 _SIGNATURES = {
     "ssd_scan_fwd": (
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, *([ctypes.c_void_p] * 12),
     ),
 }
 
 
 def smem_bytes(q: int, p: int, n: int) -> int:
-    """Shared memory of the larger of the kernel's two blocks at chunk
-    ``q``, head dim ``p``, state ``n`` (the layout of
-    ``csrc/ssd_scan.cu``)."""
-    qs, ns = -(-q // 4) * 4, -(-n // 4) * 4
-    scan = qs * ns + qs * p + ns * p + 64 * ns + 64 * qs + 2 * qs
-    gram = 32 * n + q * (n + 1)
-    return 4 * max(scan, gram)
+    """Shared memory of the largest of the kernel's three blocks at chunk
+    ``q``, state ``n`` (the layout of ``csrc/ssd_scan.cu``; the head dim
+    ``p`` is tiled by 64 and does not enter): the prep block stages C and
+    B whole, the state block two stages of hi and lo planes of its two
+    operands, the chunk block cum and then S or dtx as (hi, lo) words."""
+    del p
+    qr = -(-q // 16) * 16
+    prep = 2 * qr * (-(-n // 8) * 8 + 4)
+    state = 2 * 2 * (32 * 72 + 16 * 136)
+    chunk = qr + max(64 * (2 * (-(-n // 16) * 16) + 16), qr // 2 * 66 * 4)
+    return 4 * max(prep, state, chunk)
 
 
 def _check_operands(dtx, log_a, Bm, Cm, chunk, init_state) -> None:
@@ -104,8 +106,9 @@ def _check_operands(dtx, log_a, Bm, Cm, chunk, init_state) -> None:
             f"ssd_scan: chunk {chunk}, head dim {p}, state {n} need "
             f"{smem_bytes(chunk, p, n)} bytes of shared memory, more than "
             f"{_MAX_SMEM}")
-    if b > 65535 or l // chunk > 65535:
-        raise ValueError("ssd_scan: batch and L / chunk must be < 65536")
+    if b > 65535 or l // chunk > 65535 or h > 65535:
+        raise ValueError("ssd_scan: batch, heads and L / chunk must be < "
+                         "65536")
 
 
 def ssd_scan_cuda(
@@ -117,9 +120,9 @@ def ssd_scan_cuda(
     init_state: Optional[torch.Tensor] = None,
     return_state: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One counted launch of the CUDA kernel (two CUDA kernels: the Gram
-    matrices C B^T per chunk, then the scan): ``(y, final_state or
-    None)``."""
+    """One counted launch of the CUDA kernel (three CUDA kernels: the Gram
+    matrices C B^T, cum and B split per chunk, the chunk states walked per
+    head, the chunk scan): ``(y, final_state or None)``."""
     _check_operands(dtx, log_a, Bm, Cm, chunk, init_state)
     _build.require_cuda("ssd_scan", dtx, log_a, Bm, Cm, init_state)
     b, l, h, p = dtx.shape
@@ -127,15 +130,23 @@ def ssd_scan_cuda(
     y = torch.empty_like(dtx)
     final = (torch.empty((b, h, p, n), dtype=torch.float32,
                          device=dtx.device) if return_state else None)
-    gram = torch.empty((b, l // chunk, chunk, chunk), dtype=torch.float32,
-                       device=dtx.device)
+    # scratch: the Gram matrices, cum per head, B split for the state walk
+    # (16 MB) and the state entering each chunk (268 MB at mamba2-1.3b's
+    # training shape)
+    nc = l // chunk
+    scratch = dict(dtype=torch.float32, device=dtx.device)
+    gram = torch.empty((b, nc, chunk, chunk), **scratch)
+    cum = torch.empty((b, nc, h, chunk), **scratch)
+    bfrag = torch.empty((b, nc, -(-chunk // 32), -(-n // 64), 4096), **scratch)
+    states = torch.empty((b, nc, h, p, n), **scratch)
     lib = _build.load("ssd_scan", _SIGNATURES)
     with torch.cuda.device(dtx.device):
         rc = lib.ssd_scan_fwd(
             b, l, h, p, n, chunk, _build.ptr(dtx), _build.ptr(log_a),
             _build.ptr(Bm), _build.ptr(Cm), _build.ptr(gram),
-            _build.ptr(init_state), _build.ptr(y), _build.ptr(final),
-            _build.stream_of(dtx.device))
+            _build.ptr(cum), _build.ptr(bfrag), _build.ptr(states),
+            _build.ptr(init_state),
+            _build.ptr(y), _build.ptr(final), _build.stream_of(dtx.device))
     _build.check(lib, rc, "ssd_scan")
     LAUNCHES.hit()
     profiling.record_launch(

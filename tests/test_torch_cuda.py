@@ -511,18 +511,26 @@ def test_serving_on_card_picks_the_plain_victims(card, monkeypatch):
 
 # ---------------------------------------------------------------------------
 # B9: the SSD chunk scan.  The kernel and the plain chunked version compute
-# the same float32 chunk algebra with sums in other orders (FMA tiles
-# against einsums), so they are held within 1e-4 of max|plain|, the
-# reference's own kernel-test tolerance; measured errors are about 1e-6.
+# the same chunk algebra at float32 accuracy with sums in other orders
+# (3xTF32 tensor-core tiles against float32 einsums), so they are held
+# within 1e-4 of max|plain|, the reference's own kernel-test tolerance;
+# measured errors are about 1e-6.
 # ---------------------------------------------------------------------------
 SSD_CASES = [
     # (batch, L, H, P, N, chunk)
-    (2, 256, 4, 64, 128, 128),   # mamba2 geometry
-    (1, 128, 2, 64, 16, 128),    # test_kernels.py's hymba case
+    (2, 256, 4, 64, 128, 128),   # mamba2 geometry, two chunks
+    (1, 128, 2, 64, 16, 128),    # test_kernels.py's hymba case, one chunk
     (1, 512, 1, 32, 64, 128),
     (2, 256, 3, 32, 16, 128),    # hymba-1.5b (P 32, N 16)
     (2, 96, 4, 32, 16, 32),      # mamba2-smoke (P 32, N 16, Q 32)
     (1, 60, 2, 24, 10, 20),      # ragged tiles: Q, P, N not multiples of 32
+    (1, 128, 2, 64, 128, 128),   # one chunk at the mamba2 widths
+    (1, 384, 2, 64, 128, 128),   # an odd chunk count (3)
+    (2, 64, 3, 12, 16, 16),      # H * P = 36: P off the 8-wide MMA tile
+    (1, 256, 2, 64, 100, 64),    # N 100: a second, partial 64-wide N tile
+    (1, 128, 2, 128, 64, 64),    # P 128: two 64-wide P tiles
+    (1, 192, 2, 100, 128, 96),   # P 100 (a partial P tile), Q 96 (6 m-tiles)
+    (1, 64, 2, 33, 20, 16),      # odd P: unaligned rows, single stores
 ]
 
 

@@ -239,3 +239,163 @@ def test_ssdscan_under_each_remat_policy(monkeypatch, policy, launches):
     x2 = arrs[0].clone().requires_grad_(True)
     want = torch.autograd.grad(block(x2).square().sum(), x2)[0]
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's arithmetic, rehearsed on the CPU: the SSD form in four
+# steps (Gram, chunk states, state passing, chunk scan) with every product
+# split 3xTF32 as the tensor cores take it (hi = tf32(a) to nearest, ties
+# away, as cvt.rna; lo = tf32(a - hi) to nearest even, as cvt.rn; a b ~
+# hi_a hi_b + hi_a lo_b + lo_a hi_b in float32).  Held within 1e-4 of
+# max|ref| (the card's gate for the kernel): the split keeps float32
+# accuracy, so the reading is about 1e-6; one TF32 pass reads about 5e-4.
+# ---------------------------------------------------------------------------
+SPLIT_REL = 1e-4
+
+
+def _tf32(x):
+    """Round float32 to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` does: add half of the 13 dropped bits to
+    the magnitude, then clear them."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_even(x):
+    """Round float32 to TF32 to nearest, ties to even, as
+    ``cvt.rn.tf32.f32`` does: add just under half of the dropped bits, plus
+    the kept last bit, then clear them."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x0FFF + ((b >> 13) & 1)) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32_even(x - hi)
+
+
+def _mm3(a, b):
+    """``a @ b`` from TF32 halves: the three products, lo x lo dropped."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def ssd_split_tf32(dtx, log_a, Bm, Cm, chunk, init_state=None, mm=_mm3):
+    """The kernel's four steps in plain float32 with every product taken
+    by ``mm`` (3xTF32 unless a test asks otherwise):
+    ``(y, final_state)``."""
+    b, l, h, p = dtx.shape
+    n = Bm.shape[-1]
+    q, nc = chunk, l // chunk
+    x = dtx.float().reshape(b, nc, q, h, p).permute(0, 1, 3, 2, 4)
+    cum = torch.cumsum(log_a.float().reshape(b, nc, q, h), 2)
+    cum = cum.permute(0, 1, 3, 2)                           # (B, NC, H, Q)
+    total = cum[..., -1]                                    # (B, NC, H)
+    bm = Bm.float().reshape(b, nc, 1, q, n)
+    cm = Cm.float().reshape(b, nc, 1, q, n)
+    # 1. Gram, once per (b, chunk)
+    gram = mm(cm, bm.transpose(-1, -2))                   # (B, NC, 1, Q, Q)
+    # 2. chunk states (w * dtx)^T B, w_j = exp(total - cum_j)
+    w = torch.exp(total[..., None] - cum)
+    s = mm((w[..., None] * x).transpose(-1, -2), bm)      # (B, NC, H, P, N)
+    # 3. state passing from init_state
+    state = (torch.zeros((b, h, p, n)) if init_state is None
+             else init_state.float())
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = torch.exp(total[:, c])[..., None, None] * state + s[:, c]
+    prev = torch.stack(entering, 1)
+    # 4. chunk scan: exp(cum) (C S^T) + M dtx, M masked before the exp
+    tril = torch.tril(torch.ones((q, q), dtype=torch.bool))
+    diff = cum[..., :, None] - cum[..., None, :]
+    decay = torch.exp(torch.where(tril, diff, torch.full_like(diff,
+                                                              -torch.inf)))
+    y = (torch.exp(cum)[..., None] * mm(cm, prev.transpose(-1, -2))
+         + mm(gram * decay, x))                           # (B, NC, H, Q, P)
+    return y.permute(0, 1, 3, 2, 4).reshape(b, l, h, p), state
+
+
+def _rel(got, want):
+    want = torch.from_numpy(np.array(want))
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    """Ties round away from zero, a carry crosses a power of two, and the
+    halves of a split are TF32 values that add back to the input."""
+    one = 2.0 ** -10                     # one TF32 ulp at 1
+    x = torch.tensor([
+        1 + one / 2,                     # a tie: away, up to 1 + ulp
+        -(1 + one / 2),                  # a negative tie: away, down
+        1 + 3 * one / 2,                 # a tie above an odd mantissa
+        1 + one / 2 - 2.0 ** -23,        # just below the tie: down to 1
+        2 - 2.0 ** -23,                  # rounds up across 2
+        2 - one,                         # exact, the largest below 2
+        0.5 - 2.0 ** -25,                # rounds up to the power 0.5
+        3.0, 0.0, -0.0,
+    ], dtype=torch.float32)
+    want = [1 + one, -(1 + one), 1 + 2 * one, 1.0, 2.0, 2 - one, 0.5, 3.0,
+            0.0, -0.0]
+    got = _tf32(x)
+    assert got.tolist() == want
+    assert torch.equal(torch.signbit(got), torch.signbit(torch.tensor(want)))
+    # to nearest even: the same ties go to the even mantissa
+    want_even = [1.0, -1.0, 1 + 2 * one, 1.0, 2.0, 2 - one, 0.5, 3.0, 0.0,
+                 -0.0]
+    assert _tf32_even(x).tolist() == want_even
+    v = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32))
+    hi, lo = _split(v)
+    assert torch.equal(_tf32(hi), hi) and torch.equal(_tf32_even(lo), lo)
+    assert float(((hi + lo - v).abs() / v.abs()).max()) < 2.0 ** -21
+    assert float(((hi - v).abs() / v.abs()).max()) <= 2.0 ** -11
+
+
+@pytest.mark.parametrize("b,l,h,p,n", GEOMETRIES)
+def test_split_tf32_matches_the_tpu_kernel_in_interpret_mode(b, l, h, p, n):
+    arrs = _inputs(l * h + 2, b, l, h, p, n)
+    want = ref_kernel.ssd_scan(*_j(arrs), chunk=128, interpret=True)
+    got, _ = ssd_split_tf32(*_t(arrs), chunk=128)
+    assert _rel(got, want) < SPLIT_REL
+
+
+SPLIT_GEOMETRIES = [
+    # (batch, L, H, P, N, chunk)
+    (2, 256, 4, 64, 128, 128),   # mamba2 geometry, two chunks
+    (2, 96, 4, 32, 16, 32),      # mamba2-smoke (P 32, N 16, Q 32)
+    (2, 256, 3, 32, 16, 128),    # hymba-1.5b (P 32, N 16)
+    (1, 60, 2, 24, 10, 20),      # ragged: Q, P, N off the MMA tile
+    (1, 80, 3, 12, 16, 16),      # five chunks; H * P = 36
+]
+
+
+@pytest.mark.parametrize("b,l,h,p,n,q", SPLIT_GEOMETRIES)
+@pytest.mark.parametrize("with_init", [False, True])
+def test_split_tf32_matches_the_recurrence(b, l, h, p, n, q, with_init):
+    """y and the final state against the reference's recurrence and the
+    port's, with and without an initial state."""
+    arrs = _inputs(q * h + p + n, b, l, h, p, n)
+    rng = np.random.default_rng(q + l)
+    init = ((rng.standard_normal((b, h, p, n)) * 0.5).astype(np.float32)
+            if with_init else None)
+    ry, rs = ref_ssd.ssd_ref(*_j(arrs), init_state=(
+        None if init is None else jnp.asarray(init)))
+    ty = _t(arrs)
+    tinit = None if init is None else torch.from_numpy(init)
+    y, s = ssd_split_tf32(*ty, chunk=q, init_state=tinit)
+    assert _rel(y, ry) < SPLIT_REL and _rel(s, rs) < SPLIT_REL
+    y0, s0 = ssd_ref(*ty, init_state=tinit)
+    assert _rel(y, y0) < SPLIT_REL and _rel(s, s0) < SPLIT_REL
+
+
+def test_one_tf32_pass_would_fail_the_gate():
+    """The control for the split: the same four steps with every product
+    taken from the hi halves alone (one TF32 pass) stray beyond the 1e-4
+    gate at the mamba2 geometry, so the gate tells the two apart."""
+    arrs = _t(_inputs(21, 2, 256, 4, 64, 128))
+    want, want_s = ssd_ref(*arrs)
+    y, s = ssd_split_tf32(*arrs, chunk=128,
+                          mm=lambda a, b: _tf32(a) @ _tf32(b))
+    assert max(_rel(y, want), _rel(s, want_s)) > SPLIT_REL
