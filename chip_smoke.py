@@ -26,7 +26,10 @@ outside the repository.  Phases:
    argmin over the slice;
 6. times at geometry A with CUDA events, warmed up, over many launches:
    each kernel beside its bound (bytes at 3.35 TB/s), its plain version
-   and a one-call PyTorch yardstick where one exists;
+   and a one-call PyTorch yardstick where one exists; per-plane times of
+   ``rmq_fused`` and ``rmq_scan``, their kernels' ``-Xptxas -v`` registers
+   and spills, and the level-1 value and position planes' bytes beside
+   the 50 MB L2;
 7. mutation at geometry A: one batch of 2^16 random indices with
    duplicates through ``RMQ.update`` on the ``cuda`` and the ``fused``
    index (``hierarchy_update``, three launches each), held against the
@@ -1608,6 +1611,16 @@ def run(torch, seed: int):
           f"torch.min(x.view(-1, c), dim=1) {lib_min}, torch.amin {lib_amin}")
     print(f"A bounds (ms): {json.dumps(bounds)}; level-0 bytes of the "
           f"batch {q_bytes}")
+    walk_ptxas = {
+        f"{src} {plane}": ptxas_of(reports.get(src, ""), f"{entry}Lb{track}"
+                                   "ELi4ELb1E")
+        for src, entry in (("rmq_fused", "rmq_fused_kernelIf"),
+                           ("rmq_scan", "rmq_scan_kernelIf"))
+        for plane, track in (("value", 0), ("index", 1))}
+    l1 = plan.level_lens[1]
+    print(f"A rmq_fused / rmq_scan (rmq_walk_hopper.cuh, float32, c = 128) "
+          f"ptxas: {json.dumps(walk_ptxas)}; level-1 planes: values "
+          f"{l1 * item} bytes, positions {l1 * 4} bytes (L2 50 MB)")
     for key in ("fused", "cuda"):
         b = ms["hierarchy_fused" if key == "fused" else "hierarchy_build"]
         q = ms["rmq_fused" if key == "fused" else "rmq_scan"]

@@ -1,6 +1,8 @@
-// The query walk shared by rmq_fused.cu (B2), rmq_scan.cu (B4), rmq_short.cu
-// (B5, a level-0-only walk) and rmq_bulk.cu (B7, from level 1 up): the
-// paper's coalesced loading (CL) and warp-local queuing (WLQ), §4.2-§4.3.
+// The query walk of rmq_short.cu (B5, a level-0-only walk) and rmq_bulk.cu
+// (B7, from level 1 up): the paper's coalesced loading (CL) and warp-local
+// queuing (WLQ), §4.2-§4.3.  rmq_fused.cu (B2) and rmq_scan.cu (B4) walk
+// with rmq_walk_hopper.cuh and share this file's geometry (WalkGeo,
+// query_grid).
 //
 // One warp answers one query at a time.  A warp loads the bounds of 32
 // queries once, one per lane, and hands them round with __shfl_sync

@@ -1,0 +1,697 @@
+// The query walk of rmq_fused.cu (B2) and rmq_scan.cu (B4), designed for
+// Hopper: the loads of a query's levels issued before any merge, 16-byte
+// vectors, values only on the way up, one position gather per query.
+//
+// What it computes is the walk of rmq_walk.cuh (which B5 and B7 keep): per
+// inclusive query (l, r), with r exclusive from here on, the left and the
+// right partial chunk of every level below the top,
+//   [lo_k, min(ceil(lo_k/c)*c, hi_k))  and  [max(floor(hi_k/c)*c, .), hi_k),
+// with lo_{k+1} = ceil(lo_k/c), hi_{k+1} = floor(hi_k/c) while lo_k < hi_k,
+// then the top over [lo_K, hi_K).  These segments tile [l, r] from left to
+// right: L0-left, L1-left, ..., top, ..., L1-right, L0-right (ranks 0 ..
+// 2K).  Positions of real entries grow strictly along a level
+// (rmq_common.cuh), so the lexicographic (value, position) minimum is the
+// minimum of (value, segment rank, offset in the segment), and its
+// position is one gather: the index itself at level 0, upper_pos[offset_k
+// + i] above.
+//
+// How it runs (one warp per query, 32 queries a tile as in WLQ):
+//  * loads are V-wide vectors (16 bytes: float4 / double2) where c, the
+//    capacity and the pointers allow it; lane j covers vectors j, j + 32,
+//    ... of a chunk and loads only where its vector overlaps the part, so
+//    only the sectors a part touches are requested.  At c = 32 V (c = 128
+//    in float32, the paper's default) one warp instruction covers a chunk,
+//    and the loads of both parts of the first kBatchLevels levels are all
+//    issued before the first merge: a large span waits on memory about
+//    once, not once per level;
+//  * upper levels are read as values only: the position plane is touched
+//    once per query, by the gather;
+//  * level-0 reads stream (L1 no-allocate, L2 evict_first); upper-level
+//    reads are L2 evict_last (paper §5.8: the upper levels stay in cache);
+//  * each lane merges its vectors in rank order with fminf and keeps the
+//    first vector that lowered its minimum (a strict <); the warp takes the
+//    value minimum M by shuffles and the smallest (rank, vector) key among
+//    the lanes that hold M with __reduce_min_sync.  No float is read as an
+//    ordered integer: -0.0 and +0.0 compare equal and the key decides;
+//  * lane j keeps M and the key of the tile's query j.  At the end of the
+//    tile every lane re-reads its winning vector once, takes the first
+//    valid entry equal to M (its own bits: the value returned is the
+//    winning entry's, never a min of two signed zeros) and gathers its
+//    position, all 32 queries at once.  A span whose minimum is +inf (or
+//    an empty one) answers (+inf, l) ((+inf, PAD_POS) when empty), the
+//    leftmost entry, as the lexicographic walk does.
+// A single-level plan is all top: level 0 itself, positions = indices.
+#pragma once
+
+#include "rmq_walk.cuh"
+
+namespace rmq {
+namespace hopper {
+
+// ---------------------------------------------------------------------------
+// V-wide loads with L2 cache policies
+// ---------------------------------------------------------------------------
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Vec {
+  T x[V];
+};
+
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t evict_last_policy() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(p));
+  return p;
+}
+
+// Level 0: streamed past L1, first out of L2.
+template <typename T, int V>
+__device__ __forceinline__ void ld_stream(Vec<T, V>& v, const T* p,
+                                          uint64_t pol);
+// Upper levels: kept in L2.
+template <typename T, int V>
+__device__ __forceinline__ void ld_keep(Vec<T, V>& v, const T* p,
+                                        uint64_t pol);
+
+#define RMQ_F4 "=f"(v.x[0]), "=f"(v.x[1]), "=f"(v.x[2]), "=f"(v.x[3])
+#define RMQ_F2 "=f"(v.x[0]), "=f"(v.x[1])
+#define RMQ_F1 "=f"(v.x[0])
+#define RMQ_D2 "=d"(v.x[0]), "=d"(v.x[1])
+#define RMQ_D1 "=d"(v.x[0])
+#define RMQ_IN "l"(p), "l"(pol)
+
+template <>
+__device__ __forceinline__ void ld_stream<float, 4>(Vec<float, 4>& v,
+                                                    const float* p,
+                                                    uint64_t pol) {
+  asm volatile(
+      "ld.global.L1::no_allocate.L2::cache_hint.v4.f32 {%0,%1,%2,%3}, [%4], "
+      "%5;"
+      : RMQ_F4 : RMQ_IN);
+}
+template <>
+__device__ __forceinline__ void ld_stream<float, 2>(Vec<float, 2>& v,
+                                                    const float* p,
+                                                    uint64_t pol) {
+  asm volatile(
+      "ld.global.L1::no_allocate.L2::cache_hint.v2.f32 {%0,%1}, [%2], %3;"
+      : RMQ_F2 : RMQ_IN);
+}
+template <>
+__device__ __forceinline__ void ld_stream<float, 1>(Vec<float, 1>& v,
+                                                    const float* p,
+                                                    uint64_t pol) {
+  asm volatile("ld.global.L1::no_allocate.L2::cache_hint.f32 %0, [%1], %2;"
+               : RMQ_F1 : RMQ_IN);
+}
+template <>
+__device__ __forceinline__ void ld_stream<double, 2>(Vec<double, 2>& v,
+                                                     const double* p,
+                                                     uint64_t pol) {
+  asm volatile(
+      "ld.global.L1::no_allocate.L2::cache_hint.v2.f64 {%0,%1}, [%2], %3;"
+      : RMQ_D2 : RMQ_IN);
+}
+template <>
+__device__ __forceinline__ void ld_stream<double, 1>(Vec<double, 1>& v,
+                                                     const double* p,
+                                                     uint64_t pol) {
+  asm volatile("ld.global.L1::no_allocate.L2::cache_hint.f64 %0, [%1], %2;"
+               : RMQ_D1 : RMQ_IN);
+}
+template <>
+__device__ __forceinline__ void ld_keep<float, 4>(Vec<float, 4>& v,
+                                                  const float* p,
+                                                  uint64_t pol) {
+  asm volatile("ld.global.L2::cache_hint.v4.f32 {%0,%1,%2,%3}, [%4], %5;"
+               : RMQ_F4 : RMQ_IN);
+}
+template <>
+__device__ __forceinline__ void ld_keep<float, 2>(Vec<float, 2>& v,
+                                                  const float* p,
+                                                  uint64_t pol) {
+  asm volatile("ld.global.L2::cache_hint.v2.f32 {%0,%1}, [%2], %3;"
+               : RMQ_F2 : RMQ_IN);
+}
+template <>
+__device__ __forceinline__ void ld_keep<float, 1>(Vec<float, 1>& v,
+                                                  const float* p,
+                                                  uint64_t pol) {
+  asm volatile("ld.global.L2::cache_hint.f32 %0, [%1], %2;"
+               : RMQ_F1 : RMQ_IN);
+}
+template <>
+__device__ __forceinline__ void ld_keep<double, 2>(Vec<double, 2>& v,
+                                                   const double* p,
+                                                   uint64_t pol) {
+  asm volatile("ld.global.L2::cache_hint.v2.f64 {%0,%1}, [%2], %3;"
+               : RMQ_D2 : RMQ_IN);
+}
+template <>
+__device__ __forceinline__ void ld_keep<double, 1>(Vec<double, 1>& v,
+                                                   const double* p,
+                                                   uint64_t pol) {
+  asm volatile("ld.global.L2::cache_hint.f64 %0, [%1], %2;"
+               : RMQ_D1 : RMQ_IN);
+}
+
+
+// The staged top: shared memory, by its shared-space address.
+template <typename T, int V>
+__device__ __forceinline__ void ld_shared(Vec<T, V>& v, uint32_t a);
+template <>
+__device__ __forceinline__ void ld_shared<float, 4>(Vec<float, 4>& v,
+                                                    uint32_t a) {
+  asm volatile("ld.shared.v4.f32 {%0,%1,%2,%3}, [%4];" : RMQ_F4 : "r"(a));
+}
+template <>
+__device__ __forceinline__ void ld_shared<float, 2>(Vec<float, 2>& v,
+                                                    uint32_t a) {
+  asm volatile("ld.shared.v2.f32 {%0,%1}, [%2];" : RMQ_F2 : "r"(a));
+}
+template <>
+__device__ __forceinline__ void ld_shared<float, 1>(Vec<float, 1>& v,
+                                                    uint32_t a) {
+  asm volatile("ld.shared.f32 %0, [%1];" : RMQ_F1 : "r"(a));
+}
+template <>
+__device__ __forceinline__ void ld_shared<double, 2>(Vec<double, 2>& v,
+                                                     uint32_t a) {
+  asm volatile("ld.shared.v2.f64 {%0,%1}, [%2];" : RMQ_D2 : "r"(a));
+}
+template <>
+__device__ __forceinline__ void ld_shared<double, 1>(Vec<double, 1>& v,
+                                                     uint32_t a) {
+  asm volatile("ld.shared.f64 %0, [%1];" : RMQ_D1 : "r"(a));
+}
+
+#undef RMQ_F4
+#undef RMQ_F2
+#undef RMQ_F1
+#undef RMQ_D2
+#undef RMQ_D1
+#undef RMQ_IN
+
+__device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double vmin(double a, double b) {
+  return fmin(a, b);
+}
+
+// ---------------------------------------------------------------------------
+// Launch-wide geometry
+// ---------------------------------------------------------------------------
+// Blocks of kQueryThreads an SM is built for: a cap of 80 registers, 24
+// warps an SM (at 64 the batch spills; at 2 blocks too few warps hide
+// the walk's latency).
+constexpr int kQueryMinBlocks = 3;
+// Levels below the top whose loads one-chunk-a-warp walks issue together
+// (three: every level below the 512-entry top at n = 2^30, c = 128).
+constexpr int kBatchLevels = 3;
+
+template <typename T, int V>
+struct Walk {
+  const int32_t* offs;  // shared memory: level k >= 1 at offs[k - 1]
+  const T* base;
+  const T* upper;
+  const int32_t* upper_pos;
+  const T* top;     // the top level in device memory
+  uint32_t top_s;   // its shared-memory copy's address, when staged
+  bool staged;
+  int32_t capacity;
+  int32_t top_len;
+  int s;         // log2 c
+  int top_k;     // K = levels - 1, the top's level
+  int nv;        // vectors a chunk: c / V
+  int sub_bits;  // key = rank << sub_bits | vector index in the segment
+};
+
+template <typename T, int V>
+__device__ __forceinline__ void init_walk(Walk<T, V>& w, const WalkGeo& g,
+                                          const int32_t* offs, const T* base,
+                                          const T* upper,
+                                          const int32_t* upper_pos,
+                                          const T* top, uint32_t top_s) {
+  w.offs = offs;
+  w.base = base;
+  w.upper = upper;
+  w.upper_pos = upper_pos;
+  w.top = top;
+  w.top_s = top_s;
+  w.staged = g.stage_top != 0;
+  w.capacity = g.capacity;
+  w.top_len = g.top_len;
+  w.s = g.log2c;
+  w.top_k = g.levels - 1;
+  w.nv = (1 << g.log2c) / V;
+  // Ranks run 0 .. 2K: left parts k, the top K, right parts 2K - k.
+  int rbits = 0;
+  while ((1 << rbits) <= 2 * w.top_k) ++rbits;
+  w.sub_bits = rbits == 0 ? 31 : 32 - rbits;
+}
+
+// Entries [i, i + V) of the top.
+template <typename T, int V>
+__device__ __forceinline__ void ld_top(const Walk<T, V>& w, int32_t i,
+                                       uint64_t keep, Vec<T, V>& x) {
+  if (w.staged) {
+    ld_shared<T, V>(x, w.top_s + static_cast<uint32_t>(i) * sizeof(T));
+  } else {
+    ld_keep<T, V>(x, w.top + i, keep);
+  }
+}
+
+// The left (or right) part of level k in closed form: its chunk start cs
+// and the part [cs + a, cs + b).  Empty parts have a == b.
+__device__ __forceinline__ void level_part(int s, int32_t lo0, int32_t hi0,
+                                           int k, bool left, int32_t& cs,
+                                           int32_t& a, int32_t& b) {
+  const int sh = k * s;
+  const int32_t lo = ceil_shift(lo0, sh);
+  const int32_t hi = hi0 >> sh;
+  const int32_t c1 = (1 << s) - 1;
+  const int32_t next_l = (lo + c1) & ~c1;
+  const int32_t prev_r = hi & ~c1;
+  if (left) {
+    cs = lo & ~c1;
+    a = lo - cs;
+    b = (next_l < hi ? next_l : hi) - cs;
+  } else {
+    cs = prev_r;
+    a = 0;
+    b = next_l < hi ? hi - prev_r : 0;
+  }
+  if (lo >= hi) b = a;  // a level the walk never reaches
+}
+
+// The lane's vectors j, j + 32, ... of one part, loaded and merged in
+// ascending order: the strict < keeps the lane's leftmost minimum.
+template <typename T, int V, bool STREAM>
+__device__ __forceinline__ void part_walk(const Walk<T, V>& w, const T* p,
+                                          int32_t cs, int32_t a, int32_t b,
+                                          uint32_t rank, int lane,
+                                          uint64_t pol, T& v,
+                                          uint32_t& best_rank,
+                                          int32_t& best_sub) {
+  for (int vi = lane; vi < w.nv; vi += kWarp) {
+    const int32_t st = vi * V;
+    if (st + V > a && st < b) {
+      Vec<T, V> x;
+      if (STREAM) {
+        ld_stream<T, V>(x, p + cs + st, pol);
+      } else {
+        ld_keep<T, V>(x, p + cs + st, pol);
+      }
+      const T before = v;
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (st + e >= a && st + e < b) v = vmin(v, x.x[e]);
+      if (v < before) {
+        best_rank = rank;
+        best_sub = vi;
+      }
+    }
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void part_any(const Walk<T, V>& w, int32_t lo0,
+                                         int32_t hi0, int k, bool left,
+                                         int lane, uint64_t stream,
+                                         uint64_t keep, T& v,
+                                         uint32_t& best_rank,
+                                         int32_t& best_sub) {
+  int32_t cs, a, b;
+  level_part(w.s, lo0, hi0, k, left, cs, a, b);
+  const uint32_t rank = left ? k : 2 * w.top_k - k;
+  if (k == 0) {
+    part_walk<T, V, true>(w, w.base, cs, a, b, rank, lane, stream, v,
+                          best_rank, best_sub);
+  } else {
+    part_walk<T, V, false>(w, w.upper + w.offs[k - 1], cs, a, b, rank, lane,
+                           keep, v, best_rank, best_sub);
+  }
+}
+
+// The level-0 bounds of an inclusive query: [lo, hi) clipped to the level.
+__device__ __forceinline__ void bounds0(int32_t capacity, int32_t l,
+                                        int32_t r, int32_t& lo,
+                                        int32_t& hi) {
+  lo = l > 0 ? l : 0;
+  const int64_t r_ex = static_cast<int64_t>(r) + 1;
+  hi = static_cast<int32_t>(r_ex < capacity ? r_ex : capacity);
+}
+
+// Levels kb.. of a walk whose range at level kb is [lo, hi): left parts
+// up, the top, right parts down (levels kb and above only).
+template <typename T, int V>
+__device__ __forceinline__ void walk_from(const Walk<T, V>& w, int32_t lo0,
+                                          int32_t hi0, int32_t lo, int32_t hi,
+                                          int kb, int lane, uint64_t stream,
+                                          uint64_t keep, T& v,
+                                          uint32_t& best_rank,
+                                          int32_t& best_sub) {
+  int kp = kb;  // live levels below the top
+  while (kp < w.top_k && lo < hi) {
+    part_any(w, lo0, hi0, kp, true, lane, stream, keep, v, best_rank,
+             best_sub);
+    lo = ceil_shift(lo, w.s);
+    hi >>= w.s;
+    ++kp;
+  }
+  // The top over [lo, hi): vector it of the lane starts at
+  // (lo & ~(V-1)) + (it * 32 + lane) * V.
+  if (kp == w.top_k) {
+    const int32_t end = hi < w.top_len ? hi : w.top_len;
+    int32_t it = 0;
+#pragma unroll 1
+    for (int32_t t0 = (lo & ~(V - 1)) + lane * V; t0 < end;
+         t0 += kWarp * V, ++it) {
+      Vec<T, V> x;
+      ld_top(w, t0, keep, x);
+      const T before = v;
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (t0 + e >= lo && t0 + e < end) v = vmin(v, x.x[e]);
+      if (v < before) {
+        best_rank = w.top_k;
+        best_sub = it * kWarp + lane;
+      }
+    }
+  }
+  for (int k = kp - 1; k >= kb; --k)
+    part_any(w, lo0, hi0, k, false, lane, stream, keep, v, best_rank,
+             best_sub);
+}
+
+// ---------------------------------------------------------------------------
+// One-chunk-a-warp walks (c = 32 V, 16-byte vectors: each lane holds one
+// vector of each part): the loads of the first kBatchLevels levels, both
+// parts, are issued before the first merge.  Offsets are unsigned 32-bit
+// (the capacity check keeps every coordinate below 2^31), so an address
+// is one wide multiply-add.
+// ---------------------------------------------------------------------------
+template <typename T, int V>
+__device__ __forceinline__ void walk_batched(const Walk<T, V>& w,
+                                             const uint32_t* up_off,
+                                             int32_t lo0, int32_t hi0,
+                                             int lane, uint64_t stream,
+                                             uint64_t keep, T& v,
+                                             uint32_t& key) {
+  constexpr int UL = kBatchLevels;
+  const uint32_t c1 = (1u << w.s) - 1u;
+  const uint32_t st = lane * V;
+  Vec<T, V> xl[UL], xr[UL];
+  // Each level's parts, chunk-relative (c <= 128): left [al, bl) and
+  // right [0, br) as al | bl << 8 | br << 16.
+  uint32_t pk[UL];
+  uint32_t lo = lo0, hi = hi0;
+  int kb = 0;  // levels in the batch
+#pragma unroll
+  for (int k = 0; k < UL; ++k) {
+    pk[k] = 0;
+    if (k < w.top_k && lo < hi) {
+      const uint32_t next_l = (lo + c1) & ~c1;
+      const uint32_t csl = lo & ~c1;
+      const uint32_t al = lo & c1;
+      const uint32_t bl = (next_l < hi ? next_l : hi) - csl;
+      const uint32_t br = next_l < hi ? hi & c1 : 0u;
+      pk[k] = al | (bl << 8) | (br << 16);
+      const T* lv = k == 0 ? w.base : w.upper + up_off[k];
+      if (st + V > al && st < bl) {
+        if (k == 0) {
+          ld_stream<T, V>(xl[k], lv + (csl + st), stream);
+        } else {
+          ld_keep<T, V>(xl[k], lv + (csl + st), keep);
+        }
+      }
+      if (st < br) {
+        if (k == 0) {
+          ld_stream<T, V>(xr[k], lv + ((hi & ~c1) + st), stream);
+        } else {
+          ld_keep<T, V>(xr[k], lv + ((hi & ~c1) + st), keep);
+        }
+      }
+      kb = k + 1;
+      lo = next_l >> w.s;
+      hi >>= w.s;
+    }
+  }
+  v = pos_inf<T>();
+  uint32_t best_rank = 0;
+  int32_t best_sub = lane;
+#pragma unroll
+  for (int k = 0; k < UL; ++k) {
+    const uint32_t al = pk[k] & 0xff;
+    const uint32_t bl = (pk[k] >> 8) & 0xff;
+    if (st + V > al && st < bl) {
+      const T before = v;
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (st + e >= al && st + e < bl) v = vmin(v, xl[k].x[e]);
+      if (v < before) best_rank = k;
+    }
+  }
+  walk_from(w, lo0, hi0, static_cast<int32_t>(lo), static_cast<int32_t>(hi),
+            kb, lane, stream, keep, v, best_rank, best_sub);
+#pragma unroll
+  for (int k = UL - 1; k >= 0; --k) {
+    const uint32_t br = pk[k] >> 16;
+    if (st < br) {
+      const T before = v;
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        if (st + e < br) v = vmin(v, xr[k].x[e]);
+      if (v < before) {
+        best_rank = 2 * w.top_k - k;
+        best_sub = lane;
+      }
+    }
+  }
+  key = (best_rank << w.sub_bits) | static_cast<uint32_t>(best_sub);
+}
+
+// The same walk for every other layout, from registers, part by part.
+template <typename T, int V>
+__device__ __forceinline__ void walk_plain(const Walk<T, V>& w, int32_t lo0,
+                                           int32_t hi0, int lane,
+                                           uint64_t stream, uint64_t keep,
+                                           T& v, uint32_t& key) {
+  v = pos_inf<T>();
+  uint32_t best_rank = 0;
+  int32_t best_sub = lane;
+  walk_from(w, lo0, hi0, lo0, hi0, 0, lane, stream, keep, v, best_rank,
+            best_sub);
+  key = (best_rank << w.sub_bits) | static_cast<uint32_t>(best_sub);
+}
+
+// The warp's answer to one query: the minimum M over the lanes (shuffles)
+// and the smallest key among the lanes that hold it (__reduce_min_sync).
+template <typename T>
+__device__ __forceinline__ void warp_min(T v, uint32_t key, T& m,
+                                         uint32_t& kmin) {
+  m = v;
+#pragma unroll
+  for (int o = kWarp / 2; o > 0; o >>= 1)
+    m = vmin(m, __shfl_xor_sync(kFullMask, m, o));
+  kmin = __reduce_min_sync(kFullMask, v == m ? key : 0xffffffffu);
+}
+
+// End of a tile: lane `lane` answers its own query from (M, key): the
+// winning vector re-read once, the first valid entry equal to M, and the
+// one position gather.
+template <typename T, int V, bool TRACK>
+__device__ __forceinline__ void answer(const Walk<T, V>& w, int32_t l,
+                                       int32_t r, T res_m, uint32_t key,
+                                       uint64_t stream, uint64_t keep,
+                                       T& val, int32_t& pos) {
+  int32_t lo0, hi0;
+  bounds0(w.capacity, l, r, lo0, hi0);
+  if (!(res_m < pos_inf<T>())) {
+    // No finite entry: the leftmost entry of the span, +inf.
+    val = pos_inf<T>();
+    pos = lo0 < hi0 ? lo0 : kPadPos;
+    return;
+  }
+  const uint32_t rank = key >> w.sub_bits;
+  const int32_t sub = static_cast<int32_t>(key & ((1u << w.sub_bits) - 1u));
+  int k;
+  int32_t a, b, start;
+  Vec<T, V> x;
+  if (rank == static_cast<uint32_t>(w.top_k)) {
+    k = w.top_k;
+    const int sh = k * w.s;
+    a = ceil_shift(lo0, sh);
+    b = hi0 >> sh;
+    if (b > w.top_len) b = w.top_len;
+    start = (a & ~(V - 1)) + sub * V;
+    ld_top(w, start, keep, x);
+  } else {
+    const bool left = rank < static_cast<uint32_t>(w.top_k);
+    k = left ? static_cast<int>(rank) : 2 * w.top_k - static_cast<int>(rank);
+    int32_t cs;
+    level_part(w.s, lo0, hi0, k, left, cs, a, b);
+    a += cs;
+    b += cs;
+    start = cs + sub * V;
+    if (k == 0) {
+      ld_stream<T, V>(x, w.base + start, stream);
+    } else {
+      ld_keep<T, V>(x, w.upper + w.offs[k - 1] + start, keep);
+    }
+  }
+  int e_win = V - 1;
+#pragma unroll
+  for (int e = V - 1; e >= 0; --e)
+    if (start + e >= a && start + e < b && x.x[e] == res_m) e_win = e;
+  T got = x.x[0];
+#pragma unroll
+  for (int e = 1; e < V; ++e)
+    if (e == e_win) got = x.x[e];
+  val = got;
+  const int32_t i = start + e_win;
+  pos = i;
+  if (TRACK && k > 0) pos = w.upper_pos[w.offs[k - 1] + i];
+}
+
+// The WLQ batch loop: warps stride over tiles of 32 queries.  Writes the
+// value plane where out_v is not null and the position plane where out_p
+// is not null (TRACK).
+template <typename T, bool TRACK, int V, bool FAST>
+__device__ __forceinline__ void answer_batch(const Walk<T, V>& w,
+                                             const int32_t* ls,
+                                             const int32_t* rs, int64_t m,
+                                             T* out_v, int32_t* out_p) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  // FAST: the batch levels' offsets in `upper` (level k at up_off[k]).
+  uint32_t up_off[kBatchLevels];
+#pragma unroll
+  for (int k = 0; k < kBatchLevels; ++k)
+    up_off[k] = k > 0 && k < w.top_k ? w.offs[k - 1] : 0u;
+  // Tile counters fit 32 bits: 2^31 tiles of bounds would not fit a card.
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
+  const int nwarps = gridDim.x * blockDim.x / kWarp;
+  const int tiles = static_cast<int>((m + kWarp - 1) / kWarp);
+  const uint64_t stream = evict_first_policy();
+  const uint64_t keep = evict_last_policy();
+  for (int tile = warp; tile < tiles; tile += nwarps) {
+    const int64_t qi = static_cast<int64_t>(tile) * kWarp + lane;
+    int32_t my_l = 0, my_r = -1;
+    if (qi < m) {
+      my_l = ls[qi];
+      my_r = rs[qi];
+    }
+    const int64_t left = m - static_cast<int64_t>(tile) * kWarp;
+    const int count = left < kWarp ? static_cast<int>(left) : kWarp;
+    T res_m = pos_inf<T>();
+    uint32_t res_key = 0;
+    for (int j = 0; j < count; ++j) {
+      int32_t lo0, hi0;
+      bounds0(w.capacity, __shfl_sync(kFullMask, my_l, j),
+              __shfl_sync(kFullMask, my_r, j), lo0, hi0);
+      T v, mm;
+      uint32_t key, kmin;
+      if constexpr (FAST) {
+        walk_batched(w, up_off, lo0, hi0, lane, stream, keep, v, key);
+      } else {
+        walk_plain(w, lo0, hi0, lane, stream, keep, v, key);
+      }
+      warp_min(v, key, mm, kmin);
+      if (lane == j) {
+        res_m = mm;
+        res_key = kmin;
+      }
+    }
+    if (qi < m) {
+      T val;
+      int32_t pos;
+      answer<T, V, TRACK>(w, my_l, my_r, res_m, res_key, stream, keep, val,
+                          pos);
+      if (out_v != nullptr) out_v[qi] = val;
+      if (TRACK && out_p != nullptr) out_p[qi] = pos;
+    }
+  }
+}
+
+// The top level in device memory; its values (not its positions) are
+// copied to `smem` when g.stage_top.
+template <typename T>
+__device__ __forceinline__ const T* stage_values(const WalkGeo& g,
+                                                 const int32_t* offs,
+                                                 const T* base,
+                                                 const T* upper,
+                                                 unsigned char* smem) {
+  const T* src = g.levels == 1 ? base : upper + offs[g.levels - 2];
+  if (g.stage_top) {
+    T* sv = reinterpret_cast<T*>(smem);
+    for (int i = threadIdx.x; i < g.top_len; i += blockDim.x) sv[i] = src[i];
+    __syncthreads();
+  }
+  return src;
+}
+
+// Shared memory a block may spend on its copy of the top's values.  The
+// largest top at the default geometry (c*t = 8192 entries) takes 32 KB in
+// float32 and 64 KB in float64.
+constexpr size_t kStageLimit = 112 * 1024;
+
+// 1 if every block copies the top's values into shared memory.
+template <typename T>
+int32_t stage_fits(const WalkGeo& g) {
+  return static_cast<size_t>(g.top_len) * sizeof(T) <= kStageLimit;
+}
+
+// Shared memory of a value-only top stage, rounded up to 16 bytes.
+template <typename T>
+__host__ __device__ __forceinline__ size_t stage_value_bytes(
+    const WalkGeo& g) {
+  const size_t b =
+      g.stage_top ? static_cast<size_t>(g.top_len) * sizeof(T) : 0;
+  return (b + 15) & ~static_cast<size_t>(15);
+}
+
+
+
+// The widest vector (elements) that divides c and the capacity and to
+// which both level planes are aligned: 16 bytes where possible.
+template <typename T>
+int vector_width(const WalkGeo& g, const void* base, const void* upper) {
+  int v = static_cast<int>(16 / sizeof(T));
+  const int c = 1 << g.log2c;
+  while (v > 1) {
+    const uintptr_t bytes = static_cast<uintptr_t>(v) * sizeof(T);
+    const bool ok = c % v == 0 && g.capacity % v == 0 &&
+                    reinterpret_cast<uintptr_t>(base) % bytes == 0 &&
+                    (upper == nullptr ||
+                     reinterpret_cast<uintptr_t>(upper) % bytes == 0);
+    if (ok) break;
+    v >>= 1;
+  }
+  return v;
+}
+
+// Calls f.template run<V, FAST>() for the launch's vector width; FAST is
+// the one-chunk-a-warp-instruction layout (c == 32 V).
+template <typename T, typename F>
+cudaError_t dispatch_width(const WalkGeo& g, const void* base,
+                           const void* upper, const F& f) {
+  constexpr int kMax = static_cast<int>(16 / sizeof(T));
+  const int v = vector_width<T>(g, base, upper);
+  const int c = 1 << g.log2c;
+  if (v == kMax) {
+    if (c == kWarp * kMax) return f.template run<kMax, true>();
+    return f.template run<kMax, false>();
+  }
+  if constexpr (kMax == 4) {
+    if (v == 2) return f.template run<2, false>();
+  }
+  return f.template run<1, false>();
+}
+
+}  // namespace hopper
+}  // namespace rmq

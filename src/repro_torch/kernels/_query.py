@@ -1,6 +1,6 @@
 """Operand preparation shared by the query wrappers (B2, B4, B7), and the
-one launch sequence of the two kernels that take the offsets table on
-the device (B2 ``rmq_fused_query``, B7 ``rmq_bulk_query``)."""
+launch sequence of B7 ``rmq_bulk_query``, whose top stage the caller
+decides.  B2 and B4 decide their own in ``csrc/rmq_walk_hopper.cuh``."""
 
 from __future__ import annotations
 

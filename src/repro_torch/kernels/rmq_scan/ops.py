@@ -32,10 +32,9 @@ LAUNCHES = profiling.KernelCounter("rmq_scan")
 _SIGNATURES = {
     "rmq_scan_query": (
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-        ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ),
 }
 
@@ -63,8 +62,7 @@ def rmq_scan_cuda(h: Hierarchy, ls, rs, track_pos: bool) -> torch.Tensor:
         rc = lib.rmq_scan_query(
             _build.dtype_code(h.base.dtype), int(track_pos), plan.capacity,
             plan.c, plan.num_levels, ctypes.cast(offsets, ctypes.c_void_p),
-            ctypes.cast(padded, ctypes.c_void_p),
-            _query.stage_top(h, track_pos), _build.ptr(h.base),
+            ctypes.cast(padded, ctypes.c_void_p), _build.ptr(h.base),
             _build.ptr(h.upper),
             _build.ptr(h.upper_pos if track_pos else None),
             _build.ptr(ls), _build.ptr(rs), m, _build.ptr(out),

@@ -57,3 +57,58 @@ GEOMETRIES = [
     (700, 128, 64, None),   # single-level plan (n <= c*t)
     (300, 16, 2, 1000),     # capacity-derived levels from a tiny n
 ]
+
+
+# Edge cases of the leftmost-tie rule (B2 / B4): each kind of input with
+# the spans that exercise it, over a plan whose capacity may exceed n.
+EDGE_KINDS = ("signed_zeros", "inf_runs", "ties_across_segments")
+EDGE_GEOMETRIES = [
+    (70_000, 128, 4, 1 << 17),   # default c, capacity > n, three levels
+    (50_003, 64, 8, 1 << 16),    # c = 64: one chunk a warp for float64
+    (9_000, 4, 4, 1 << 14),      # sub-warp chunks, seven levels
+    (5_000, 128, 64, None),      # single-level plan
+]
+# Batch sizes around the 32-query tile: 1, 31, 33 and 32 k + 5.
+EDGE_BATCHES = (1, 31, 33, 32 * 6 + 5)
+
+
+def edge_input(kind, rng, n, c, dtype=np.float32):
+    """Values where the answer turns on the tie rule.
+
+    ``signed_zeros``: -0.0 and +0.0 side by side as every span's minimum;
+    ``inf_runs``: +inf runs of a few chunks, one of them reaching the live
+    end; ``ties_across_segments``: few distinct values, and one value
+    below them every c - 1 entries, so one span finds equal minima in its
+    partial chunks, on every upper level and in the top."""
+    x = (rng.random(n) + 0.5).astype(dtype)
+    if kind == "signed_zeros":
+        z = rng.integers(0, max(n - 1, 1), max(n // 16, 2))
+        x[z] = np.where(rng.random(z.size) < 0.5, -0.0, 0.0).astype(dtype)
+        pairs = z[: z.size // 2]
+        x[pairs] = -0.0  # -0.0 left of +0.0: the leftmost is -0.0
+        x[np.minimum(pairs + 1, n - 1)] = 0.0
+    elif kind == "inf_runs":
+        for start in rng.integers(0, n, max(n // (8 * c), 1)):
+            x[start:start + int(rng.integers(1, 4 * c))] = np.inf
+        x[n - min(n, 3 * c):] = np.inf
+    elif kind == "ties_across_segments":
+        x = np.floor(x * 4).astype(dtype) / 4
+        x[:: max(c - 1, 2)] = 0.25
+    else:
+        raise ValueError(kind)
+    return x
+
+
+def edge_spans(rng, n, c, m):
+    """``m`` inclusive spans: :func:`query_batch`'s classes, then spans
+    that start or end on chunk edges and spans over the live end."""
+    ls, rs = query_batch(rng, n, c, m=max(m, 8))
+    al = (rng.integers(0, max(n // c, 1), m) * c).clip(0, n - 1)
+    ar = np.minimum(al + c * rng.integers(1, 2 * c + 2, m) - 1, n - 1)
+    tl = np.maximum(n - rng.integers(1, 4 * c, m), 0)
+    ls = np.concatenate([ls, al, tl, al]).astype(np.int32)
+    rs = np.concatenate([rs, ar, np.full(m, n - 1), np.maximum(ar - 1,
+                                                               al)])
+    rs = rs.astype(np.int32)
+    pick = rng.permutation(ls.size)[:m]
+    return ls[pick], rs[pick]

@@ -19,7 +19,17 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import GEOMETRIES, brute_force, query_batch, tied_input
+from _torch_cases import (
+    EDGE_BATCHES,
+    EDGE_GEOMETRIES,
+    EDGE_KINDS,
+    GEOMETRIES,
+    brute_force,
+    edge_input,
+    edge_spans,
+    query_batch,
+    tied_input,
+)
 from repro_torch.core import RMQ, build_hierarchy, make_plan, rmq_walk_batch
 from repro_torch.kernels.hierarchy_build import ops as build_ops
 from repro_torch.kernels.hierarchy_fused import ops as fused_ops
@@ -34,6 +44,8 @@ CARD_GEOMETRIES = GEOMETRIES + [
     (200_000, 128, 1024, None),   # top too large to stage
     (3, 128, 64, 64),             # n and capacity below c
     ((1 << 20) - 777, 128, 64, 1 << 20),  # a full c*t top (8192)
+    (100_000, 128, 1024, None),   # single level, too large to stage
+    ((1 << 24) + 6, 64, 1, None),  # float64 one chunk a warp, five levels
 ]
 
 
@@ -99,6 +111,49 @@ def test_queries_match_plain(card, n, c, t, cap, dtype):
     assert scan_ops.LAUNCHES.launches - s0 == 2
     for v in (fv, fv_only, sv):
         _assert_same(want_v, v)
+    for p in (fp, sp):
+        _assert_same(want_p, p)
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return a.view(np.int32 if a.dtype == np.float32 else np.int64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", EDGE_BATCHES)
+@pytest.mark.parametrize("n,c,t,cap", EDGE_GEOMETRIES)
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_queries_tie_edges_match_plain(card, n, c, t, cap, kind, dtype, m):
+    """B2 (both planes and value-only) and both B4 launches on the edges
+    of the leftmost-tie rule: -0.0 beside +0.0, +inf minima, equal minima
+    in several segments of a span, batches around the 32-query tile.
+    Positions bit for bit against the plain walk and brute force; values
+    bit for bit against the winning entry (brute force's leftmost argmin)
+    and equal to the plain walk's (whose sign of a zero minimum is
+    torch.amin's, which PyTorch leaves open)."""
+    rng = np.random.default_rng(n + m)
+    xn = edge_input(kind, rng, n, c, dtype)
+    ls_n, rs_n = edge_spans(rng, n, c, m)
+    x = torch.from_numpy(xn).to(card)
+    h = build_hierarchy(x, make_plan(n, c=c, t=t, capacity=cap),
+                        with_positions=True)
+    ls, rs = torch.from_numpy(ls_n).to(card), torch.from_numpy(rs_n).to(card)
+    want_v, want_p = rmq_walk_batch(h, ls, rs, track_pos=True)
+    bv, bp = brute_force(xn, ls_n, rs_n)
+    np.testing.assert_array_equal(want_p.cpu().numpy(), bp)
+
+    f0, s0 = qfused_ops.LAUNCHES.launches, scan_ops.LAUNCHES.launches
+    fv, fp = qfused_ops.rmq_fused_batch(h, ls, rs, track_pos=True)
+    fv_only = qfused_ops.rmq_fused_value_batch(h, ls, rs)
+    sv = scan_ops.rmq_value_batch_cuda(h, ls, rs)
+    sp = scan_ops.rmq_index_batch_cuda(h, ls, rs)
+    torch.cuda.synchronize()
+    assert qfused_ops.LAUNCHES.launches - f0 == 2
+    assert scan_ops.LAUNCHES.launches - s0 == 2
+    for v in (fv, fv_only, sv):
+        assert v.dtype == want_v.dtype and torch.equal(v, want_v)
+        np.testing.assert_array_equal(_bits(v.cpu().numpy()), _bits(xn[bp]))
     for p in (fp, sp):
         _assert_same(want_p, p)
 
