@@ -23,7 +23,11 @@ outside the repository.  Phases:
 5. every hierarchy and answer is held bit for bit (tolerance 0: min and
    argmin are exact) against the plain build and the plain walk on the
    card, and 256 sampled spans per geometry against torch.min / first
-   argmin over the slice;
+   argmin over the slice; at every geometry ``rmq_short`` (the spans cut
+   to the short class) and ``rmq_bulk`` (the batch sorted as the bulk
+   executor sorts it, in 2^20 buckets) against their plain versions and
+   against ``rmq_fused`` on the same spans, as integer views (so -0.0 and
+   +0.0 differ);
 6. times at geometry A with CUDA events, warmed up, over many launches:
    each kernel beside its bound (bytes at 3.35 TB/s), its plain version
    and a one-call PyTorch yardstick where one exists; per-plane times of
@@ -46,12 +50,22 @@ outside the repository.  Phases:
    (the CPU tests cover it);
 9. ``StreamingRMQ.append`` of 777 values, ``retire(1024)`` and a query
    batch at geometries B and D, against the plain path and a rebuild;
+   and signed zeros at A and D: a copy of the input with a sixteenth of
+   it set to -0.0 / +0.0, on which ``rmq_bulk`` and ``rmq_short`` equal
+   ``rmq_fused`` bit for bit (position builds; at D a value-only build
+   too) and sampled spans are their leftmost minimal entry's bits, with a
+   control (``rmq_fused``'s values with -0.0 set to +0.0) that must fail
+   the bit check and pass ``torch.equal``;
 10. times of the three kernels of phases 7-9 at geometry A beside their
    bounds, their plain versions and the comparison each exists for
    (``rmq_fused`` on the same spans; for ``hierarchy_update`` the
    ``index_select`` + ``torch.min`` pair at level 1, timed in turns with
    the kernel), and the whole
-   ``RMQ.update`` call with and without the successor's copy;
+   ``RMQ.update`` call with and without the successor's copy.
+   ``rmq_short`` and ``rmq_bulk`` are timed per launch at the sizes the
+   engine launches them (a 4096-span bucket: device time from
+   torch.profiler; a 2^20 bucket: a pass of CUDA events over its
+   launches), their bounds and plain times per launch likewise;
 11. serving (F): llama3.2-3b at full width (28 layers, d_model 3072, 24
    heads over 8 KV heads, head_dim 128, vocab 128256), bf16 weights from
    a seeded ``torch.Generator`` on the card, through ``ServeEngine``:
@@ -261,6 +275,51 @@ def max_abs_err(torch, pairs) -> float:
     return worst
 
 
+def as_bits(torch, t):
+    """The integer view of a float tensor (its bits); others as they are."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t
+
+
+def same_bits(torch, pairs) -> bool:
+    """Every (got, want) pair equal bit for bit: shape, dtype and the
+    integer views, so -0.0 and +0.0 differ (torch.equal does not see it)."""
+    return all(g.shape == w.shape and g.dtype == w.dtype
+               and torch.equal(as_bits(torch, g), as_bits(torch, w))
+               for g, w in pairs)
+
+
+def short_of(torch, ls, rs, c: int):
+    """Each span cut to the short class (r // c - l // c <= 1): its end
+    clipped to the end of the chunk after l's."""
+    return ls, torch.minimum(rs, (ls // c) * c + 2 * c - 1)
+
+
+def bulk_order(torch, ls, rs, c: int, capacity: int):
+    """The bulk executor's order: a stable sort on chunk(l) * rows +
+    chunk(r)."""
+    rows = -(-capacity // c)
+    return torch.sort((ls.long() // c) * rows + rs.long() // c,
+                      stable=True)[1]
+
+
+def bulk_pass(h, ls, rs, track_pos: bool, step: int = 1 << 20):
+    """``rmq_bulk`` over a batch in buckets of ``step``, as the bulk
+    executor launches it: ``(values, positions or None)``."""
+    import torch
+
+    from repro_torch.kernels.rmq_bulk import ops as bulk_ops
+
+    parts = [bulk_ops.rmq_bulk_batch(h, ls[s:s + step], rs[s:s + step],
+                                     track_pos)
+             for s in range(0, ls.numel(), step)]
+    vals = torch.cat([p[0] for p in parts])
+    return vals, (torch.cat([p[1] for p in parts]) if track_pos else None)
+
+
 def level0_bytes(torch, ls, rs, c: int, itemsize: int) -> int:
     """Device-memory bytes a batch must read from level 0: the sectors of
     each query's partial chunks [l, ceil(l/c)*c) and [floor(r/c)*c, r]
@@ -448,6 +507,8 @@ def drive(torch, name, x, ls, rs, plan, with_positions, seed):
         q_scan += [(out["cuda_p"], wp)]
     err["rmq_fused"] = max_abs_err(torch, q_fused)
     err["rmq_scan"] = max_abs_err(torch, q_scan)
+    err["rmq_short"], err["rmq_bulk"] = short_bulk_check(
+        torch, name, rf.hierarchy, ls, rs, plan, wv, wp)
     require(all(e == 0.0 for e in err.values()),
             f"{name}: kernels disagree with their plain versions: {err}")
     brute_force_check(torch, x, ls, rs, wv, wp, 256, seed, plan.n)
@@ -455,6 +516,48 @@ def drive(torch, name, x, ls, rs, plan, with_positions, seed):
           f"max_abs_err {err}, brute force 256/256 ok")
     return {"launches": launches, "err": err, "rf": rf, "rc": rc, "hp": hp,
             "wv": wv, "wp": wp}
+
+
+def short_bulk_check(torch, name, h, ls, rs, plan, wv, wp):
+    """``rmq_short`` (B5) on the batch's spans cut to the short class and
+    ``rmq_bulk`` (B7) on the batch in the bulk executor's order and 2^20
+    buckets, each bit for bit (integer views) against its plain version
+    and against ``rmq_fused`` (B2) on the same spans.  Comparison launches:
+    outside any counted window.  Returns their max_abs_err."""
+    from repro_torch.kernels.rmq_fused.ops import rmq_fused_batch
+    from repro_torch.kernels.rmq_short import ops as short_ops
+
+    track = h.with_positions
+    c = plan.c
+    sl, sr = short_of(torch, ls, rs, c)
+    kv, kp = short_ops.rmq_short_batch(h, sl, sr, True)
+    kv_only = short_ops.rmq_short_value_batch(h, sl, sr)
+    pv, pp = short_ops.rmq_short_batch_plain(h.base, sl, sr, c,
+                                             plan.capacity, True)
+    fv, fp = rmq_fused_batch(h, sl, sr, track)
+    short_pairs = [(kv, pv), (kv_only, pv), (kp, pp.to(kp.dtype))]
+    fused_pairs = [(kv, fv), (kv_only, fv)]
+    if track:
+        fused_pairs.append((kp, fp))
+
+    order = bulk_order(torch, ls, rs, c, plan.capacity)
+    bl, br = ls[order].contiguous(), rs[order].contiguous()
+    bv, bp = bulk_pass(h, bl, br, track)
+    bv_only = bulk_pass(h, bl, br, False)[0]
+    gv, gp = rmq_fused_batch(h, bl, br, track)
+    bulk_pairs = [(bv, wv[order]), (bv_only, wv[order])]
+    if track:
+        bulk_pairs.append((bp, wp[order]))
+    bulk_fused = [(bv, gv), (bv_only, gv)] + ([(bp, gp)] if track else [])
+    torch.cuda.synchronize()
+    require(same_bits(torch, short_pairs) and same_bits(torch, fused_pairs),
+            f"{name}: rmq_short differs in bits from its plain version or "
+            "from rmq_fused on the same spans")
+    require(same_bits(torch, bulk_pairs) and same_bits(torch, bulk_fused),
+            f"{name}: rmq_bulk differs in bits from the plain walk or from "
+            "rmq_fused on the same sorted spans")
+    return (max_abs_err(torch, short_pairs + fused_pairs),
+            max_abs_err(torch, bulk_pairs + bulk_fused))
 
 
 def geometry(torch, n, m, seed, dtype="float32", capacity=None):
@@ -678,8 +781,14 @@ def engine_phase(torch, plan, rf, rc, rc2, ls, rs, wv, wp, seed):
 
 
 def time_queries(torch, plan, h, ls, rs, short, seed):
-    """Phase 10 for rmq_short (the engine's short spans) and rmq_bulk (the
-    2^24 batch, sorted as the bulk executor sorts it)."""
+    """Phase 10 for rmq_short and rmq_bulk, per launch at the sizes the
+    engine launches them: the engine's short spans in buckets of 4096
+    (device time per launch from torch.profiler: at that size a launch
+    takes microseconds and the host's wrapper time would hide it from
+    CUDA events) and in one call; the 2^24 batch sorted as the bulk
+    executor sorts it, one pass of 2^20 buckets (CUDA events) divided by
+    its launches.  Each beside rmq_fused on the same spans, its bound and
+    its plain version on the same share of the work."""
     from repro_torch.core import rmq_walk_batch
     from repro_torch.kernels.rmq_fused.ops import rmq_fused_batch
     from repro_torch.kernels.rmq_short import ops as short_ops
@@ -687,52 +796,147 @@ def time_queries(torch, plan, h, ls, rs, short, seed):
     c, item = plan.c, h.base.element_size()
     per_query = 8 + item + 4  # bounds in, value and position out
     sl, sr = short
+    step = 4096
+    buckets = -(-sl.numel() // step)
+
+    def each_bucket(fn):
+        return lambda: [fn(h, sl[s:s + step], sr[s:s + step], True)
+                        for s in range(0, sl.numel(), step)]
+
+    moved = span_bytes(torch, sl, sr, item) + sl.numel() * per_query
+    call_ms = time_ms(torch, lambda: short_ops.rmq_short_batch(
+        h, sl, sr, True), 20)
+    launch = kernel_launch_ms(
+        torch, each_bucket(short_ops.rmq_short_batch), "rmq_short_kernel")
     t_short = {
-        "ms": time_ms(torch, lambda: short_ops.rmq_short_batch(
+        "ms": launch if launch is not None else call_ms / buckets,
+        "ms_from": "torch.profiler" if launch is not None else
+                   "one call / launches (the profiler saw no kernel)",
+        "call_ms": call_ms,
+        "fused_launch_ms": kernel_launch_ms(
+            torch, each_bucket(rmq_fused_batch), "rmq_fused_kernel"),
+        "fused_call_ms": time_ms(torch, lambda: rmq_fused_batch(
             h, sl, sr, True), 20),
         "plain_ms": time_ms(torch, lambda: short_ops.rmq_short_batch_plain(
-            h.base, sl, sr, c, plan.capacity, True), 3, warmup=1),
-        "fused_ms": time_ms(torch, lambda: rmq_fused_batch(h, sl, sr, True),
-                            20),
-        "queries": sl.numel(),
+            h.base, sl, sr, c, plan.capacity, True), 3, warmup=1) / buckets,
+        "queries": sl.numel(), "launches": buckets, "bucket": step,
+        "call_bound": bound_ms(moved, moved / item),
     }
-    moved = span_bytes(torch, sl, sr, item) + sl.numel() * per_query
-    t_short["bound"] = bound_ms(moved, moved / item)
+    t_short["bound"] = bound_ms(moved / buckets, moved / item / buckets)
 
-    pair, bl, br = sorted_pair(torch, plan, h, ls, rs)
+    order = bulk_order(torch, ls, rs, c, plan.capacity)
+    bl, br = ls[order].contiguous(), rs[order].contiguous()
+    launches = -(-bl.numel() // (1 << 20))
+    pass_ms = time_ms(torch, lambda: bulk_pass(h, bl, br, True), 10)
     chunks = torch.unique(partial_chunks(torch, bl, br, c)).numel()
-    t_bulk = {
-        "ms": pair["rmq_bulk"],
-        "plain_ms": time_ms(torch, lambda: rmq_walk_batch(h, bl, br, True),
-                            1, warmup=1),
-        "fused_ms": pair["rmq_fused"],
-        "chunks": chunks,
-    }
     moved = chunks * c * item + bl.numel() * per_query
-    t_bulk["bound"] = bound_ms(moved, moved / item)
+    t_bulk = {
+        "ms": pass_ms / launches,
+        "pass_ms": pass_ms,
+        "fused_ms": time_ms(torch, lambda: rmq_fused_batch(h, bl, br, True),
+                            10),
+        "plain_ms": time_ms(torch, lambda: rmq_walk_batch(h, bl, br, True),
+                            1, warmup=1) / launches,
+        "chunks": chunks, "launches": launches,
+        "pass_bound": bound_ms(moved, moved / item),
+    }
+    t_bulk["bound"] = bound_ms(moved / launches, moved / item / launches)
     return t_short, t_bulk
 
 
 def sorted_pair(torch, plan, h, ls, rs):
     """rmq_bulk in 2^20 buckets and rmq_fused in one launch, both on the
     batch sorted as the bulk executor sorts it (CUDA events)."""
-    from repro_torch.kernels.rmq_bulk import ops as bulk_ops
     from repro_torch.kernels.rmq_fused.ops import rmq_fused_batch
 
-    c = plan.c
-    rows = -(-plan.capacity // c)
-    order = torch.sort((ls.long() // c) * rows + rs.long() // c,
-                       stable=True)[1]
+    order = bulk_order(torch, ls, rs, plan.c, plan.capacity)
     bl, br = ls[order].contiguous(), rs[order].contiguous()
-    step = 1 << 20
-
-    def bulk():
-        for s in range(0, bl.numel(), step):
-            bulk_ops.rmq_bulk_batch(h, bl[s:s + step], br[s:s + step], True)
-
-    return {"rmq_bulk": time_ms(torch, bulk, 10),
+    return {"rmq_bulk": time_ms(torch, lambda: bulk_pass(h, bl, br, True),
+                                10),
             "rmq_fused": time_ms(torch, lambda: rmq_fused_batch(
-                h, bl, br, True), 10)}, bl, br
+                h, bl, br, True), 10)}
+
+
+def zero_phase(torch, name, x, plan, ls, rs, seed, value_only=False):
+    """Signed zeros: a copy of the geometry's input with a sixteenth of its
+    entries set to -0.0 or +0.0 (and -0.0 right before +0.0 in half of
+    them), so most spans' minimum is a zero and the leftmost one's sign is
+    the answer's.  On a position build (and a value-only one): rmq_bulk
+    (B7, sorted, 2^20 buckets) and rmq_short (B5, the spans cut to the
+    short class) against rmq_fused (B2) on the same spans, bit for bit
+    (integer views); sampled spans against the bits of their leftmost
+    minimal entry.  Control: B2's values with each -0.0 set to +0.0 must
+    fail the bit check while torch.equal passes them.  Comparison
+    launches only; returns the kernels' max_abs_err."""
+    from repro_torch.core import RMQ
+    from repro_torch.kernels.rmq_fused.ops import rmq_fused_batch
+    from repro_torch.kernels.rmq_short import ops as short_ops
+
+    n, c = plan.n, plan.c
+    g = torch.Generator(device=x.device).manual_seed(seed + 8)
+    z = x.clone()
+    k = n // 16
+    idx = torch.randint(0, n - 1, (k,), generator=g, device=x.device)
+    neg = torch.rand(k, generator=g, device=x.device) < 0.5
+    zero = torch.zeros(k, dtype=z.dtype, device=z.device)
+    z[idx] = torch.where(neg, -zero, zero)
+    half = idx[: k // 2]
+    z[half] = -zero[: k // 2]  # -0.0 left of +0.0: the leftmost is -0.0
+    z[half + 1] = zero[: k // 2]
+    order = bulk_order(torch, ls, rs, c, plan.capacity)
+    bl, br = ls[order].contiguous(), rs[order].contiguous()
+    sl, sr = short_of(torch, ls, rs, c)
+    h = RMQ.build(z, with_positions=True, backend="fused", plan=plan,
+                  device=x.device).hierarchy
+    gv, gp = rmq_fused_batch(h, bl, br, True)
+    bv, bp = bulk_pass(h, bl, br, True)
+    bv_only = bulk_pass(h, bl, br, False)[0]
+    fv, fp = rmq_fused_batch(h, sl, sr, True)
+    kv, kp = short_ops.rmq_short_batch(h, sl, sr, True)
+    kv_only = short_ops.rmq_short_value_batch(h, sl, sr)
+    pairs = [(bv, gv), (bv_only, gv), (bp, gp), (kv, fv), (kv_only, fv),
+             (kp, fp)]
+    if value_only:
+        hv = RMQ.build(z, with_positions=False, backend="fused", plan=plan,
+                       device=x.device).hierarchy
+        gvv = rmq_fused_batch(hv, bl, br, False)[0]
+        pairs.append((bulk_pass(hv, bl, br, False)[0], gvv))
+        pairs.append((short_ops.rmq_short_value_batch(hv, sl, sr), fv))
+        # B2 on the value-only build against the position build: a reading
+        upper_sign = int((as_bits(torch, gvv) != as_bits(torch, gv)).sum())
+    torch.cuda.synchronize()
+    minus = as_bits(torch, torch.tensor(-0.0, dtype=z.dtype,
+                                        device=z.device))
+    signs = {"-0.0": int((as_bits(torch, gv) == minus).sum()),
+             "+0.0": int(((gv == 0) & (as_bits(torch, gv) != minus)).sum()),
+             "short -0.0": int((as_bits(torch, fv) == minus).sum())}
+    require(same_bits(torch, pairs),
+            f"{name} zeros: rmq_bulk / rmq_short differ in bits from "
+            "rmq_fused on the same spans")
+    control = torch.where(gv == 0, torch.zeros_like(gv), gv)
+    require(signs["-0.0"] > 0 and torch.equal(bv, control)
+            and not same_bits(torch, [(bv, control)]),
+            f"{name} zeros: the control (-0.0 set to +0.0) did not fail the "
+            f"bit check as it must ({signs})")
+    for vals, pos, l_, r_ in ((bv, bp, bl, br), (kv, kp, sl, sr)):
+        pick = torch.randint(0, l_.numel(), (256,), generator=g,
+                             device=x.device).tolist()
+        for i in pick:
+            lo, hi = int(l_[i]), int(r_[i])
+            p = lo + int(torch.argmin(z[lo:hi + 1]))
+            require(int(pos[i]) == p and same_bits(
+                torch, [(vals[i:i + 1], z[p:p + 1])]),
+                f"{name} zeros: span ({lo}, {hi}) is not its leftmost "
+                "minimal entry's bits")
+    note = (f"; rmq_fused on the value-only build differs in sign from "
+            f"the position build in {upper_sign} answers (a reading: the "
+            f"builds' upper entries)" if value_only else "")
+    print(f"{name} zeros: {k} zeros, answers {signs}; rmq_bulk and "
+          f"rmq_short equal rmq_fused bit for bit (position build"
+          f"{' and value-only build' if value_only else ''}); the control "
+          f"fails the bit check, passes torch.equal; 2 x 256 spans are "
+          f"their leftmost minimal entry's bits{note}")
+    return max_abs_err(torch, pairs[3:6]), max_abs_err(torch, pairs[:3])
 
 
 def stream_phase(torch, name, x, plan, seed):
@@ -910,6 +1114,45 @@ def time_attention(torch, seed):
     return out
 
 
+def kernel_rows(averages):
+    """``(name, device ms, launches)`` of each kernel in a profiler's
+    ``key_averages()``."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in averages:
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            rows.append((e.key, t / 1e3, e.count))
+    return rows
+
+
+def kernel_launch_ms(torch, fn, name: str, rounds: int = 3):
+    """Device milliseconds per launch of the kernels whose name contains
+    ``name``, from a torch.profiler trace of ``rounds`` calls of ``fn``
+    after one untraced call; None where the profiler fails or saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(rounds):
+                fn()
+            torch.cuda.synchronize()
+        rows = [r for r in kernel_rows(prof.key_averages()) if name in r[0]]
+    except Exception as exc:
+        print(f"torch.profiler failed: {exc!r}")
+        return None
+    launches = sum(r[2] for r in rows)
+    return sum(r[1] for r in rows) / launches if launches else None
+
+
 def profile_top(torch, fn, k: int = 5):
     """Kernel time on the device (ms), the wall time of the traced call,
     the device's idle share and the ``k`` kernels with the most time, from
@@ -917,7 +1160,6 @@ def profile_top(torch, fn, k: int = 5):
     summed (an operator's own device time repeats its kernels').  A trace
     is a reading, not a check: when the profiler itself fails this prints
     why and returns None, but an error raised by ``fn`` propagates."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     raised = []
@@ -942,15 +1184,7 @@ def profile_top(torch, fn, k: int = 5):
             raise
         print(f"torch.profiler failed: {exc!r}")
         return None
-    rows = []
-    for e in averages:
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t > 0:
-            rows.append((e.key[:60], t / 1e3, e.count))
+    rows = [(key[:60], t, count) for key, t, count in kernel_rows(averages)]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     return {"kernel_ms": busy, "wall_ms": wall_ms,
@@ -1648,12 +1882,19 @@ def run(torch, seed: int):
     print(f"A hierarchy_update (ms): {json.dumps(t_up)}; touched chunks "
           "per level as listed; call_ms is the whole RMQ.update, copy_ms "
           "the successor's three clones alone")
-    print(f"A rmq_short (ms, {t_short['queries']} short spans, value + "
-          f"index): {json.dumps(t_short)}")
-    print(f"A rmq_bulk (ms, 2^24 sorted spans in 2^20 buckets, value + "
-          f"index; distinct level-0 chunks {t_bulk['chunks']}): "
-          f"{json.dumps(t_bulk)}; rmq_fused on the unsorted batch "
-          f"{ms['rmq_fused']}")
+    print(f"A rmq_short (ms; ms, bound and plain_ms per launch of a "
+          f"{t_short['bucket']}-span bucket, call_ms for all "
+          f"{t_short['queries']} short spans in one call; value + index): "
+          f"{json.dumps(t_short)}")
+    print(f"A rmq_bulk (ms; ms, bound and plain_ms per launch of a 2^20 "
+          f"bucket, pass_ms for the 2^24 sorted spans in "
+          f"{t_bulk['launches']} launches, fused_ms for rmq_fused on the "
+          f"same sorted spans in one; value + index; distinct level-0 "
+          f"chunks {t_bulk['chunks']}): {json.dumps(t_bulk)}; rmq_fused on "
+          f"the unsorted batch {ms['rmq_fused']}")
+    zs, zb = zero_phase(torch, "A", x, plan, ls, rs, seed)
+    errors["rmq_short"] = max(errors["rmq_short"], zs)
+    errors["rmq_bulk"] = max(errors["rmq_bulk"], zb)
     del h, hp, x, ls, rs, rf, rc, wv, wp, up, eng
     torch.cuda.empty_cache()
 
@@ -1683,12 +1924,17 @@ def run(torch, seed: int):
                          10)
             print(f"B: fused value+index {tb * 1e6 / data['m']} ns/query "
                   f"(top of {plan_g.top_len} entries staged)")
-            pair = sorted_pair(torch, plan_g, hb, ls, rs)[0]
+            pair = sorted_pair(torch, plan_g, hb, ls, rs)
             print(f"B bulk vs fused on the same sorted batch (ms, value + "
                   f"index, {data['m'] * plan_g.c / plan_g.capacity} spans "
                   f"per level-0 chunk): {json.dumps(pair)}")
             del hb
         del r
+        if name == "D":
+            zs, zb = zero_phase(torch, name, x, plan_g, ls, rs, seed,
+                                value_only=True)
+            errors["rmq_short"] = max(errors["rmq_short"], zs)
+            errors["rmq_bulk"] = max(errors["rmq_bulk"], zb)
         if name in ("B", "D"):
             st = stream_phase(torch, name, x, plan_g, seed)
             for key, e in st["err"].items():

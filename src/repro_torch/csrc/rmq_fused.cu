@@ -112,7 +112,7 @@ extern "C" int rmq_fused_query(int dtype, int track, int capacity, int c,
   if (levels < 1 || levels > rmq::kMaxLevels)
     return static_cast<int>(cudaErrorInvalidValue);
   const rmq::WalkGeo g = rmq::make_walk_geo(capacity, c, levels, nullptr,
-                                            padded_lens, 0);
+                                            padded_lens);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return rmq::launch_fused_query<float>(track, g, offsets_table, base,

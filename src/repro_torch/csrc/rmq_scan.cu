@@ -98,7 +98,7 @@ extern "C" int rmq_scan_query(int dtype, int track, int capacity, int c,
   if (levels < 1 || levels > rmq::kMaxLevels)
     return static_cast<int>(cudaErrorInvalidValue);
   const rmq::WalkGeo g = rmq::make_walk_geo(capacity, c, levels, offsets,
-                                            padded_lens, 0);
+                                            padded_lens);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return rmq::launch_scan_query<float>(track, g, base, upper, upper_pos, ls,

@@ -1,10 +1,10 @@
-// The query walk of rmq_fused.cu (B2) and rmq_scan.cu (B4), designed for
-// Hopper: the loads of a query's levels issued before any merge, 16-byte
-// vectors, values only on the way up, one position gather per query.
+// The query walk of rmq_fused.cu (B2), rmq_scan.cu (B4), rmq_short.cu (B5)
+// and rmq_bulk.cu (B7), designed for Hopper: the loads of a query's levels
+// issued before any merge, 16-byte vectors, values only on the way up, one
+// position gather per query.
 //
-// What it computes is the walk of rmq_walk.cuh (which B5 and B7 keep): per
-// inclusive query (l, r), with r exclusive from here on, the left and the
-// right partial chunk of every level below the top,
+// What it computes: per inclusive query (l, r), with r exclusive from here
+// on, the left and the right partial chunk of every level below the top,
 //   [lo_k, min(ceil(lo_k/c)*c, hi_k))  and  [max(floor(hi_k/c)*c, .), hi_k),
 // with lo_{k+1} = ceil(lo_k/c), hi_{k+1} = floor(hi_k/c) while lo_k < hi_k,
 // then the top over [lo_K, hi_K).  These segments tile [l, r] from left to
@@ -13,26 +13,33 @@
 // (rmq_common.cuh), so the lexicographic (value, position) minimum is the
 // minimum of (value, segment rank, offset in the segment), and its
 // position is one gather: the index itself at level 0, upper_pos[offset_k
-// + i] above.
+// + i] above.  A one-level walk (B5, and single-level plans) is all top:
+// level 0 itself, positions = indices.
 //
-// How it runs (one warp per query, 32 queries a tile as in WLQ):
+// How it runs (G lanes per query, 32 / G queries at once a warp; 32
+// queries a tile as in WLQ):
 //  * loads are V-wide vectors (16 bytes: float4 / double2) where c, the
-//    capacity and the pointers allow it; lane j covers vectors j, j + 32,
-//    ... of a chunk and loads only where its vector overlaps the part, so
-//    only the sectors a part touches are requested.  At c = 32 V (c = 128
-//    in float32, the paper's default) one warp instruction covers a chunk,
-//    and the loads of both parts of the first kBatchLevels levels are all
-//    issued before the first merge: a large span waits on memory about
-//    once, not once per level;
+//    capacity and the pointers allow it; lane j of a group covers vectors
+//    j, j + G, ... of a chunk and loads only where its vector overlaps the
+//    part, so only the sectors a part touches are requested.  At c = 32 V
+//    (c = 128 in float32, the paper's default) one warp instruction covers
+//    a chunk (G = 32), and the loads of both parts of the first
+//    kBatchLevels levels are all issued before the first merge: a large
+//    span waits on memory about once, not once per level.  With G < 32
+//    (lane groups, same layout) each lane holds 32 / G vectors of a part
+//    and a group issues one level's two parts at a time;
 //  * upper levels are read as values only: the position plane is touched
 //    once per query, by the gather;
-//  * level-0 reads stream (L1 no-allocate, L2 evict_first); upper-level
-//    reads are L2 evict_last (paper §5.8: the upper levels stay in cache);
+//  * level 0 either streams (L1 no-allocate, L2 evict_first: B2 / B4) or
+//    goes through L1 (CACHE0: B5 / B7, whose sorted or short batches read
+//    neighbouring sectors again); upper-level reads are L2 evict_last
+//    (paper §5.8: the upper levels stay in cache);
 //  * each lane merges its vectors in rank order with fminf and keeps the
-//    first vector that lowered its minimum (a strict <); the warp takes the
-//    value minimum M by shuffles and the smallest (rank, vector) key among
-//    the lanes that hold M with __reduce_min_sync.  No float is read as an
-//    ordered integer: -0.0 and +0.0 compare equal and the key decides;
+//    first vector that lowered its minimum (a strict <); the group takes
+//    the value minimum M by shuffles and the smallest (rank, vector) key
+//    among the lanes that hold M with __reduce_min_sync.  No float is read
+//    as an ordered integer: -0.0 and +0.0 compare equal and the key
+//    decides;
 //  * lane j keeps M and the key of the tile's query j.  At the end of the
 //    tile every lane re-reads its winning vector once, takes the first
 //    valid entry equal to M (its own bits: the value returned is the
@@ -40,7 +47,9 @@
 //    position, all 32 queries at once.  A span whose minimum is +inf (or
 //    an empty one) answers (+inf, l) ((+inf, PAD_POS) when empty), the
 //    leftmost entry, as the lexicographic walk does.
-// A single-level plan is all top: level 0 itself, positions = indices.
+// So the kernels on this walk return the same bits for the same span, zeros
+// of either sign included, on any hierarchy whose upper entries carry the
+// bits of their chunk's leftmost minimal entry (every position build).
 #pragma once
 
 #include "rmq_walk.cuh"
@@ -70,11 +79,11 @@ __device__ __forceinline__ uint64_t evict_last_policy() {
   return p;
 }
 
-// Level 0: streamed past L1, first out of L2.
+// Past L1, with the L2 policy `pol` (level 0 of B2 / B4: evict_first).
 template <typename T, int V>
 __device__ __forceinline__ void ld_stream(Vec<T, V>& v, const T* p,
                                           uint64_t pol);
-// Upper levels: kept in L2.
+// Through L1, with the L2 policy `pol` (upper levels: evict_last).
 template <typename T, int V>
 __device__ __forceinline__ void ld_keep(Vec<T, V>& v, const T* p,
                                         uint64_t pol);
@@ -198,6 +207,17 @@ __device__ __forceinline__ void ld_shared<double, 1>(Vec<double, 1>& v,
 #undef RMQ_D1
 #undef RMQ_IN
 
+// Level 0: through L1 where CACHE0 (B5 / B7), else past it.
+template <typename T, int V, bool CACHE0>
+__device__ __forceinline__ void ld_level0(Vec<T, V>& v, const T* p,
+                                          uint64_t pol) {
+  if constexpr (CACHE0) {
+    ld_keep<T, V>(v, p, pol);
+  } else {
+    ld_stream<T, V>(v, p, pol);
+  }
+}
+
 __device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
 __device__ __forceinline__ double vmin(double a, double b) {
   return fmin(a, b);
@@ -214,7 +234,8 @@ constexpr int kQueryMinBlocks = 3;
 // (three: every level below the 512-entry top at n = 2^30, c = 128).
 constexpr int kBatchLevels = 3;
 
-template <typename T, int V>
+// CACHE0: level 0 is read through L1 (see the file comment).
+template <typename T, int V, bool CACHE0 = false>
 struct Walk {
   const int32_t* offs;  // shared memory: level k >= 1 at offs[k - 1]
   const T* base;
@@ -231,8 +252,9 @@ struct Walk {
   int sub_bits;  // key = rank << sub_bits | vector index in the segment
 };
 
-template <typename T, int V>
-__device__ __forceinline__ void init_walk(Walk<T, V>& w, const WalkGeo& g,
+template <typename T, int V, bool C0>
+__device__ __forceinline__ void init_walk(Walk<T, V, C0>& w,
+                                          const WalkGeo& g,
                                           const int32_t* offs, const T* base,
                                           const T* upper,
                                           const int32_t* upper_pos,
@@ -255,12 +277,16 @@ __device__ __forceinline__ void init_walk(Walk<T, V>& w, const WalkGeo& g,
   w.sub_bits = rbits == 0 ? 31 : 32 - rbits;
 }
 
-// Entries [i, i + V) of the top.
-template <typename T, int V>
-__device__ __forceinline__ void ld_top(const Walk<T, V>& w, int32_t i,
-                                       uint64_t keep, Vec<T, V>& x) {
+// Entries [i, i + V) of the top.  Where CACHE0, a one-level walk's top is
+// read as level 0 is.
+template <typename T, int V, bool C0>
+__device__ __forceinline__ void ld_top(const Walk<T, V, C0>& w, int32_t i,
+                                       uint64_t stream, uint64_t keep,
+                                       Vec<T, V>& x) {
   if (w.staged) {
     ld_shared<T, V>(x, w.top_s + static_cast<uint32_t>(i) * sizeof(T));
+  } else if (C0 && w.top_k == 0) {
+    ld_level0<T, V, C0>(x, w.top + i, stream);
   } else {
     ld_keep<T, V>(x, w.top + i, keep);
   }
@@ -289,21 +315,22 @@ __device__ __forceinline__ void level_part(int s, int32_t lo0, int32_t hi0,
   if (lo >= hi) b = a;  // a level the walk never reaches
 }
 
-// The lane's vectors j, j + 32, ... of one part, loaded and merged in
-// ascending order: the strict < keeps the lane's leftmost minimum.
-template <typename T, int V, bool STREAM>
-__device__ __forceinline__ void part_walk(const Walk<T, V>& w, const T* p,
-                                          int32_t cs, int32_t a, int32_t b,
-                                          uint32_t rank, int lane,
+// The vectors gl, gl + G, ... of one part that lane gl of a G-lane group
+// holds, loaded and merged in ascending order: the strict < keeps the
+// lane's leftmost minimum.
+template <int G, bool LEVEL0, typename T, int V, bool C0>
+__device__ __forceinline__ void part_walk(const Walk<T, V, C0>& w,
+                                          const T* p, int32_t cs, int32_t a,
+                                          int32_t b, uint32_t rank, int gl,
                                           uint64_t pol, T& v,
                                           uint32_t& best_rank,
                                           int32_t& best_sub) {
-  for (int vi = lane; vi < w.nv; vi += kWarp) {
+  for (int vi = gl; vi < w.nv; vi += G) {
     const int32_t st = vi * V;
     if (st + V > a && st < b) {
       Vec<T, V> x;
-      if (STREAM) {
-        ld_stream<T, V>(x, p + cs + st, pol);
+      if (LEVEL0) {
+        ld_level0<T, V, C0>(x, p + cs + st, pol);
       } else {
         ld_keep<T, V>(x, p + cs + st, pol);
       }
@@ -319,10 +346,10 @@ __device__ __forceinline__ void part_walk(const Walk<T, V>& w, const T* p,
   }
 }
 
-template <typename T, int V>
-__device__ __forceinline__ void part_any(const Walk<T, V>& w, int32_t lo0,
-                                         int32_t hi0, int k, bool left,
-                                         int lane, uint64_t stream,
+template <int G, typename T, int V, bool C0>
+__device__ __forceinline__ void part_any(const Walk<T, V, C0>& w,
+                                         int32_t lo0, int32_t hi0, int k,
+                                         bool left, int gl, uint64_t stream,
                                          uint64_t keep, T& v,
                                          uint32_t& best_rank,
                                          int32_t& best_sub) {
@@ -330,11 +357,11 @@ __device__ __forceinline__ void part_any(const Walk<T, V>& w, int32_t lo0,
   level_part(w.s, lo0, hi0, k, left, cs, a, b);
   const uint32_t rank = left ? k : 2 * w.top_k - k;
   if (k == 0) {
-    part_walk<T, V, true>(w, w.base, cs, a, b, rank, lane, stream, v,
-                          best_rank, best_sub);
+    part_walk<G, true>(w, w.base, cs, a, b, rank, gl, stream, v, best_rank,
+                       best_sub);
   } else {
-    part_walk<T, V, false>(w, w.upper + w.offs[k - 1], cs, a, b, rank, lane,
-                           keep, v, best_rank, best_sub);
+    part_walk<G, false>(w, w.upper + w.offs[k - 1], cs, a, b, rank, gl,
+                        keep, v, best_rank, best_sub);
   }
 }
 
@@ -348,45 +375,47 @@ __device__ __forceinline__ void bounds0(int32_t capacity, int32_t l,
 }
 
 // Levels kb.. of a walk whose range at level kb is [lo, hi): left parts
-// up, the top, right parts down (levels kb and above only).
-template <typename T, int V>
-__device__ __forceinline__ void walk_from(const Walk<T, V>& w, int32_t lo0,
-                                          int32_t hi0, int32_t lo, int32_t hi,
-                                          int kb, int lane, uint64_t stream,
+// up, the top, right parts down (levels kb and above only), by lane gl of
+// a G-lane group.
+template <int G, typename T, int V, bool C0>
+__device__ __forceinline__ void walk_from(const Walk<T, V, C0>& w,
+                                          int32_t lo0, int32_t hi0,
+                                          int32_t lo, int32_t hi, int kb,
+                                          int gl, uint64_t stream,
                                           uint64_t keep, T& v,
                                           uint32_t& best_rank,
                                           int32_t& best_sub) {
   int kp = kb;  // live levels below the top
   while (kp < w.top_k && lo < hi) {
-    part_any(w, lo0, hi0, kp, true, lane, stream, keep, v, best_rank,
-             best_sub);
+    part_any<G>(w, lo0, hi0, kp, true, gl, stream, keep, v, best_rank,
+                best_sub);
     lo = ceil_shift(lo, w.s);
     hi >>= w.s;
     ++kp;
   }
   // The top over [lo, hi): vector it of the lane starts at
-  // (lo & ~(V-1)) + (it * 32 + lane) * V.
+  // (lo & ~(V-1)) + (it * G + gl) * V.
   if (kp == w.top_k) {
     const int32_t end = hi < w.top_len ? hi : w.top_len;
     int32_t it = 0;
 #pragma unroll 1
-    for (int32_t t0 = (lo & ~(V - 1)) + lane * V; t0 < end;
-         t0 += kWarp * V, ++it) {
+    for (int32_t t0 = (lo & ~(V - 1)) + gl * V; t0 < end;
+         t0 += G * V, ++it) {
       Vec<T, V> x;
-      ld_top(w, t0, keep, x);
+      ld_top(w, t0, stream, keep, x);
       const T before = v;
 #pragma unroll
       for (int e = 0; e < V; ++e)
         if (t0 + e >= lo && t0 + e < end) v = vmin(v, x.x[e]);
       if (v < before) {
         best_rank = w.top_k;
-        best_sub = it * kWarp + lane;
+        best_sub = it * G + gl;
       }
     }
   }
   for (int k = kp - 1; k >= kb; --k)
-    part_any(w, lo0, hi0, k, false, lane, stream, keep, v, best_rank,
-             best_sub);
+    part_any<G>(w, lo0, hi0, k, false, gl, stream, keep, v, best_rank,
+                best_sub);
 }
 
 // ---------------------------------------------------------------------------
@@ -396,8 +425,8 @@ __device__ __forceinline__ void walk_from(const Walk<T, V>& w, int32_t lo0,
 // (the capacity check keeps every coordinate below 2^31), so an address
 // is one wide multiply-add.
 // ---------------------------------------------------------------------------
-template <typename T, int V>
-__device__ __forceinline__ void walk_batched(const Walk<T, V>& w,
+template <typename T, int V, bool C0>
+__device__ __forceinline__ void walk_batched(const Walk<T, V, C0>& w,
                                              const uint32_t* up_off,
                                              int32_t lo0, int32_t hi0,
                                              int lane, uint64_t stream,
@@ -425,14 +454,14 @@ __device__ __forceinline__ void walk_batched(const Walk<T, V>& w,
       const T* lv = k == 0 ? w.base : w.upper + up_off[k];
       if (st + V > al && st < bl) {
         if (k == 0) {
-          ld_stream<T, V>(xl[k], lv + (csl + st), stream);
+          ld_level0<T, V, C0>(xl[k], lv + (csl + st), stream);
         } else {
           ld_keep<T, V>(xl[k], lv + (csl + st), keep);
         }
       }
       if (st < br) {
         if (k == 0) {
-          ld_stream<T, V>(xr[k], lv + ((hi & ~c1) + st), stream);
+          ld_level0<T, V, C0>(xr[k], lv + ((hi & ~c1) + st), stream);
         } else {
           ld_keep<T, V>(xr[k], lv + ((hi & ~c1) + st), keep);
         }
@@ -457,8 +486,9 @@ __device__ __forceinline__ void walk_batched(const Walk<T, V>& w,
       if (v < before) best_rank = k;
     }
   }
-  walk_from(w, lo0, hi0, static_cast<int32_t>(lo), static_cast<int32_t>(hi),
-            kb, lane, stream, keep, v, best_rank, best_sub);
+  walk_from<kWarp>(w, lo0, hi0, static_cast<int32_t>(lo),
+                   static_cast<int32_t>(hi), kb, lane, stream, keep, v,
+                   best_rank, best_sub);
 #pragma unroll
   for (int k = UL - 1; k >= 0; --k) {
     const uint32_t br = pk[k] >> 16;
@@ -476,37 +506,139 @@ __device__ __forceinline__ void walk_batched(const Walk<T, V>& w,
   key = (best_rank << w.sub_bits) | static_cast<uint32_t>(best_sub);
 }
 
-// The same walk for every other layout, from registers, part by part.
-template <typename T, int V>
-__device__ __forceinline__ void walk_plain(const Walk<T, V>& w, int32_t lo0,
-                                           int32_t hi0, int lane,
-                                           uint64_t stream, uint64_t keep,
-                                           T& v, uint32_t& key) {
+// The same layout in lane groups (G < 32 lanes a query): lane gl holds the
+// 32 / G vectors gl, gl + G, ... of each part; a group issues both parts
+// of one level, then merges them.  Right parts come bottom-up here, in
+// falling rank, so they gather in an accumulator of their own (a part's
+// leftmost minimum, then `<=` across parts: the smaller rank wins a tie)
+// that joins the rest after the levels above and the top, whose ranks are
+// all smaller.  The levels' offsets are read from shared memory (w.offs),
+// not held in registers.
+template <int G, typename T, int V, bool C0>
+__device__ __forceinline__ void walk_grouped(const Walk<T, V, C0>& w,
+                                             int32_t lo0, int32_t hi0,
+                                             int gl, uint64_t stream,
+                                             uint64_t keep, T& v,
+                                             uint32_t& key) {
+  constexpr int UL = kBatchLevels;
+  constexpr int NPL = kWarp / G;  // vectors of a part a lane holds
+  const uint32_t c1 = (1u << w.s) - 1u;
   v = pos_inf<T>();
   uint32_t best_rank = 0;
-  int32_t best_sub = lane;
-  walk_from(w, lo0, hi0, lo0, hi0, 0, lane, stream, keep, v, best_rank,
-            best_sub);
+  int32_t best_sub = gl;
+  T vr = pos_inf<T>();  // the right parts' accumulator
+  uint32_t rr = 0;
+  int32_t rsub = 0;
+  uint32_t lo = lo0, hi = hi0;
+  int kb = 0;  // levels walked here
+#pragma unroll
+  for (int k = 0; k < UL; ++k) {
+    if (k < w.top_k && lo < hi) {
+      const uint32_t next_l = (lo + c1) & ~c1;
+      const uint32_t csl = lo & ~c1;
+      const uint32_t csr = hi & ~c1;
+      const uint32_t al = lo & c1;
+      const uint32_t bl = (next_l < hi ? next_l : hi) - csl;
+      const uint32_t br = next_l < hi ? hi & c1 : 0u;
+      const T* lv = k == 0 ? w.base : w.upper + w.offs[k - 1];
+      Vec<T, V> xl[NPL], xr[NPL];
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) {
+        const uint32_t st = (gl + j * G) * V;
+        if (st + V > al && st < bl) {
+          if (k == 0) {
+            ld_level0<T, V, C0>(xl[j], lv + (csl + st), stream);
+          } else {
+            ld_keep<T, V>(xl[j], lv + (csl + st), keep);
+          }
+        }
+        if (st < br) {
+          if (k == 0) {
+            ld_level0<T, V, C0>(xr[j], lv + (csr + st), stream);
+          } else {
+            ld_keep<T, V>(xr[j], lv + (csr + st), keep);
+          }
+        }
+      }
+      T pm = pos_inf<T>();
+      int32_t ps = 0;
+#pragma unroll
+      for (int j = 0; j < NPL; ++j) {
+        const uint32_t st = (gl + j * G) * V;
+        if (st + V > al && st < bl) {
+          const T before = v;
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            if (st + e >= al && st + e < bl) v = vmin(v, xl[j].x[e]);
+          if (v < before) {
+            best_rank = k;
+            best_sub = gl + j * G;
+          }
+        }
+        if (st < br) {
+          const T before = pm;
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            if (st + e < br) pm = vmin(pm, xr[j].x[e]);
+          if (pm < before) ps = gl + j * G;
+        }
+      }
+      if (pm <= vr) {
+        vr = pm;
+        rr = 2 * w.top_k - k;
+        rsub = ps;
+      }
+      kb = k + 1;
+      lo = next_l >> w.s;
+      hi >>= w.s;
+    }
+  }
+  walk_from<G>(w, lo0, hi0, static_cast<int32_t>(lo),
+               static_cast<int32_t>(hi), kb, gl, stream, keep, v, best_rank,
+               best_sub);
+  if (vr < v) {
+    v = vr;
+    best_rank = rr;
+    best_sub = rsub;
+  }
   key = (best_rank << w.sub_bits) | static_cast<uint32_t>(best_sub);
 }
 
-// The warp's answer to one query: the minimum M over the lanes (shuffles)
-// and the smallest key among the lanes that hold it (__reduce_min_sync).
-template <typename T>
-__device__ __forceinline__ void warp_min(T v, uint32_t key, T& m,
-                                         uint32_t& kmin) {
+// The same walk for every other layout, from registers, part by part.
+template <typename T, int V, bool C0>
+__device__ __forceinline__ void walk_plain(const Walk<T, V, C0>& w,
+                                           int32_t lo0, int32_t hi0,
+                                           int lane, uint64_t stream,
+                                           uint64_t keep, T& v,
+                                           uint32_t& key) {
+  v = pos_inf<T>();
+  uint32_t best_rank = 0;
+  int32_t best_sub = lane;
+  walk_from<kWarp>(w, lo0, hi0, lo0, hi0, 0, lane, stream, keep, v,
+                   best_rank, best_sub);
+  key = (best_rank << w.sub_bits) | static_cast<uint32_t>(best_sub);
+}
+
+// A group's answer to one query: the minimum M over its G lanes
+// (shuffles) and the smallest key among the lanes that hold it
+// (__reduce_min_sync on the group's lanes).
+template <int G, typename T>
+__device__ __forceinline__ void group_min(T v, uint32_t key, int lane, T& m,
+                                          uint32_t& kmin) {
   m = v;
 #pragma unroll
-  for (int o = kWarp / 2; o > 0; o >>= 1)
+  for (int o = G / 2; o > 0; o >>= 1)
     m = vmin(m, __shfl_xor_sync(kFullMask, m, o));
-  kmin = __reduce_min_sync(kFullMask, v == m ? key : 0xffffffffu);
+  unsigned mask = kFullMask;
+  if constexpr (G < kWarp) mask = ((1u << G) - 1u) << (lane & ~(G - 1));
+  kmin = __reduce_min_sync(mask, v == m ? key : 0xffffffffu);
 }
 
 // End of a tile: lane `lane` answers its own query from (M, key): the
 // winning vector re-read once, the first valid entry equal to M, and the
 // one position gather.
-template <typename T, int V, bool TRACK>
-__device__ __forceinline__ void answer(const Walk<T, V>& w, int32_t l,
+template <typename T, int V, bool TRACK, bool C0>
+__device__ __forceinline__ void answer(const Walk<T, V, C0>& w, int32_t l,
                                        int32_t r, T res_m, uint32_t key,
                                        uint64_t stream, uint64_t keep,
                                        T& val, int32_t& pos) {
@@ -530,7 +662,7 @@ __device__ __forceinline__ void answer(const Walk<T, V>& w, int32_t l,
     b = hi0 >> sh;
     if (b > w.top_len) b = w.top_len;
     start = (a & ~(V - 1)) + sub * V;
-    ld_top(w, start, keep, x);
+    ld_top(w, start, stream, keep, x);
   } else {
     const bool left = rank < static_cast<uint32_t>(w.top_k);
     k = left ? static_cast<int>(rank) : 2 * w.top_k - static_cast<int>(rank);
@@ -540,7 +672,7 @@ __device__ __forceinline__ void answer(const Walk<T, V>& w, int32_t l,
     b += cs;
     start = cs + sub * V;
     if (k == 0) {
-      ld_stream<T, V>(x, w.base + start, stream);
+      ld_level0<T, V, C0>(x, w.base + start, stream);
     } else {
       ld_keep<T, V>(x, w.upper + w.offs[k - 1] + start, keep);
     }
@@ -559,15 +691,27 @@ __device__ __forceinline__ void answer(const Walk<T, V>& w, int32_t l,
   if (TRACK && k > 0) pos = w.upper_pos[w.offs[k - 1] + i];
 }
 
-// The WLQ batch loop: warps stride over tiles of 32 queries.  Writes the
-// value plane where out_v is not null and the position plane where out_p
-// is not null (TRACK).
-template <typename T, bool TRACK, int V, bool FAST>
-__device__ __forceinline__ void answer_batch(const Walk<T, V>& w,
+// The WLQ batch loop over tiles of tq queries (32, or fewer for a small
+// batch: B5), G lanes a query: warps stride over the tiles (B2 / B4 / B5),
+// or each takes a contiguous run of them (`runs`: a sorted batch's
+// neighbours stay on one warp, B7).  A group answers the queries of its
+// own lanes, one a round.  Lane groups keep the tile's bounds and answers
+// in shared memory, not in registers across the rounds: their walk needs
+// those registers (held there, they spilled at the cap of 80).
+// Writes the value plane where out_v is not null and the position plane
+// where out_p is not null (TRACK).
+template <typename T, bool TRACK, int V, bool FAST, int G = kWarp,
+          bool C0 = false>
+__device__ __forceinline__ void answer_batch(const Walk<T, V, C0>& w,
                                              const int32_t* ls,
                                              const int32_t* rs, int64_t m,
-                                             T* out_v, int32_t* out_p) {
+                                             T* out_v, int32_t* out_p,
+                                             bool runs = false,
+                                             int tq = kWarp) {
+  static_assert(G == kWarp || FAST,
+                "lane groups need the one-chunk-a-warp layout");
   const int lane = threadIdx.x & (kWarp - 1);
+  const int gl = lane & (G - 1);
   // FAST: the batch levels' offsets in `upper` (level k at up_off[k]).
   uint32_t up_off[kBatchLevels];
 #pragma unroll
@@ -576,38 +720,76 @@ __device__ __forceinline__ void answer_batch(const Walk<T, V>& w,
   // Tile counters fit 32 bits: 2^31 tiles of bounds would not fit a card.
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
   const int nwarps = gridDim.x * blockDim.x / kWarp;
-  const int tiles = static_cast<int>((m + kWarp - 1) / kWarp);
+  const int tiles = static_cast<int>((m + tq - 1) / tq);
+  int first = warp, end = tiles, step = nwarps;
+  if (runs) {  // runs of tiles / nwarps tiles, one more for the first ones
+    const int per = tiles / nwarps, rest = tiles % nwarps;
+    first = warp * per + (warp < rest ? warp : rest);
+    end = first + per + (warp < rest ? 1 : 0);
+    step = 1;
+  }
   const uint64_t stream = evict_first_policy();
   const uint64_t keep = evict_last_policy();
-  for (int tile = warp; tile < tiles; tile += nwarps) {
-    const int64_t qi = static_cast<int64_t>(tile) * kWarp + lane;
+  // Lane groups: the tile's bounds and answers, one entry a thread.
+  __shared__ int32_t tile_l[G < kWarp ? kQueryThreads : 1];
+  __shared__ int32_t tile_r[G < kWarp ? kQueryThreads : 1];
+  __shared__ T tile_m[G < kWarp ? kQueryThreads : 1];
+  __shared__ uint32_t tile_k[G < kWarp ? kQueryThreads : 1];
+  for (int tile = first; tile < end; tile += step) {
+    const int64_t qi = static_cast<int64_t>(tile) * tq + lane;
+    const bool mine = lane < tq && qi < m;
     int32_t my_l = 0, my_r = -1;
-    if (qi < m) {
+    if (mine) {
       my_l = ls[qi];
       my_r = rs[qi];
     }
-    const int64_t left = m - static_cast<int64_t>(tile) * kWarp;
-    const int count = left < kWarp ? static_cast<int>(left) : kWarp;
+    const int64_t left = m - static_cast<int64_t>(tile) * tq;
+    const int count = left < tq ? static_cast<int>(left) : tq;
+    const int rounds = G == kWarp ? count : G;
     T res_m = pos_inf<T>();
     uint32_t res_key = 0;
-    for (int j = 0; j < count; ++j) {
+    if constexpr (G < kWarp) {
+      __syncwarp();
+      tile_l[threadIdx.x] = my_l;
+      tile_r[threadIdx.x] = my_r;
+      __syncwarp();
+    }
+    for (int j = 0; j < rounds; ++j) {
       int32_t lo0, hi0;
-      bounds0(w.capacity, __shfl_sync(kFullMask, my_l, j),
-              __shfl_sync(kFullMask, my_r, j), lo0, hi0);
+      if constexpr (G < kWarp) {
+        const int t = (threadIdx.x & ~(G - 1)) | j;
+        bounds0(w.capacity, tile_l[t], tile_r[t], lo0, hi0);
+      } else {
+        bounds0(w.capacity, __shfl_sync(kFullMask, my_l, j),
+                __shfl_sync(kFullMask, my_r, j), lo0, hi0);
+      }
       T v, mm;
       uint32_t key, kmin;
-      if constexpr (FAST) {
+      if constexpr (!FAST) {
+        walk_plain(w, lo0, hi0, lane, stream, keep, v, key);
+      } else if constexpr (G == kWarp) {
         walk_batched(w, up_off, lo0, hi0, lane, stream, keep, v, key);
       } else {
-        walk_plain(w, lo0, hi0, lane, stream, keep, v, key);
+        walk_grouped<G>(w, lo0, hi0, gl, stream, keep, v, key);
       }
-      warp_min(v, key, mm, kmin);
-      if (lane == j) {
-        res_m = mm;
-        res_key = kmin;
+      group_min<G>(v, key, lane, mm, kmin);
+      if (gl == j) {
+        if constexpr (G < kWarp) {
+          tile_m[threadIdx.x] = mm;
+          tile_k[threadIdx.x] = kmin;
+        } else {
+          res_m = mm;
+          res_key = kmin;
+        }
       }
     }
-    if (qi < m) {
+    if constexpr (G < kWarp) {
+      my_l = tile_l[threadIdx.x];
+      my_r = tile_r[threadIdx.x];
+      res_m = tile_m[threadIdx.x];
+      res_key = tile_k[threadIdx.x];
+    }
+    if (mine) {
       T val;
       int32_t pos;
       answer<T, V, TRACK>(w, my_l, my_r, res_m, res_key, stream, keep, val,

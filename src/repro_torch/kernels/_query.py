@@ -1,10 +1,12 @@
 """Operand preparation shared by the query wrappers (B2, B4, B7), and the
-launch sequence of B7 ``rmq_bulk_query``, whose top stage the caller
-decides.  B2 and B4 decide their own in ``csrc/rmq_walk_hopper.cuh``."""
+launch sequence of B2 ``rmq_fused_query`` and B7 ``rmq_bulk_query``, which
+share a C signature.  The kernels decide their top stage themselves
+(``csrc/rmq_walk_hopper.cuh``)."""
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -12,14 +14,10 @@ from repro_torch.core.hierarchy import Hierarchy
 from repro_torch.core.protocol import check_capacity_limit, kernel_index_extent
 from repro_torch.kernels import _build
 
-__all__ = ["MAX_LEVELS", "STAGE_LIMIT", "TABLE_WALK_SIGNATURE", "int_array",
-           "kernel_bounds", "stage_top", "table_walk"]
+__all__ = ["MAX_LEVELS", "TABLE_WALK_SIGNATURE", "int_array",
+           "kernel_bounds", "offsets_table", "table_walk"]
 
 MAX_LEVELS = 32
-# Shared memory a block may spend on its copy of the top level.  The
-# largest top at the default geometry (c*t = 8192 entries, float32 values
-# and int32 positions) takes 64 KB; float64 takes 96 KB.
-STAGE_LIMIT = 112 * 1024
 
 
 def kernel_bounds(h: Hierarchy, ls, rs, what: str):
@@ -40,12 +38,13 @@ def kernel_bounds(h: Hierarchy, ls, rs, what: str):
     return ls.contiguous(), rs.contiguous()
 
 
-def stage_top(h: Hierarchy, track: bool) -> int:
-    """1 if every block should copy the top level into shared memory."""
-    plan = h.plan
-    pos = 4 if (track and plan.num_levels > 1) else 0
-    return int(plan.top_padded_len * (h.base.element_size() + pos)
-               <= STAGE_LIMIT)
+@functools.lru_cache(maxsize=64)
+def offsets_table(offsets: tuple, device: torch.device) -> torch.Tensor:
+    """A plan's level offsets as int32 on ``device``, made once: copying
+    them to the card at every launch would wait for the card each time
+    (a blocking copy), so a batch cut into buckets would leave it idle
+    between its launches."""
+    return torch.tensor(offsets or (0,), dtype=torch.int32, device=device)
 
 
 def int_array(values) -> ctypes.Array:
@@ -53,14 +52,14 @@ def int_array(values) -> ctypes.Array:
     return (ctypes.c_int * len(values))(*values)
 
 
-# (dtype, track, capacity, c, levels, padded_lens, stage_top,
-#  offsets_table, base, upper, upper_pos, ls, rs, m, out_v, out_p, stream)
+# (dtype, track, capacity, c, levels, padded_lens, offsets_table, base,
+#  upper, upper_pos, ls, rs, m, out_v, out_p, stream)
 TABLE_WALK_SIGNATURE = (
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p,
 )
 
 
@@ -76,16 +75,14 @@ def table_walk(source: str, symbol: str, counter, h: Hierarchy, ls, rs,
         if track_pos else None
     if m == 0:
         return out_v, out_p
-    offsets = torch.tensor(plan.offsets or (0,), dtype=torch.int32,
-                           device=dev)
+    offsets = offsets_table(tuple(plan.offsets), dev)
     padded = int_array(plan.padded_lens)
     lib = _build.load(source, {symbol: TABLE_WALK_SIGNATURE})
     with torch.cuda.device(dev):
         rc = getattr(lib, symbol)(
             _build.dtype_code(h.base.dtype), int(track_pos), plan.capacity,
             plan.c, plan.num_levels, ctypes.cast(padded, ctypes.c_void_p),
-            stage_top(h, track_pos), _build.ptr(offsets),
-            _build.ptr(h.base), _build.ptr(h.upper),
+            _build.ptr(offsets), _build.ptr(h.base), _build.ptr(h.upper),
             _build.ptr(h.upper_pos if track_pos else None),
             _build.ptr(ls), _build.ptr(rs), m, _build.ptr(out_v),
             _build.ptr(out_p), _build.stream_of(dev))

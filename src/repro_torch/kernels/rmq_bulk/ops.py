@@ -3,14 +3,15 @@
 
 The counterpart of the reference's ``rmq_bulk_batch``
 (``repro/kernels/rmq_bulk/ops.py``).  On a CUDA hierarchy one launch of
-``csrc/rmq_bulk.cu`` answers a bucket: the fused walk with each warp
-holding its current level-0 boundary chunks in shared memory and loading
-a chunk only when a span's chunk differs from the one it holds.  Reuse
-needs a batch sorted by ``(chunk(l), chunk(r))``, which
+``csrc/rmq_bulk.cu`` answers a bucket: the Hopper walk of ``rmq_fused``
+(``csrc/rmq_walk_hopper.cuh``) with each warp on a contiguous run of the
+batch and level 0 read through L1, so spans that share a level-0 boundary
+chunk find its sectors there.  Reuse needs a batch sorted by
+``(chunk(l), chunk(r))``, which
 :class:`repro_torch.qe.executors.BulkExecutor` provides; an unsorted
-batch is answered the same, only without reuse.  Answers are
-bit-identical to ``rmq_fused`` (values and leftmost positions).  On a
-CPU hierarchy the plain version, :func:`rmq_bulk_batch_plain` (the plain
+batch is answered the same, only without reuse.  Answers are ``rmq_fused``'s
+bit for bit (values, their bits and leftmost positions).  On a CPU
+hierarchy the plain version, :func:`rmq_bulk_batch_plain` (the plain
 walk: the reference's oracle is its branch-free walk too), answers.
 """
 
@@ -35,11 +36,6 @@ __all__ = [
 
 LAUNCHES = profiling.KernelCounter("rmq_bulk")
 
-# Shared memory of a block: two level-0 chunks for each of its 8 warps
-# must fit (the top stage is dropped first when both do not).
-_SMEM_LIMIT = 227 * 1024
-_WARPS = 8
-
 rmq_bulk_batch_plain = rmq_walk_batch
 
 
@@ -47,10 +43,6 @@ def rmq_bulk_batch_cuda(
     h: Hierarchy, ls, rs, track_pos: bool
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One launch: ``(values, positions or None)`` for the bucket."""
-    if _WARPS * 2 * h.plan.c * h.base.element_size() > _SMEM_LIMIT:
-        raise ValueError(
-            f"rmq_bulk: chunk size c={h.plan.c} of {h.base.dtype} is too "
-            "large for the per-warp level-0 buffers in shared memory")
     return _query.table_walk("rmq_bulk", "rmq_bulk_query", LAUNCHES, h, ls,
                              rs, track_pos)
 

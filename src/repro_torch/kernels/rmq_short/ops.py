@@ -8,7 +8,9 @@ path).  The answer never needs the hierarchy, and positions are the
 level-0 indices, so ``RMQ_index`` works on value-only builds.
 
 On a CUDA hierarchy one launch of ``csrc/rmq_short.cu`` answers the
-batch; it reads only ``[l, r]``, so it needs neither the reference's
+batch: the Hopper walk of the other query kernels on level 0 alone, so a
+value is the leftmost minimal entry's own bits, as ``rmq_fused`` returns
+it.  It reads only ``[l, r]``, so it needs neither the reference's
 anchor clamp nor its fallback for ``capacity < 2c``.  On a CPU hierarchy
 the plain version, :func:`rmq_short_batch_plain` (``ref.py``, the
 reference's two-chunk window scan), answers.

@@ -324,6 +324,76 @@ def test_bulk_kernel_matches_plain(card, n, c, t, cap, dtype, ordered):
     np.testing.assert_array_equal(gp.cpu().numpy(), bp)
 
 
+def _int_view(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+def _same_bits(got, want):
+    """Bit for bit: dtype, shape and the integer views (-0.0 != +0.0)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(_int_view(got), _int_view(want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", EDGE_BATCHES)
+@pytest.mark.parametrize("n,c,t,cap", EDGE_GEOMETRIES)
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_short_bulk_tie_edges_match_fused(card, n, c, t, cap, kind, dtype,
+                                          m):
+    """B5 and B7 against B2 on the same spans, bit for bit as integer
+    views (torch.equal takes -0.0 for +0.0): signed zeros, +inf runs,
+    equal minima in several segments, batches around the 32-query tile.
+    B7 on unsorted and endpoint-sorted batches, on a position build and on
+    a value-only build (B2 on the same build); B5 on the spans cut to the
+    short class, on both builds, against B2 on the position build (level
+    0 is the same; a position build's upper entries carry their chunk's
+    leftmost minimal entry's bits).  Values also bit for bit against the
+    leftmost minimal entry, positions against brute force."""
+    from repro_torch.kernels.rmq_bulk import ops as bulk_ops
+    from repro_torch.kernels.rmq_short import ops as short_ops
+
+    rng = np.random.default_rng(2 * n + m)
+    xn = edge_input(kind, rng, n, c, dtype)
+    ls_n, rs_n = edge_spans(rng, n, c, m)
+    x = torch.from_numpy(xn).to(card)
+    plan = make_plan(n, c=c, t=t, capacity=cap)
+    hp = build_hierarchy(x, plan, with_positions=True)
+    hv = build_hierarchy(x, plan, with_positions=False)
+    sorted_ = np.lexsort((rs_n // c, ls_n // c))
+    s_rs = np.minimum(rs_n, (ls_n // c) * c + 2 * c - 1).astype(np.int32)
+    b0, s0 = bulk_ops.LAUNCHES.launches, short_ops.LAUNCHES.launches
+    for l_n, r_n, short in ((ls_n, rs_n, False),
+                            (ls_n[sorted_], rs_n[sorted_], False),
+                            (ls_n, s_rs, True)):
+        ls = torch.from_numpy(l_n).to(card)
+        rs = torch.from_numpy(r_n).to(card)
+        fv, fp = qfused_ops.rmq_fused_batch(hp, ls, rs, track_pos=True)
+        if short:
+            got = [short_ops.rmq_short_batch(h, ls, rs, track_pos=True)
+                   for h in (hp, hv)]
+            only = [short_ops.rmq_short_value_batch(h, ls, rs)
+                    for h in (hp, hv)]
+            want_only = [fv, fv]
+        else:
+            got = [bulk_ops.rmq_bulk_batch(hp, ls, rs, track_pos=True)]
+            only = [bulk_ops.rmq_bulk_value_batch(h, ls, rs)
+                    for h in (hp, hv)]
+            want_only = [fv, qfused_ops.rmq_fused_value_batch(hv, ls, rs)]
+        torch.cuda.synchronize()
+        bv, bp = brute_force(xn, l_n, r_n)
+        for v, p in got:
+            _same_bits(v, fv)
+            _assert_same(fp, p)
+            np.testing.assert_array_equal(p.cpu().numpy(), bp)
+            np.testing.assert_array_equal(_bits(v.cpu().numpy()),
+                                          _bits(xn[bp]))
+        for v, w in zip(only, want_only):
+            _same_bits(v, w)
+    assert bulk_ops.LAUNCHES.launches - b0 == 6
+    assert short_ops.LAUNCHES.launches - s0 == 4
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("backend", ["fused", "cuda"])
 def test_mutation_and_engine_on_card(card, backend):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the query-walk kernels B2 (``rmq_fused``) and B4 (``rmq_scan``) at
-geometry A of ``chip_smoke.py`` on one CUDA card.
+"""Time the query-walk kernels B2 (``rmq_fused``), B4 (``rmq_scan``), B5
+(``rmq_short``) and B7 (``rmq_bulk``) at geometry A of ``chip_smoke.py``
+on one CUDA card.
 
     python3 tools/query_walk_bench.py [--src DIR] [--label NAME]
 
@@ -9,12 +10,13 @@ geometry A of ``chip_smoke.py`` on one CUDA card.
 commit, is timed by the same script.  Geometry A: n = 2^30,
 ``make_input_array(n, 0)`` float32, c = 128, t = 64, positions on, and
 m = 2^24 spans, ``make_queries(n, m, "mixed", 1)``.  Prints the card (``nvidia-smi`` name and power
-limit), the one-chunk-a-warp kernels' ``-Xptxas -v`` registers and
-spills, the level-1 value and position planes' bytes beside the 50 MB
-L2, each kernel's answers against the plain walk (torch.equal, values
-and positions), and
-one JSON line of CUDA-event times in milliseconds, each the mean of 10
-launches, taken in two turns:
+limit), the kernels' ``-Xptxas -v`` registers and spills (every
+instance of B5 and B7, the one-chunk-a-warp ones of B2 and B4), the
+level-1 value and position planes' bytes beside the 50 MB L2, B2's and
+B4's answers against the plain walk (torch.equal, values and positions),
+B5's and B7's against B2's on the same spans (bit for bit, integer
+views), and one JSON line of CUDA-event times in milliseconds, each the
+mean of 10 launches, taken in two turns:
 
 * ``rmq_fused``: one launch, both planes; ``rmq_fused value``: the value
   plane alone;
@@ -24,6 +26,21 @@ launches, taken in two turns:
 * ``by class``: ``rmq_fused`` (both planes) on m/3 spans of each paper
   §5.1 size class alone (``make_queries`` "small", "medium", "large"),
   each beside its own bound: where the mixed batch's time goes.
+
+Then B7 and B5 (both planes a launch):
+
+* ``rmq_bulk pass``: the batch sorted as the bulk executor sorts it, in
+  2^20 buckets (16 launches), in turns with ``rmq_fused sorted`` (B2 on
+  the same sorted spans, one launch); ``rmq_bulk launch`` is the pass over
+  its launches; ``bulk bound``: the distinct level-0 boundary chunks plus
+  bounds and answers at 3.35 TB/s; and the same by class, each class
+  sorted;
+* ``rmq_short``: the engine's short spans (``make_span_queries(n, 2^20,
+  c, "mixed", 3)`` with r // c - l // c <= 1, as ``chip_smoke.py``'s
+  engine phase) in one call and in the engine's buckets of 4096: device
+  time per launch from torch.profiler (at that size CUDA events would
+  time the host's wrapper), beside B2 on the same spans and buckets and
+  the bound (the spans' sectors plus bounds and answers).
 """
 
 from __future__ import annotations
@@ -38,9 +55,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 from chip_smoke import (  # noqa: E402
     HBM_BYTES_PER_S,
+    bulk_order,
+    bulk_pass,
     card_line,
+    kernel_launch_ms,
     level0_bytes,
+    partial_chunks,
     ptxas_of,
+    same_bits,
+    span_bytes,
     time_ms,
 )
 
@@ -73,7 +96,8 @@ def main() -> int:
     print(f"[{args.label}] src {args.src}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    reports = _build.build_all(["rmq_fused", "rmq_scan", "hierarchy_fused"])
+    reports = _build.build_all(["rmq_fused", "rmq_scan", "hierarchy_fused",
+                                "rmq_short", "rmq_bulk"])
     print(f"[{args.label}] built in {time.perf_counter() - t0:.3f} s")
     for src in ("rmq_fused", "rmq_scan"):
         for dtype, vec in (("f", 4), ("d", 2)):
@@ -81,6 +105,10 @@ def main() -> int:
                 entry = f"{src}_kernelI{dtype}Lb{track}ELi{vec}ELb1E"
                 print(f"[{args.label}] ptxas {entry}: "
                       f"{ptxas_of(reports.get(src, ''), entry)}")
+    for src in ("rmq_short", "rmq_bulk"):
+        for entry, regs in ptxas_all(reports.get(src, ""),
+                                     f"{src}_kernel").items():
+            print(f"[{args.label}] ptxas {entry}: {regs}")
 
     n, m, c, t = 1 << 30, 1 << 24, 128, 64
     x = torch.from_numpy(make_input_array(n, 0)).cuda()
@@ -140,8 +168,114 @@ def main() -> int:
             "spans": cl.numel()}
     print(f"[{args.label}] rmq_fused by class (ms, CUDA events): "
           f"{json.dumps(by_class)}")
+    bad += bulk_and_short(args.label, torch, h, plan, ls, rs, n, m)
     print(card_line())
     return 1 if bad else 0
+
+
+def ptxas_all(report: str, stem: str):
+    """``{template arguments: registers and spills}`` of every kernel in
+    a ``-Xptxas -v`` report whose mangled name contains ``stem``."""
+    out = {}
+    for line in report.splitlines():
+        if "Compiling entry" in line and stem in line:
+            name = line.split(stem, 1)[1].split("EEEv", 1)[0]
+            out[name] = ptxas_of(report, stem + name)
+    return out
+
+
+def sorted_batch(torch, ls, rs, plan):
+    order = bulk_order(torch, ls, rs, plan.c, plan.capacity)
+    return ls[order].contiguous(), rs[order].contiguous()
+
+
+def bulk_bound(torch, bl, br, c, item):
+    chunks = torch.unique(partial_chunks(torch, bl, br, c)).numel()
+    moved = chunks * c * item + bl.numel() * (8 + item + 4)
+    return moved / HBM_BYTES_PER_S * 1e3
+
+
+def bulk_and_short(label, torch, h, plan, ls, rs, n, m):
+    """B7 on the sorted batch and B5 on the engine's short spans; returns
+    the names of the comparisons that failed."""
+    from repro_torch.kernels.rmq_fused.ops import rmq_fused_batch
+    from repro_torch.kernels.rmq_short.ops import rmq_short_batch
+    from repro_torch.tune.measure import make_queries, make_span_queries
+
+    c, item = plan.c, h.base.element_size()
+    bad = []
+    bl, br = sorted_batch(torch, ls, rs, plan)
+    sl, sr = (torch.from_numpy(a).cuda() for a in
+              make_span_queries(n, 1 << 20, c, "mixed", seed=3))
+    keep = (sr // c) - (sl // c) <= 1
+    sl, sr = sl[keep].contiguous(), sr[keep].contiguous()
+    got = {"rmq_bulk": (bulk_pass(h, bl, br, True),
+                        rmq_fused_batch(h, bl, br, True)),
+           "rmq_short": (rmq_short_batch(h, sl, sr, True),
+                         rmq_fused_batch(h, sl, sr, True))}
+    torch.cuda.synchronize()
+    for key, ((v, p), (fv, fp)) in got.items():
+        if not same_bits(torch, [(v, fv), (p, fp)]):
+            bad.append(f"{key} against rmq_fused")
+    print(f"[{label}] rmq_bulk (sorted 2^24) and rmq_short (the engine's "
+          f"short spans) against rmq_fused on the same spans, bit for bit: "
+          f"{'equal' if not bad else 'DIFFER: ' + ', '.join(bad)}")
+
+    launches = -(-m // (1 << 20))
+    fns = {"rmq_bulk pass": lambda: bulk_pass(h, bl, br, True),
+           "rmq_fused sorted": lambda: rmq_fused_batch(h, bl, br, True)}
+    times = {k: [] for k in fns}
+    for _ in range(2):
+        for k, fn in fns.items():
+            times[k].append(time_ms(torch, fn, REPS))
+    out = {k: sum(v) / len(v) for k, v in times.items()}
+    out["rmq_bulk launch"] = out["rmq_bulk pass"] / launches
+    out["launches"] = launches
+    out["bulk bound"] = bulk_bound(torch, bl, br, c, item)
+    out["turns"] = times
+    by_class = {}
+    for kind in ("small", "medium", "large"):
+        cl, cr = (torch.from_numpy(a).cuda()
+                  for a in make_queries(n, m // 3, kind, seed=1))
+        cl, cr = sorted_batch(torch, cl, cr, plan)
+        by_class[kind] = {
+            "rmq_bulk": time_ms(torch, lambda: bulk_pass(h, cl, cr, True),
+                                REPS),
+            "rmq_fused": time_ms(torch, lambda: rmq_fused_batch(
+                h, cl, cr, True), REPS),
+            "bound": bulk_bound(torch, cl, cr, c, item),
+            "spans": cl.numel()}
+    out["by class"] = by_class
+    print(f"[{label}] rmq_bulk (ms, CUDA events, value + index): "
+          f"{json.dumps(out)}")
+
+    step = 4096
+
+    def buckets(fn):
+        return lambda: [fn(h, sl[s:s + step], sr[s:s + step], True)
+                        for s in range(0, sl.numel(), step)]
+
+    moved = span_bytes(torch, sl, sr, item) + sl.numel() * (8 + item + 4)
+    nb = -(-sl.numel() // step)
+    short = {
+        "spans": sl.numel(), "launches": nb,
+        "rmq_short call": time_ms(torch, lambda: rmq_short_batch(
+            h, sl, sr, True), 20),
+        "rmq_fused call": time_ms(torch, lambda: rmq_fused_batch(
+            h, sl, sr, True), 20),
+        "rmq_short launch": kernel_launch_ms(
+            torch, buckets(rmq_short_batch), "rmq_short_kernel"),
+        "rmq_fused launch": kernel_launch_ms(
+            torch, buckets(rmq_fused_batch), "rmq_fused_kernel"),
+        "rmq_short buckets (events, host included)": time_ms(
+            torch, buckets(rmq_short_batch), 3) / nb,
+        "call bound": moved / HBM_BYTES_PER_S * 1e3,
+        "launch bound": moved / nb / HBM_BYTES_PER_S * 1e3,
+    }
+    print(f"[{label}] rmq_short (ms, value + index; 'launch': device time "
+          f"per launch of a {step}-span bucket, torch.profiler): "
+          f"{json.dumps(short)}")
+    return bad
 
 
 if __name__ == "__main__":
