@@ -21,7 +21,8 @@ outside the repository.  Phases:
    capacity > n, value-only and position builds) and E (a single-level
    plan), each driven and read the same way;
 5. every hierarchy and answer is held bit for bit (tolerance 0: min and
-   argmin are exact) against the plain build and the plain walk on the
+   argmin are exact; the builds as integer views, so -0.0 and +0.0
+   differ) against the plain build and the plain walk on the
    card, and 256 sampled spans per geometry against torch.min / first
    argmin over the slice; at every geometry ``rmq_short`` (the spans cut
    to the short class) and ``rmq_bulk`` (the batch sorted as the bulk
@@ -30,10 +31,12 @@ outside the repository.  Phases:
    +0.0 differ);
 6. times at geometry A with CUDA events, warmed up, over many launches:
    each kernel beside its bound (bytes at 3.35 TB/s), its plain version
-   and a one-call PyTorch yardstick where one exists; per-plane times of
-   ``rmq_fused`` and ``rmq_scan``, their kernels' ``-Xptxas -v`` registers
-   and spills, and the level-1 value and position planes' bytes beside
-   the 50 MB L2;
+   and a one-call PyTorch yardstick where one exists; the value-only
+   builds beside ``torch.amin(x.view(-1, c), dim=1)`` (timed only);
+   per-plane times of ``rmq_fused`` and ``rmq_scan``, the
+   ``-Xptxas -v`` registers and spills of their kernels and of the
+   builds' run instances (``build_hopper.cuh``), and the level-1 value
+   and position planes' bytes beside the 50 MB L2;
 7. mutation at geometry A: one batch of 2^16 random indices with
    duplicates through ``RMQ.update`` on the ``cuda`` and the ``fused``
    index (``hierarchy_update``, three launches each), held against the
@@ -51,10 +54,15 @@ outside the repository.  Phases:
 9. ``StreamingRMQ.append`` of 777 values, ``retire(1024)`` and a query
    batch at geometries B and D, against the plain path and a rebuild;
    and signed zeros at A and D: a copy of the input with a sixteenth of
-   it set to -0.0 / +0.0, on which ``rmq_bulk`` and ``rmq_short`` equal
-   ``rmq_fused`` bit for bit (position builds; at D a value-only build
-   too) and sampled spans are their leftmost minimal entry's bits, with a
-   control (``rmq_fused``'s values with -0.0 set to +0.0) that must fail
+   it set to -0.0 / +0.0, on which both builds (``hierarchy_fused`` and
+   ``hierarchy_build``, value-only and with positions) equal the plain
+   build as integer views, with a control (the plain upper plane with
+   -0.0 set to +0.0) that must fail that check; ``rmq_bulk`` and
+   ``rmq_short`` equal ``rmq_fused`` bit for bit (position builds; at D
+   the value-only builds too), at D ``rmq_fused`` on each value-only
+   build equals it on the position build in every answer's sign (a
+   gate), and sampled spans are their leftmost minimal entry's bits, with
+   a control (``rmq_fused``'s values with -0.0 set to +0.0) that must fail
    the bit check and pass ``torch.equal``;
 10. times of the three kernels of phases 7-9 at geometry A beside their
    bounds, their plain versions and the comparison each exists for
@@ -418,6 +426,18 @@ def ptxas_of(report: str, entry: str) -> str:
     return "not in the report (library already built)"
 
 
+def ptxas_all(report: str, stem: str):
+    """``{kernel: registers and spills}`` of every kernel in a
+    ``-Xptxas -v`` report whose mangled name contains ``stem``, keyed by
+    ``stem`` and its template arguments."""
+    out = {}
+    for line in report.splitlines():
+        if "Compiling entry" in line and stem in line:
+            name = stem + line.split(stem, 1)[1].split("EEEv", 1)[0]
+            out[name] = ptxas_of(report, name)
+    return out
+
+
 def counters():
     from repro_torch.kernels.hierarchy_build import ops as build_ops
     from repro_torch.kernels.hierarchy_fused import ops as fused_ops
@@ -511,9 +531,11 @@ def drive(torch, name, x, ls, rs, plan, with_positions, seed):
         torch, name, rf.hierarchy, ls, rs, plan, wv, wp)
     require(all(e == 0.0 for e in err.values()),
             f"{name}: kernels disagree with their plain versions: {err}")
+    require(same_bits(torch, build_pairs),
+            f"{name}: a build differs in bits from the plain build")
     brute_force_check(torch, x, ls, rs, wv, wp, 256, seed, plan.n)
     print(f"{name}: levels {plan.level_lens}, launches {launches}, "
-          f"max_abs_err {err}, brute force 256/256 ok")
+          f"max_abs_err {err}, builds bit for bit, brute force 256/256 ok")
     return {"launches": launches, "err": err, "rf": rf, "rc": rc, "hp": hp,
             "wv": wv, "wp": wp}
 
@@ -617,18 +639,22 @@ def update_phase(torch, x, plan, rf, rc, seed):
             "idxs": idxs, "vals": vals}
 
 
-def time_update(torch, plan, rc, up):
-    """Phase 10 for hierarchy_update: the three launches alone, the plain
-    re-reduction, the level-1 index_select + torch.min pair, and the
-    whole RMQ.update call with and without the successor copy."""
+def update_launches(torch, plan, want, idxs):
+    """B6's launches for the update batch ``idxs`` at ``plan``, from the
+    updated plain hierarchy ``want``: ``(kernels, yardstick, plain,
+    bytes, touched)``.  ``kernels()`` runs ``update_level_cuda`` once a
+    level, ``plain()`` the plain re-reduction, both into copies of
+    ``want``'s upper planes; ``yardstick()`` is the level-1
+    ``index_select`` + ``torch.min`` pair; ``bytes`` is what the launches
+    must move (each touched chunk's source entries read once, a summary
+    and a position written); ``touched`` the chunks per level."""
     from repro_torch.kernels.hierarchy_update import ops as upd_ops
     from repro_torch.streaming import updates as U
 
     c = plan.c
-    want = up["want"]
     base = want.base
     upper, upos = want.upper.clone(), want.upper_pos.clone()
-    ids = up["idxs"].long() // c
+    ids = idxs.long() // c
     level_ids = []
     for level in range(1, plan.num_levels):
         ids = U.touched_chunk_ids(ids, plan.level_lens[level])
@@ -647,12 +673,28 @@ def time_update(torch, plan, rc, up):
         for k, lid in enumerate(level_ids, 1):
             U.repair_plain(plan, base, upper, upos, k, lid.long())
 
+    def yardstick():
+        return torch.min(base.view(-1, c).index_select(0, level_ids[0]),
+                         dim=1)
+
+    item = base.element_size()
+    moved = 0
+    for k, lid in enumerate(level_ids, 1):
+        per = item + (4 if k > 1 else 0)  # level 1 synthesizes positions
+        moved += lid.numel() * (c * per + item + 4 + 4)
+    return kernels, yardstick, plain, moved, [lid.numel()
+                                               for lid in level_ids]
+
+
+def time_update(torch, plan, rc, up):
+    """Phase 10 for hierarchy_update: the three launches alone, the plain
+    re-reduction, the level-1 index_select + torch.min pair, and the
+    whole RMQ.update call with and without the successor copy."""
+    kernels, yardstick, plain, moved, touched = update_launches(
+        torch, plan, up["want"], up["idxs"])
     h = rc.hierarchy
     idxs, vals = up["idxs"], up["vals"]
-    turns = time_turns(torch, {
-        "kernel": kernels,
-        "library": lambda: torch.min(
-            base.view(-1, c).index_select(0, level_ids[0]), dim=1)}, 20)
+    turns = time_turns(torch, {"kernel": kernels, "library": yardstick}, 20)
     out = {
         "ms": mean(turns["kernel"]),
         "library_ms": mean(turns["library"]),
@@ -662,18 +704,12 @@ def time_update(torch, plan, rc, up):
         "copy_ms": time_ms(torch, lambda: (h.base.clone(), h.upper.clone(),
                                            h.upper_pos.clone()), 5),
     }
-    item = base.element_size()
-    moved = 0
-    for k, lid in enumerate(level_ids, 1):
-        per = item + (4 if k > 1 else 0)  # level 1 synthesizes positions
-        moved += lid.numel() * (c * per + item + 4 + 4)
-    out["bound"] = bound_ms(moved, sum(lid.numel() * c
-                                       for lid in level_ids))
+    out["bound"] = bound_ms(moved, sum(touched) * plan.c)
     # the whole call's floor: the successor's planes read and written once
     planes = sum(t.numel() * t.element_size()
                  for t in (h.base, h.upper, h.upper_pos))
     out["call_bound"] = bound_ms(2 * planes + moved, 0)
-    out["touched"] = [lid.numel() for lid in level_ids]
+    out["touched"] = touched
     return out
 
 
@@ -861,14 +897,21 @@ def zero_phase(torch, name, x, plan, ls, rs, seed, value_only=False):
     """Signed zeros: a copy of the geometry's input with a sixteenth of its
     entries set to -0.0 or +0.0 (and -0.0 right before +0.0 in half of
     them), so most spans' minimum is a zero and the leftmost one's sign is
-    the answer's.  On a position build (and a value-only one): rmq_bulk
+    the answer's.  First the builds: fused (B1) and per-level (B3),
+    value-only and with positions, each held to the plain build as integer
+    views; control: the plain upper plane with each -0.0 set to +0.0 must
+    fail the bit check while torch.equal passes it.  Then, on the position
+    build (and with ``value_only`` on both value-only builds too): rmq_bulk
     (B7, sorted, 2^20 buckets) and rmq_short (B5, the spans cut to the
     short class) against rmq_fused (B2) on the same spans, bit for bit
     (integer views); sampled spans against the bits of their leftmost
     minimal entry.  Control: B2's values with each -0.0 set to +0.0 must
-    fail the bit check while torch.equal passes them.  Comparison
-    launches only; returns the kernels' max_abs_err."""
-    from repro_torch.core import RMQ
+    fail the bit check while torch.equal passes them.  With
+    ``value_only``, B2 on each value-only build against B2 on the position
+    build: every answer's sign the same (a gate that expects 0).
+    Comparison launches only; returns the kernels' max_abs_err
+    ``(rmq_short, rmq_bulk, builds)``."""
+    from repro_torch.core import RMQ, build_hierarchy
     from repro_torch.kernels.rmq_fused.ops import rmq_fused_batch
     from repro_torch.kernels.rmq_short import ops as short_ops
 
@@ -883,11 +926,20 @@ def zero_phase(torch, name, x, plan, ls, rs, seed, value_only=False):
     half = idx[: k // 2]
     z[half] = -zero[: k // 2]  # -0.0 left of +0.0: the leftmost is -0.0
     z[half + 1] = zero[: k // 2]
+    plain = build_hierarchy(z, plan, with_positions=True)
+    builds = {(backend, pos): RMQ.build(
+        z, with_positions=pos, backend=backend, plan=plan,
+        device=x.device).hierarchy
+        for backend in ("fused", "cuda") for pos in (False, True)}
+    build_pairs = []
+    for (_, pos), hb in builds.items():
+        build_pairs.append((hb.upper, plain.upper))
+        if pos:
+            build_pairs.append((hb.upper_pos, plain.upper_pos))
     order = bulk_order(torch, ls, rs, c, plan.capacity)
     bl, br = ls[order].contiguous(), rs[order].contiguous()
     sl, sr = short_of(torch, ls, rs, c)
-    h = RMQ.build(z, with_positions=True, backend="fused", plan=plan,
-                  device=x.device).hierarchy
+    h = builds[("fused", True)]
     gv, gp = rmq_fused_batch(h, bl, br, True)
     bv, bp = bulk_pass(h, bl, br, True)
     bv_only = bulk_pass(h, bl, br, False)[0]
@@ -896,23 +948,39 @@ def zero_phase(torch, name, x, plan, ls, rs, seed, value_only=False):
     kv_only = short_ops.rmq_short_value_batch(h, sl, sr)
     pairs = [(bv, gv), (bv_only, gv), (bp, gp), (kv, fv), (kv_only, fv),
              (kp, fp)]
+    upper_sign = 0
     if value_only:
-        hv = RMQ.build(z, with_positions=False, backend="fused", plan=plan,
-                       device=x.device).hierarchy
-        gvv = rmq_fused_batch(hv, bl, br, False)[0]
-        pairs.append((bulk_pass(hv, bl, br, False)[0], gvv))
-        pairs.append((short_ops.rmq_short_value_batch(hv, sl, sr), fv))
-        # B2 on the value-only build against the position build: a reading
-        upper_sign = int((as_bits(torch, gvv) != as_bits(torch, gv)).sum())
+        for backend in ("fused", "cuda"):
+            hv = builds[(backend, False)]
+            gvv = rmq_fused_batch(hv, bl, br, False)[0]
+            pairs.append((bulk_pass(hv, bl, br, False)[0], gvv))
+            pairs.append((short_ops.rmq_short_value_batch(hv, sl, sr), fv))
+            # B2 on the value-only build against the position build
+            upper_sign += int((as_bits(torch, gvv)
+                               != as_bits(torch, gv)).sum())
     torch.cuda.synchronize()
     minus = as_bits(torch, torch.tensor(-0.0, dtype=z.dtype,
                                         device=z.device))
+    require(same_bits(torch, build_pairs),
+            f"{name} zeros: a build (fused or per-level, value-only or "
+            "with positions) differs in bits from the plain build")
+    up = plain.upper
+    upper_minus = int((as_bits(torch, up) == minus).sum())
+    control = torch.where(up == 0, torch.zeros_like(up), up)
+    require(upper_minus > 0 and torch.equal(control, up)
+            and not same_bits(torch, [(control, up)]),
+            f"{name} zeros: the build control (-0.0 set to +0.0 in the "
+            f"plain upper plane, {upper_minus} entries) did not fail the "
+            "bit check as it must")
     signs = {"-0.0": int((as_bits(torch, gv) == minus).sum()),
              "+0.0": int(((gv == 0) & (as_bits(torch, gv) != minus)).sum()),
              "short -0.0": int((as_bits(torch, fv) == minus).sum())}
     require(same_bits(torch, pairs),
             f"{name} zeros: rmq_bulk / rmq_short differ in bits from "
             "rmq_fused on the same spans")
+    require(upper_sign == 0,
+            f"{name} zeros: rmq_fused on the value-only builds differs in "
+            f"sign from the position build in {upper_sign} answers")
     control = torch.where(gv == 0, torch.zeros_like(gv), gv)
     require(signs["-0.0"] > 0 and torch.equal(bv, control)
             and not same_bits(torch, [(bv, control)]),
@@ -928,15 +996,19 @@ def zero_phase(torch, name, x, plan, ls, rs, seed, value_only=False):
                 torch, [(vals[i:i + 1], z[p:p + 1])]),
                 f"{name} zeros: span ({lo}, {hi}) is not its leftmost "
                 "minimal entry's bits")
-    note = (f"; rmq_fused on the value-only build differs in sign from "
-            f"the position build in {upper_sign} answers (a reading: the "
-            f"builds' upper entries)" if value_only else "")
-    print(f"{name} zeros: {k} zeros, answers {signs}; rmq_bulk and "
-          f"rmq_short equal rmq_fused bit for bit (position build"
-          f"{' and value-only build' if value_only else ''}); the control "
+    note = (f"; rmq_fused on the value-only builds (fused and per-level) "
+            f"differs in sign from the position build in {upper_sign} "
+            f"answers (gate: 0)" if value_only else "")
+    print(f"{name} zeros: {k} zeros, answers {signs}; builds (fused and "
+          f"per-level, value-only and with positions) equal the plain "
+          f"build bit for bit ({upper_minus} upper entries -0.0), the build "
+          f"control fails the bit check; rmq_bulk and rmq_short equal "
+          f"rmq_fused bit for bit (position build"
+          f"{' and value-only builds' if value_only else ''}); the control "
           f"fails the bit check, passes torch.equal; 2 x 256 spans are "
           f"their leftmost minimal entry's bits{note}")
-    return max_abs_err(torch, pairs[3:6]), max_abs_err(torch, pairs[:3])
+    return (max_abs_err(torch, pairs[3:6]), max_abs_err(torch, pairs[:3]),
+            max_abs_err(torch, build_pairs))
 
 
 def stream_phase(torch, name, x, plan, seed):
@@ -1845,6 +1917,15 @@ def run(torch, seed: int):
           f"torch.min(x.view(-1, c), dim=1) {lib_min}, torch.amin {lib_amin}")
     print(f"A bounds (ms): {json.dumps(bounds)}; level-0 bytes of the "
           f"batch {q_bytes}")
+    print(f"A value-only builds (ms): fused "
+          f"{detail['build value-only fused']}, per-level "
+          f"{detail['build value-only per-level']}; their yardstick "
+          f"torch.amin(x.view(-1, c), dim=1) {lib_amin} (timed only)")
+    build_ptxas = {
+        **ptxas_all(reports.get("hierarchy_build", ""), "build_level_runs"),
+        **ptxas_all(reports.get("hierarchy_fused", ""), "fused_runs_kernel")}
+    print(f"A builds (build_hopper.cuh run instances) ptxas: "
+          f"{json.dumps(build_ptxas)}")
     walk_ptxas = {
         f"{src} {plane}": ptxas_of(reports.get(src, ""), f"{entry}Lb{track}"
                                    "ELi4ELb1E")
@@ -1892,9 +1973,10 @@ def run(torch, seed: int):
           f"same sorted spans in one; value + index; distinct level-0 "
           f"chunks {t_bulk['chunks']}): {json.dumps(t_bulk)}; rmq_fused on "
           f"the unsorted batch {ms['rmq_fused']}")
-    zs, zb = zero_phase(torch, "A", x, plan, ls, rs, seed)
-    errors["rmq_short"] = max(errors["rmq_short"], zs)
-    errors["rmq_bulk"] = max(errors["rmq_bulk"], zb)
+    zs, zb, zh = zero_phase(torch, "A", x, plan, ls, rs, seed)
+    for key, e in (("rmq_short", zs), ("rmq_bulk", zb),
+                   ("hierarchy_fused", zh), ("hierarchy_build", zh)):
+        errors[key] = max(errors[key], e)
     del h, hp, x, ls, rs, rf, rc, wv, wp, up, eng
     torch.cuda.empty_cache()
 
@@ -1931,10 +2013,11 @@ def run(torch, seed: int):
             del hb
         del r
         if name == "D":
-            zs, zb = zero_phase(torch, name, x, plan_g, ls, rs, seed,
-                                value_only=True)
-            errors["rmq_short"] = max(errors["rmq_short"], zs)
-            errors["rmq_bulk"] = max(errors["rmq_bulk"], zb)
+            zs, zb, zh = zero_phase(torch, name, x, plan_g, ls, rs, seed,
+                                    value_only=True)
+            for key, e in (("rmq_short", zs), ("rmq_bulk", zb),
+                           ("hierarchy_fused", zh), ("hierarchy_build", zh)):
+                errors[key] = max(errors[key], e)
         if name in ("B", "D"):
             st = stream_phase(torch, name, x, plan_g, seed)
             for key, e in st["err"].items():

@@ -8,31 +8,72 @@
 // whole array) and writes 1/c of it; a comparison per entry is far below
 // the card's operation rate.
 //
-// Design (paper §4.1/§5.6): one warp reduces one chunk with warp shuffles
-// (c/32 entries per lane, lane-strided so each load instruction of the warp
-// reads 32 neighbouring entries); for c < 32 one warp reduces 32/c chunks
-// at once.  A grid-stride loop runs over chunk groups.  Level-0 positions
+// Design: the Hopper build core (build_hopper.cuh).  At the run layout
+// (c = 128 float32, c = 64 float64, 16-byte aligned) a persistent grid
+// walks runs of eight chunks, one warp instruction a chunk, every load of
+// a run issued before its first reduce.  Every other layout (sub-warp
+// chunks, c = 32 float64, a misaligned or ragged source) takes the
+// part-by-part reduce of rmq_common.cuh: one warp a chunk (c/32 entries a
+// lane, lane-strided), or 32/c chunks a warp for c < 32, in a grid-stride
+// loop.  Both follow the tie rule of rmq_common.cuh: the bits of the
+// chunk's leftmost minimal entry, value-only or not.  Level-0 positions
 // are the indices themselves, so the (capacity,) position array that the
 // reference wrapper materializes is never built.
-#include "rmq_common.cuh"
+#include "build_hopper.cuh"
 
 namespace rmq {
 
-template <typename T, bool TRACK, bool CARRIED>
-__global__ void __launch_bounds__(256)
-    build_level_kernel(const T* src_v, const int32_t* src_p, int64_t src_len,
-                       int c, T* out_v, int32_t* out_p, int64_t out_len) {
+template <typename T, bool TRACK, typename Src>
+__global__ void __launch_bounds__(hopper::kBuildThreads,
+                                  hopper::build_min_blocks<T>())
+    build_level_runs(Src src, T* out_v, int32_t* out_p, int64_t out_len) {
+  constexpr int V = hopper::run_width<T>();
   const int lane = threadIdx.x & (kWarp - 1);
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
   const int64_t nwarps = static_cast<int64_t>(gridDim.x) * blockDim.x / kWarp;
-  if (CARRIED) {
-    reduce_level_warps<T, TRACK>(CarriedSrc<T>{src_v, src_p, src_len}, c,
-                                 out_v, out_p, out_len, warp, nwarps, lane);
-  } else {
-    reduce_level_warps<T, TRACK>(IndexedSrc<T>{src_v, src_len}, c, out_v,
-                                 out_p, out_len, warp, nwarps, lane);
+  const hopper::StreamLoad<T, V> ld{hopper::evict_first_policy()};
+  hopper::reduce_level_runs<T, TRACK>(src, ld, out_v, out_p, out_len, warp,
+                                      nwarps, lane);
+}
+
+template <typename T, bool TRACK, typename Src>
+__global__ void __launch_bounds__(256)
+    build_level_parts(Src src, int c, T* out_v, int32_t* out_p,
+                      int64_t out_len) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / kWarp;
+  const int64_t nwarps = static_cast<int64_t>(gridDim.x) * blockDim.x / kWarp;
+  reduce_level_warps<T, TRACK>(src, c, out_v, out_p, out_len, warp, nwarps,
+                               lane);
+}
+
+template <typename T, bool TRACK, typename Src>
+cudaError_t launch_level(const Src& src, int c, T* out_v, int32_t* out_p,
+                         long long out_len, cudaStream_t stream) {
+  if (hopper::run_layout<T>(c, src.len, src.v)) {
+    auto kernel = build_level_runs<T, TRACK, Src>;
+    unsigned grid = 0;
+    const long long runs = (out_len + hopper::kRun - 1) / hopper::kRun;
+    const cudaError_t err = resident_grid(
+        kernel, hopper::kBuildThreads, 0,
+        (runs * kWarp + hopper::kBuildThreads - 1) / hopper::kBuildThreads,
+        &grid);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, hopper::kBuildThreads, 0, stream>>>(src, out_v, out_p,
+                                                       out_len);
+    return cudaGetLastError();
   }
+  constexpr int kThreads = 256;
+  const long long cpw = c < kWarp ? kWarp / c : 1;
+  const long long warps = (out_len + cpw - 1) / cpw;
+  const long long want = (warps * kWarp + kThreads - 1) / kThreads;
+  const long long cap = static_cast<long long>(sm_count()) * 32;
+  const unsigned grid = static_cast<unsigned>(want < cap ? want : cap);
+  build_level_parts<T, TRACK, Src>
+      <<<grid, kThreads, 0, stream>>>(src, c, out_v, out_p, out_len);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -40,27 +81,18 @@ cudaError_t launch_build_level(int track, const void* src_v,
                                const void* src_p, long long src_len, int c,
                                void* out_v, void* out_p, long long out_len,
                                cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const long long cpw = c < kWarp ? kWarp / c : 1;
-  const long long warps = (out_len + cpw - 1) / cpw;
-  const long long want = (warps * kWarp + kThreads - 1) / kThreads;
-  const long long cap = static_cast<long long>(sm_count()) * 32;
-  const unsigned grid = static_cast<unsigned>(want < cap ? want : cap);
   const T* sv = static_cast<const T*>(src_v);
   const int32_t* sp = static_cast<const int32_t*>(src_p);
   T* ov = static_cast<T*>(out_v);
   int32_t* op = static_cast<int32_t*>(out_p);
-  if (!track) {
-    build_level_kernel<T, false, false>
-        <<<grid, kThreads, 0, stream>>>(sv, sp, src_len, c, ov, op, out_len);
-  } else if (sp == nullptr) {
-    build_level_kernel<T, true, false>
-        <<<grid, kThreads, 0, stream>>>(sv, sp, src_len, c, ov, op, out_len);
-  } else {
-    build_level_kernel<T, true, true>
-        <<<grid, kThreads, 0, stream>>>(sv, sp, src_len, c, ov, op, out_len);
-  }
-  return cudaGetLastError();
+  if (!track)
+    return launch_level<T, false>(IndexedSrc<T>{sv, src_len}, c, ov, op,
+                                  out_len, stream);
+  if (sp == nullptr)
+    return launch_level<T, true>(IndexedSrc<T>{sv, src_len}, c, ov, op,
+                                 out_len, stream);
+  return launch_level<T, true>(CarriedSrc<T>{sv, sp, src_len}, c, ov, op,
+                               out_len, stream);
 }
 
 }  // namespace rmq

@@ -12,17 +12,28 @@
 // so:
 //  * the wrapper allocates `upper` / `upper_pos` already filled with
 //    +inf / PAD_POS, which is every level's padding;
-//  * blocks stream level 0, one tile each.  A tile is `tile1` level-1
-//    entries, a multiple of c: warps reduce its level-0 chunks as
-//    in hierarchy_build.cu, write level 1, and keep the tile in shared
-//    memory, from which the block also reduces the tile's tile1/c level-2
-//    entries.  So levels 1 and 2 both come out of the streaming phase;
+//  * blocks stream level 0 a tile at a time.  A tile is `tile1` level-1
+//    entries, a multiple of c: its chunks are reduced into level 1 and
+//    kept in shared memory, from which the block also reduces the tile's
+//    tile1/c level-2 entries.  So levels 1 and 2 both come out of the
+//    streaming phase;
 //  * the last block to finish (a __threadfence then an atomicAdd on a
 //    zeroed counter that the wrapper allocates) folds levels >= 3, which
-//    are at most 1/c^2 of the input, reading through L2 (__ldcg).
+//    are at most 1/c^2 of the input, reading through L2.
 // The build is one launch at every depth.  Where the tile does not fit in
 // shared memory (very large c) level 2 joins the serial fold instead.
-#include "rmq_common.cuh"
+//
+// At the run layout of build_hopper.cuh (c = 128 float32, c = 64 float64,
+// an aligned base) a persistent grid of blocks walks the tiles, each warp
+// taking runs of eight chunks with every load of a run issued before its
+// first reduce.  The tile is double-buffered in shared memory, and a warp
+// issues its first run of the next tile before the tile's one barrier and
+// the tile's level-2 reduce, so the barrier leaves loads in flight.  The
+// fold walks runs too, with L2-only vector loads.  Every other layout keeps
+// one block a tile with the part-by-part reduce of rmq_common.cuh.  Both
+// follow its tie rule: the bits of the chunk's leftmost minimal entry,
+// value-only or not.
+#include "build_hopper.cuh"
 
 namespace rmq {
 
@@ -38,16 +49,166 @@ struct FusedGeo {
   int64_t offsets[kMaxLevels];  // level k (k >= 1) at offsets[k-1]
 };
 
-// At most 40 registers a thread, so that 6 blocks fit on an SM: the
-// position-tracking build needs the occupancy to keep loads in flight.
+// Levels >= fold_from, by the last block to finish: the last-block-done
+// handoff publishes every block's writes, then one block folds.
+template <typename T, bool TRACK, bool RUNS>
+__device__ __forceinline__ void fold_levels(const FusedGeo& g, T* upper,
+                                            int32_t* upper_pos,
+                                            unsigned int* done,
+                                            int fold_from) {
+  if (g.levels <= fold_from) return;
+  __shared__ bool is_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  const int nw = blockDim.x / kWarp;
+  for (int k = fold_from; k < g.levels; ++k) {
+    // Level k-1's padded extent is exactly level_lens[k] * c entries.
+    const CoherentSrc<T> src{upper + g.offsets[k - 2],
+                             TRACK ? upper_pos + g.offsets[k - 2] : nullptr,
+                             g.level_lens[k] * g.c};
+    T* out_v = upper + g.offsets[k - 1];
+    int32_t* out_p = TRACK ? upper_pos + g.offsets[k - 1] : nullptr;
+    if constexpr (RUNS) {
+      hopper::reduce_level_runs<T, TRACK>(
+          src, hopper::L2Load<T, hopper::run_width<T>()>{}, out_v, out_p,
+          g.level_lens[k], warp, nw, lane);
+    } else {
+      reduce_level_warps<T, TRACK>(src, g.c, out_v, out_p, g.level_lens[k],
+                                   warp, nw, lane);
+    }
+    __syncthreads();
+  }
+}
+
+// Global run r of level 0 (chunks [r * kRun, (r + 1) * kRun)): unmasked
+// while it holds whole chunks only.
+template <typename T, int V>
+__device__ __forceinline__ void load_level0_run(
+    hopper::Vec<T, V> (&x)[hopper::kRun], const T* base, int64_t capacity,
+    int64_t whole_runs, int64_t r, int lane,
+    const hopper::StreamLoad<T, V>& ld) {
+  if (r < whole_runs) {
+    hopper::load_run<T, V, false>(x, base, r * hopper::kRun, capacity, lane,
+                                  ld);
+  } else {
+    hopper::load_run<T, V, true>(x, base, r * hopper::kRun, capacity, lane,
+                                 ld);
+  }
+}
+
+// A tile's level-2 entries from its level-1 copy in shared memory.
 template <typename T, bool TRACK>
-__global__ void __launch_bounds__(256, 6)
-    fused_build_kernel(const T* __restrict__ base, FusedGeo g, T* upper,
+__device__ __forceinline__ void tile_level2(const T* tv, const int32_t* tp,
+                                            int64_t tile, int out2,
+                                            const FusedGeo& g, T* upper,
+                                            int32_t* upper_pos, int warp,
+                                            int nw, int lane) {
+  constexpr int V = hopper::run_width<T>();
+  constexpr int c = kWarp * V;
+  for (int k = warp; k < out2; k += nw) {
+    const hopper::Vec<T, V> y =
+        *reinterpret_cast<const hopper::Vec<T, V>*>(tv + k * c + lane * V);
+    T val;
+    uint32_t w;
+    hopper::pick_chunk<T, V>(y, lane, val, w);
+    const int64_t o = tile * out2 + k;
+    if (lane == 0 && o < g.level_lens[2]) {
+      upper[g.offsets[1] + o] = val;
+      if (TRACK) upper_pos[g.offsets[1] + o] = tp[k * c + w];
+    }
+  }
+}
+
+template <typename T, bool TRACK>
+__global__ void __launch_bounds__(hopper::kBuildThreads,
+                                  hopper::build_min_blocks<T>())
+    fused_runs_kernel(const T* __restrict__ base, FusedGeo g, T* upper,
+                      int32_t* upper_pos, unsigned int* done) {
+  using hopper::kRun;
+  constexpr int V = hopper::run_width<T>();
+  constexpr int c = kWarp * V;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile1 = g.tile1;
+  // Two tile buffers: values, then positions.
+  T* tile_v = reinterpret_cast<T*>(smem);
+  int32_t* tile_p = reinterpret_cast<int32_t*>(tile_v + 2 * tile1);
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  const int nw = blockDim.x / kWarp;
+  const int64_t len1 = g.level_lens[1];
+  const int64_t whole = g.capacity / c < len1 ? g.capacity / c : len1;
+  const int64_t whole_runs = whole / kRun;
+  T* l1v = upper + g.offsets[0];
+  int32_t* l1p = TRACK ? upper_pos + g.offsets[0] : nullptr;
+  const int runs = tile1 / kRun;  // runs a tile (at least nw)
+  const int out2 = tile1 / c;     // level-2 entries a tile
+  const int64_t ntiles = (len1 + tile1 - 1) / tile1;
+  const hopper::StreamLoad<T, V> ld{hopper::evict_first_policy()};
+  hopper::Vec<T, V> x[kRun];
+
+  int64_t tile = blockIdx.x;
+  int run = warp;
+  int parity = 0;
+  if (tile < ntiles)
+    load_level0_run(x, base, g.capacity, whole_runs, tile * runs + run,
+                    lane, ld);
+  while (tile < ntiles) {
+    T v;
+    uint32_t w;
+    hopper::pick_run<T, V>(x, lane, v, w);
+    if (lane < kRun) {
+      const int64_t chunk = (tile * runs + run) * kRun + lane;
+      const bool live = chunk < len1;
+      const int32_t pos = live ? static_cast<int32_t>(chunk * c + w) : kPadPos;
+      if (live) {
+        l1v[chunk] = v;
+        if (TRACK) l1p[chunk] = pos;
+      }
+      if (g.stream_l2) {
+        const int local = parity * tile1 + run * kRun + lane;
+        tile_v[local] = live ? v : pos_inf<T>();
+        if (TRACK) tile_p[local] = pos;
+      }
+    }
+    run += nw;
+    if (run < runs) {
+      load_level0_run(x, base, g.capacity, whole_runs, tile * runs + run,
+                      lane, ld);
+      continue;
+    }
+    // This warp's share of the tile is done: its first run of the next
+    // tile goes out before the tile barrier and the level-2 reduce.
+    const int64_t next = tile + gridDim.x;
+    if (next < ntiles)
+      load_level0_run(x, base, g.capacity, whole_runs, next * runs + warp,
+                      lane, ld);
+    if (g.stream_l2) {
+      __syncthreads();
+      tile_level2<T, TRACK>(tile_v + parity * tile1, tile_p + parity * tile1,
+                            tile, out2, g, upper, upper_pos, warp, nw, lane);
+    }
+    tile = next;
+    run = warp;
+    parity ^= 1;
+  }
+  fold_levels<T, TRACK, true>(g, upper, upper_pos, done,
+                              g.stream_l2 ? 3 : 2);
+}
+
+template <typename T, bool TRACK>
+__global__ void __launch_bounds__(256)
+    fused_parts_kernel(const T* __restrict__ base, FusedGeo g, T* upper,
                        int32_t* upper_pos, unsigned int* done) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* tile_v = reinterpret_cast<T*>(smem);
-  int32_t* tile_p =
-      reinterpret_cast<int32_t*>(smem + static_cast<size_t>(g.tile1) * sizeof(T));
+  int32_t* tile_p = reinterpret_cast<int32_t*>(
+      smem + static_cast<size_t>(g.tile1) * sizeof(T));
   const int c = g.c;
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
@@ -64,10 +225,12 @@ __global__ void __launch_bounds__(256, 6)
     const int64_t first = tile * g.tile1;
     for (int grp = warp; grp * cpw < g.tile1; grp += nw) {
       T v;
-      int32_t p;
-      reduce_chunk_group<T, TRACK>(level0, first + grp * cpw, c, lane, v, p);
+      int64_t at;
+      reduce_chunk_group<T>(level0, first + grp * cpw, c, lane, v, at);
       const int local = grp * cpw + lane / lanes;
       if ((lane & (lanes - 1)) == 0) {
+        // Chunks wholly past `capacity` give (+inf, PAD_POS).
+        const int32_t p = winner_pos(level0, at);
         if (g.stream_l2) {
           tile_v[local] = v;
           if (TRACK) tile_p[local] = p;
@@ -80,46 +243,59 @@ __global__ void __launch_bounds__(256, 6)
     }
     if (g.stream_l2) {
       __syncthreads();
-      // Entries of the tile past level 1's end came from chunks wholly
-      // past `capacity`, so they already hold (+inf, PAD_POS).
       const CarriedSrc<T> tile_src{tile_v, tile_p, g.tile1};
       const int out2 = g.tile1 / c;
       const int64_t first2 = tile * out2;
       for (int grp = warp; grp * cpw < out2; grp += nw) {
         T v;
-        int32_t p;
-        reduce_chunk_group<T, TRACK>(tile_src, grp * cpw, c, lane, v, p);
+        int64_t at;
+        reduce_chunk_group<T>(tile_src, grp * cpw, c, lane, v, at);
         const int local = grp * cpw + lane / lanes;
         if ((lane & (lanes - 1)) == 0 && local < out2 &&
             first2 + local < g.level_lens[2]) {
           upper[g.offsets[1] + first2 + local] = v;
-          if (TRACK) upper_pos[g.offsets[1] + first2 + local] = p;
+          if (TRACK)
+            upper_pos[g.offsets[1] + first2 + local] = winner_pos(tile_src,
+                                                                  at);
         }
       }
       __syncthreads();  // the tile buffer is reused by the next tile
     }
   }
+  fold_levels<T, TRACK, false>(g, upper, upper_pos, done,
+                               g.stream_l2 ? 3 : 2);
+}
 
-  const int fold_from = g.stream_l2 ? 3 : 2;
-  if (g.levels <= fold_from) return;
-  // Last-block-done handoff: publish this block's writes, then count it.
-  __shared__ bool is_last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(done, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  for (int k = fold_from; k < g.levels; ++k) {
-    // Level k-1's padded extent is exactly level_lens[k] * c entries.
-    const CoherentSrc<T> src{upper + g.offsets[k - 2],
-                             TRACK ? upper_pos + g.offsets[k - 2] : nullptr,
-                             g.level_lens[k] * c};
-    reduce_level_warps<T, TRACK>(src, c, upper + g.offsets[k - 1],
-                                 TRACK ? upper_pos + g.offsets[k - 1] : nullptr,
-                                 g.level_lens[k], warp, nw, lane);
-    __syncthreads();
+template <typename T, bool TRACK, bool RUNS>
+cudaError_t run_fused(const T* base, const FusedGeo& g, T* upper,
+                      int32_t* upper_pos, unsigned int* done,
+                      cudaStream_t stream) {
+  const size_t tile_bytes =
+      g.stream_l2 ? static_cast<size_t>(g.tile1) * (sizeof(T) + (TRACK ? 4 : 0))
+                  : 0;
+  const size_t smem = RUNS ? 2 * tile_bytes : tile_bytes;
+  void (*kernel)(const T*, FusedGeo, T*, int32_t*, unsigned int*) =
+      fused_parts_kernel<T, TRACK>;
+  if constexpr (RUNS) kernel = fused_runs_kernel<T, TRACK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long ntiles = (g.level_lens[1] + g.tile1 - 1) / g.tile1;
+  unsigned grid = 0;
+  if (RUNS) {
+    // Persistent: as many blocks as fit on the card, each walking tiles.
+    err = resident_grid(kernel, hopper::kBuildThreads, smem, ntiles, &grid);
+    if (err != cudaSuccess) return err;
+  } else {
+    // One block per tile: blocks that finish make room for new ones, whose
+    // loads hide the tile barriers of the others.
+    const long long max_grid = 0x7fffffffLL;
+    grid = static_cast<unsigned>(ntiles < max_grid ? ntiles : max_grid);
   }
+  kernel<<<grid, hopper::kBuildThreads, smem, stream>>>(base, g, upper,
+                                                        upper_pos, done);
+  return cudaGetLastError();
 }
 
 template <typename T>
@@ -127,23 +303,19 @@ cudaError_t launch_fused_build(int track, const void* base,
                                const FusedGeo& g, void* upper,
                                void* upper_pos, void* done,
                                cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const size_t smem =
-      g.stream_l2 ? static_cast<size_t>(g.tile1) * (sizeof(T) + (track ? 4 : 0))
-                  : 0;
-  auto kernel = track ? fused_build_kernel<T, true> : fused_build_kernel<T, false>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  // One block per tile: blocks that finish make room for new ones, whose
-  // loads hide the tile barriers of the others.
-  const long long ntiles = (g.level_lens[1] + g.tile1 - 1) / g.tile1;
-  const long long max_grid = 0x7fffffffLL;
-  const unsigned grid = static_cast<unsigned>(ntiles < max_grid ? ntiles : max_grid);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(base), g, static_cast<T*>(upper),
-      static_cast<int32_t*>(upper_pos), static_cast<unsigned int*>(done));
-  return cudaGetLastError();
+  const T* b = static_cast<const T*>(base);
+  T* u = static_cast<T*>(upper);
+  int32_t* up = static_cast<int32_t*>(upper_pos);
+  unsigned int* d = static_cast<unsigned int*>(done);
+  const bool runs =
+      hopper::run_layout<T>(g.c, g.capacity, base) &&
+      reinterpret_cast<uintptr_t>(upper) % 16 == 0 &&
+      g.tile1 % (hopper::kRun * (hopper::kBuildThreads / kWarp)) == 0;
+  if (runs)
+    return track ? run_fused<T, true, true>(b, g, u, up, d, stream)
+                 : run_fused<T, false, true>(b, g, u, up, d, stream);
+  return track ? run_fused<T, true, false>(b, g, u, up, d, stream)
+               : run_fused<T, false, false>(b, g, u, up, d, stream);
 }
 
 }  // namespace rmq

@@ -11,15 +11,16 @@
 // sectors.  A comparison per entry is far below the card's operation rate.
 //
 // Design: one warp re-reduces one touched chunk (c/32 entries per lane,
-// lane-strided so each load instruction reads neighbouring entries, then a
-// shuffle reduction on (value, position) pairs with the lexicographic merge
-// of rmq_common.cuh, so ties come out leftmost).  For c < 32 one warp holds
-// 32/c chunks side by side, as hierarchy_build.cu does.  The chunk ids come
-// deduped (the wrapper sorts them with torch.unique), so every output slot
-// has one writer.  Level-1 repairs synthesize positions from the index;
-// entries at or past the source length read as (+inf, PAD_POS).  Results go
-// straight to out_v[id] / out_p[id], where the wrapper points out_v at the
-// level's slot of `upper` (plan.offsets[level-1]).
+// lane-strided so each load instruction reads neighbouring entries), by the
+// tie rule of rmq_common.cuh: the bits of the chunk's leftmost minimal
+// entry, value-only or not, and one gather of its carried position.  For
+// c < 32 one warp holds 32/c chunks side by side, as hierarchy_build.cu
+// does.  The chunk ids come deduped (the wrapper sorts them with
+// torch.unique), so every output slot has one writer.  Level-1 repairs
+// synthesize positions from the index; entries at or past the source length
+// read as (+inf, PAD_POS).  Results go straight to out_v[id] / out_p[id],
+// where the wrapper points out_v at the level's slot of `upper`
+// (plan.offsets[level-1]).
 #include "rmq_common.cuh"
 
 namespace rmq {
@@ -40,27 +41,22 @@ __global__ void __launch_bounds__(256)
     const int64_t slot = g * cpw + lane / lanes;
     const bool live = slot < num_ids;
     const int64_t id = live ? ids[slot] : 0;
-    const int64_t start = id * c + (lane & (lanes - 1));
+    const int gl = lane & (lanes - 1);
+    const int64_t chunk0 = id * c;
     T v = pos_inf<T>();
-    int32_t p = kPadPos;
+    uint32_t idx = gl;
     if (live) {
 #pragma unroll 4
       for (int j = 0; j < per_lane; ++j) {
-        const int64_t i = start + static_cast<int64_t>(j) * lanes;
-        if (i < src.len) {
-          const T x = src.val(i);
-          if (TRACK) {
-            merge(v, p, x, src.pos(i));
-          } else {
-            take_min(v, x);
-          }
-        }
+        const int e = gl + j * lanes;
+        if (chunk0 + e < src.len) lane_take(v, idx, src.val(chunk0 + e), e);
       }
     }
-    group_reduce<T, TRACK>(v, p, lanes);
-    if (live && (lane & (lanes - 1)) == 0) {
+    const uint32_t w = pick_index(v, idx, lanes);
+    v = __shfl_sync(kFullMask, v, static_cast<int>(w) & (lanes - 1), lanes);
+    if (live && gl == 0) {
       out_v[id] = v;
-      if (TRACK) out_p[id] = p;
+      if (TRACK) out_p[id] = winner_pos(src, chunk0 + w);
     }
   }
 }

@@ -1,13 +1,23 @@
-// Device code shared by the port's kernels: the (value, leftmost position)
-// merge, warp reductions over it, and the chunk reduce of the two builds
-// (hierarchy_build.cu, hierarchy_fused.cu).  Paper §4.1/§5.6: "a group of
-// g adjacent threads reduces a chunk of c adjacent entries via warp
-// reductions to a single summary".
+// Device code shared by the port's kernels: the tie rule of a chunk reduce,
+// and the part-by-part chunk reduce of the builds (hierarchy_build.cu,
+// hierarchy_fused.cu) and the update (hierarchy_update.cu) for the layouts
+// that the Hopper build core (build_hopper.cuh) does not take.  Paper
+// §4.1/§5.6: "a group of g adjacent threads reduces a chunk of c adjacent
+// entries via warp reductions to a single summary".
 //
-// Ties: every merge is lexicographic on (value, position).  Positions of
-// real entries grow strictly along a level and padding holds
-// (+inf, PAD_POS), so the lexicographic minimum is the leftmost argmin that
-// the plain PyTorch build (torch.argmin, first occurrence) picks.
+// Ties: a chunk's summary is the bits of its leftmost minimal entry, and
+// its position is that entry's (the index itself at level 0, the carried
+// position above), in value-only builds as in position builds, zeros of
+// either sign included.  That is the plain build's rule (torch.argmin, then
+// a gather) and the reference's jnp build's.  Each lane scans its entries
+// in index order and keeps the first index of its own minimum (a strict <);
+// the lanes of a chunk take the value minimum M by shuffles (-0.0 == +0.0
+// there: no float is read as an ordered integer), then the smallest index
+// among the lanes that hold M, and the winning lane's own value is the
+// answer.  Positions then take one gather at the winning index; carried
+// positions grow along a level, so this is the lexicographic (value,
+// position) minimum.  Entries at or past a level's end read +inf and never
+// win: a chunk's first entry lies inside the level and is no larger.
 #pragma once
 
 #include <cstdint>
@@ -27,36 +37,40 @@ template <> __device__ __forceinline__ double pos_inf<double>() {
   return __longlong_as_double(0x7ff0000000000000LL);
 }
 
-// Keep (v2, p2) where it is lexicographically smaller than (v, p).
+__device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double vmin(double a, double b) {
+  return fmin(a, b);
+}
+
+// One step of a lane's scan in index order: entry `i` of value x.
 template <typename T>
-__device__ __forceinline__ void merge(T& v, int32_t& p, T v2, int32_t p2) {
-  if (v2 < v || (v2 == v && p2 < p)) {
-    v = v2;
-    p = p2;
+__device__ __forceinline__ void lane_take(T& v, uint32_t& idx, T x,
+                                          uint32_t i) {
+  if (x < v) {
+    v = x;
+    idx = i;
   }
 }
 
+// The tie rule across aligned groups of `width` lanes (a power of two
+// <= 32; all 32 lanes call it).  Each lane brings its minimum v and the
+// index idx of its first occurrence; every lane of a group gets the
+// smallest index among the group's lanes that hold the group's value
+// minimum.
 template <typename T>
-__device__ __forceinline__ void take_min(T& v, T v2) {
-  if (v2 < v) v = v2;
+__device__ __forceinline__ uint32_t pick_index(T v, uint32_t idx,
+                                               int width) {
+  T m = v;
+  for (int o = width >> 1; o > 0; o >>= 1)
+    m = vmin(m, __shfl_xor_sync(kFullMask, m, o));
+  uint32_t key = v == m ? idx : 0xffffffffu;
+  if (width == kWarp) return __reduce_min_sync(kFullMask, key);
+  for (int o = width >> 1; o > 0; o >>= 1)
+    key = min(key, __shfl_xor_sync(kFullMask, key, o));
+  return key;
 }
 
-// Butterfly over aligned groups of `width` lanes (a power of two <= 32):
-// afterwards every lane holds its group's minimum.  All 32 lanes call it.
-template <typename T, bool TRACK>
-__device__ __forceinline__ void group_reduce(T& v, int32_t& p, int width) {
-  for (int o = width >> 1; o > 0; o >>= 1) {
-    const T v2 = __shfl_xor_sync(kFullMask, v, o);
-    if (TRACK) {
-      const int32_t p2 = __shfl_xor_sync(kFullMask, p, o);
-      merge(v, p, v2, p2);
-    } else {
-      take_min(v, v2);
-    }
-  }
-}
-
-// Sources of a chunk reduce.  Entries at or past `len` read as padding.
+// Sources of a chunk reduce: values, and the position of entry i.
 // Level 0: the position of an entry is its index.
 template <typename T>
 struct IndexedSrc {
@@ -91,6 +105,12 @@ struct CoherentSrc {
   }
 };
 
+// The position of a chunk's winner, entry i of the source.
+template <typename Src>
+__device__ __forceinline__ int32_t winner_pos(const Src& src, int64_t i) {
+  return i < src.len ? src.pos(i) : kPadPos;
+}
+
 // Lanes that share one chunk, and chunks one warp reduces at a time.
 __device__ __forceinline__ int chunk_lanes(int c) { return c < kWarp ? c : kWarp; }
 __device__ __forceinline__ int chunks_per_warp(int c) {
@@ -101,31 +121,27 @@ __device__ __forceinline__ int chunks_per_warp(int c) {
 // `first` (chunk j is entries [j*c, (j+1)*c)).  For c >= 32 each lane
 // covers c/32 entries of the one chunk, lane-strided so that every load
 // instruction of the warp reads 32 neighbouring entries; for c < 32 the
-// warp holds 32/c chunks side by side.  Every lane returns the result of
-// its own chunk.
-template <typename T, bool TRACK, typename Src>
+// warp holds 32/c chunks side by side.  Every lane returns its own
+// chunk's winning value and the winner's index in the source.
+template <typename T, typename Src>
 __device__ __forceinline__ void reduce_chunk_group(const Src& src,
                                                    int64_t first, int c,
                                                    int lane, T& v,
-                                                   int32_t& p) {
+                                                   int64_t& at) {
   const int lanes = chunk_lanes(c);
   const int per_lane = c / lanes;
-  const int64_t start = (first + lane / lanes) * c + (lane & (lanes - 1));
+  const int gl = lane & (lanes - 1);
+  const int64_t chunk0 = (first + lane / lanes) * c;
   v = pos_inf<T>();
-  p = kPadPos;
+  uint32_t idx = gl;
 #pragma unroll 4
   for (int j = 0; j < per_lane; ++j) {
-    const int64_t i = start + static_cast<int64_t>(j) * lanes;
-    if (i < src.len) {
-      const T x = src.val(i);
-      if (TRACK) {
-        merge(v, p, x, src.pos(i));
-      } else {
-        take_min(v, x);
-      }
-    }
+    const int e = gl + j * lanes;
+    if (chunk0 + e < src.len) lane_take(v, idx, src.val(chunk0 + e), e);
   }
-  group_reduce<T, TRACK>(v, p, lanes);
+  const uint32_t w = pick_index(v, idx, lanes);
+  v = __shfl_sync(kFullMask, v, static_cast<int>(w) & (lanes - 1), lanes);
+  at = chunk0 + w;
 }
 
 // A whole level, warp-strided: the warps warp, warp + nwarps, ... of the
@@ -141,12 +157,12 @@ __device__ __forceinline__ void reduce_level_warps(const Src& src, int c,
   const int64_t groups = (out_len + cpw - 1) / cpw;
   for (int64_t g = warp; g < groups; g += nwarps) {
     T v;
-    int32_t p;
-    reduce_chunk_group<T, TRACK>(src, g * cpw, c, lane, v, p);
+    int64_t at;
+    reduce_chunk_group<T>(src, g * cpw, c, lane, v, at);
     const int64_t chunk = g * cpw + lane / lanes;
     if ((lane & (lanes - 1)) == 0 && chunk < out_len) {
       out_v[chunk] = v;
-      if (TRACK) out_p[chunk] = p;
+      if (TRACK) out_p[chunk] = winner_pos(src, at);
     }
   }
 }
@@ -156,6 +172,22 @@ inline int sm_count() {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return sms > 0 ? sms : 1;
+}
+
+// A persistent grid: as many blocks of `threads` as fit on the card at
+// once, fewer where `want` blocks do the work.
+template <typename K>
+cudaError_t resident_grid(K kernel, int threads, size_t smem, int64_t want,
+                          unsigned* grid) {
+  int per_sm = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t resident =
+      static_cast<int64_t>(sm_count()) * (per_sm > 0 ? per_sm : 1);
+  const int64_t g = want < resident ? want : resident;
+  *grid = static_cast<unsigned>(g > 0 ? g : 1);
+  return cudaSuccess;
 }
 
 }  // namespace rmq

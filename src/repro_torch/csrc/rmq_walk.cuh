@@ -30,21 +30,14 @@ __device__ __forceinline__ int32_t ceil_shift(int32_t x, int s) {
 // refused otherwise.
 template <typename K>
 cudaError_t query_grid(K kernel, size_t smem, int64_t m, unsigned* grid) {
-  cudaError_t err = cudaFuncSetAttribute(
+  const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kQueryThreads, smem);
-  if (err != cudaSuccess) return err;
   const int64_t warps_per_block = kQueryThreads / kWarp;
   const int64_t tiles = (m + kWarp - 1) / kWarp;
-  const int64_t want = (tiles + warps_per_block - 1) / warps_per_block;
-  const int64_t resident =
-      static_cast<int64_t>(sm_count()) * (per_sm > 0 ? per_sm : 1);
-  *grid = static_cast<unsigned>(want < resident ? want : resident);
-  return cudaSuccess;
+  return resident_grid(kernel, kQueryThreads, smem,
+                       (tiles + warps_per_block - 1) / warps_per_block, grid);
 }
 
 // The stage_top field starts at 0: the launch decides it

@@ -49,163 +49,15 @@
 //    leftmost entry, as the lexicographic walk does.
 // So the kernels on this walk return the same bits for the same span, zeros
 // of either sign included, on any hierarchy whose upper entries carry the
-// bits of their chunk's leftmost minimal entry (every position build).
+// bits of their chunk's leftmost minimal entry (every build, value-only
+// or with positions: build_hopper.cuh, rmq_common.cuh).
 #pragma once
 
+#include "hopper_ld.cuh"
 #include "rmq_walk.cuh"
 
 namespace rmq {
 namespace hopper {
-
-// ---------------------------------------------------------------------------
-// V-wide loads with L2 cache policies
-// ---------------------------------------------------------------------------
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Vec {
-  T x[V];
-};
-
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
-               : "=l"(p));
-  return p;
-}
-
-__device__ __forceinline__ uint64_t evict_last_policy() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
-               : "=l"(p));
-  return p;
-}
-
-// Past L1, with the L2 policy `pol` (level 0 of B2 / B4: evict_first).
-template <typename T, int V>
-__device__ __forceinline__ void ld_stream(Vec<T, V>& v, const T* p,
-                                          uint64_t pol);
-// Through L1, with the L2 policy `pol` (upper levels: evict_last).
-template <typename T, int V>
-__device__ __forceinline__ void ld_keep(Vec<T, V>& v, const T* p,
-                                        uint64_t pol);
-
-#define RMQ_F4 "=f"(v.x[0]), "=f"(v.x[1]), "=f"(v.x[2]), "=f"(v.x[3])
-#define RMQ_F2 "=f"(v.x[0]), "=f"(v.x[1])
-#define RMQ_F1 "=f"(v.x[0])
-#define RMQ_D2 "=d"(v.x[0]), "=d"(v.x[1])
-#define RMQ_D1 "=d"(v.x[0])
-#define RMQ_IN "l"(p), "l"(pol)
-
-template <>
-__device__ __forceinline__ void ld_stream<float, 4>(Vec<float, 4>& v,
-                                                    const float* p,
-                                                    uint64_t pol) {
-  asm volatile(
-      "ld.global.L1::no_allocate.L2::cache_hint.v4.f32 {%0,%1,%2,%3}, [%4], "
-      "%5;"
-      : RMQ_F4 : RMQ_IN);
-}
-template <>
-__device__ __forceinline__ void ld_stream<float, 2>(Vec<float, 2>& v,
-                                                    const float* p,
-                                                    uint64_t pol) {
-  asm volatile(
-      "ld.global.L1::no_allocate.L2::cache_hint.v2.f32 {%0,%1}, [%2], %3;"
-      : RMQ_F2 : RMQ_IN);
-}
-template <>
-__device__ __forceinline__ void ld_stream<float, 1>(Vec<float, 1>& v,
-                                                    const float* p,
-                                                    uint64_t pol) {
-  asm volatile("ld.global.L1::no_allocate.L2::cache_hint.f32 %0, [%1], %2;"
-               : RMQ_F1 : RMQ_IN);
-}
-template <>
-__device__ __forceinline__ void ld_stream<double, 2>(Vec<double, 2>& v,
-                                                     const double* p,
-                                                     uint64_t pol) {
-  asm volatile(
-      "ld.global.L1::no_allocate.L2::cache_hint.v2.f64 {%0,%1}, [%2], %3;"
-      : RMQ_D2 : RMQ_IN);
-}
-template <>
-__device__ __forceinline__ void ld_stream<double, 1>(Vec<double, 1>& v,
-                                                     const double* p,
-                                                     uint64_t pol) {
-  asm volatile("ld.global.L1::no_allocate.L2::cache_hint.f64 %0, [%1], %2;"
-               : RMQ_D1 : RMQ_IN);
-}
-template <>
-__device__ __forceinline__ void ld_keep<float, 4>(Vec<float, 4>& v,
-                                                  const float* p,
-                                                  uint64_t pol) {
-  asm volatile("ld.global.L2::cache_hint.v4.f32 {%0,%1,%2,%3}, [%4], %5;"
-               : RMQ_F4 : RMQ_IN);
-}
-template <>
-__device__ __forceinline__ void ld_keep<float, 2>(Vec<float, 2>& v,
-                                                  const float* p,
-                                                  uint64_t pol) {
-  asm volatile("ld.global.L2::cache_hint.v2.f32 {%0,%1}, [%2], %3;"
-               : RMQ_F2 : RMQ_IN);
-}
-template <>
-__device__ __forceinline__ void ld_keep<float, 1>(Vec<float, 1>& v,
-                                                  const float* p,
-                                                  uint64_t pol) {
-  asm volatile("ld.global.L2::cache_hint.f32 %0, [%1], %2;"
-               : RMQ_F1 : RMQ_IN);
-}
-template <>
-__device__ __forceinline__ void ld_keep<double, 2>(Vec<double, 2>& v,
-                                                   const double* p,
-                                                   uint64_t pol) {
-  asm volatile("ld.global.L2::cache_hint.v2.f64 {%0,%1}, [%2], %3;"
-               : RMQ_D2 : RMQ_IN);
-}
-template <>
-__device__ __forceinline__ void ld_keep<double, 1>(Vec<double, 1>& v,
-                                                   const double* p,
-                                                   uint64_t pol) {
-  asm volatile("ld.global.L2::cache_hint.f64 %0, [%1], %2;"
-               : RMQ_D1 : RMQ_IN);
-}
-
-
-// The staged top: shared memory, by its shared-space address.
-template <typename T, int V>
-__device__ __forceinline__ void ld_shared(Vec<T, V>& v, uint32_t a);
-template <>
-__device__ __forceinline__ void ld_shared<float, 4>(Vec<float, 4>& v,
-                                                    uint32_t a) {
-  asm volatile("ld.shared.v4.f32 {%0,%1,%2,%3}, [%4];" : RMQ_F4 : "r"(a));
-}
-template <>
-__device__ __forceinline__ void ld_shared<float, 2>(Vec<float, 2>& v,
-                                                    uint32_t a) {
-  asm volatile("ld.shared.v2.f32 {%0,%1}, [%2];" : RMQ_F2 : "r"(a));
-}
-template <>
-__device__ __forceinline__ void ld_shared<float, 1>(Vec<float, 1>& v,
-                                                    uint32_t a) {
-  asm volatile("ld.shared.f32 %0, [%1];" : RMQ_F1 : "r"(a));
-}
-template <>
-__device__ __forceinline__ void ld_shared<double, 2>(Vec<double, 2>& v,
-                                                     uint32_t a) {
-  asm volatile("ld.shared.v2.f64 {%0,%1}, [%2];" : RMQ_D2 : "r"(a));
-}
-template <>
-__device__ __forceinline__ void ld_shared<double, 1>(Vec<double, 1>& v,
-                                                     uint32_t a) {
-  asm volatile("ld.shared.f64 %0, [%1];" : RMQ_D1 : "r"(a));
-}
-
-#undef RMQ_F4
-#undef RMQ_F2
-#undef RMQ_F1
-#undef RMQ_D2
-#undef RMQ_D1
-#undef RMQ_IN
 
 // Level 0: through L1 where CACHE0 (B5 / B7), else past it.
 template <typename T, int V, bool CACHE0>
@@ -216,11 +68,6 @@ __device__ __forceinline__ void ld_level0(Vec<T, V>& v, const T* p,
   } else {
     ld_stream<T, V>(v, p, pol);
   }
-}
-
-__device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
-__device__ __forceinline__ double vmin(double a, double b) {
-  return fmin(a, b);
 }
 
 // ---------------------------------------------------------------------------

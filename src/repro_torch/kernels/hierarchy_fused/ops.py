@@ -42,7 +42,8 @@ LAUNCHES = profiling.KernelCounter("hierarchy_fused")
 
 # Level-1 entries per block tile: at least 256, and whole chunks of level
 # 1 so that the tile also yields level 2.  The tile stays in shared
-# memory while it does, unless that passes _TILE_SMEM_LIMIT.
+# memory while it does (twice over where the kernel double-buffers it),
+# unless one copy passes _TILE_SMEM_LIMIT.
 _MIN_TILE1 = 256
 _TILE_SMEM_LIMIT = 96 * 1024
 _MAX_LEVELS = 64

@@ -112,3 +112,23 @@ def edge_spans(rng, n, c, m):
     rs = rs.astype(np.int32)
     pick = rng.permutation(ls.size)[:m]
     return ls[pick], rs[pick]
+
+
+def zero_heavy(rng, n, dtype=np.float32, share=0.3):
+    """Values whose minimum is a zero of either sign in most chunks: a
+    ``share`` of the entries set to -0.0 or +0.0 (the rest in [0.5, 1.5)),
+    with -0.0 right before +0.0 in some pairs and +0.0 right before -0.0
+    in others, so the leftmost minimal entry's sign is the answer's."""
+    x = (rng.random(n) + 0.5).astype(dtype)
+    if n == 0:
+        return x
+    k = max(int(n * share), 2)
+    z = rng.integers(0, n, k)
+    x[z] = np.where(rng.random(k) < 0.5, -0.0, 0.0).astype(dtype)
+    pairs = z[: k // 4]
+    x[pairs] = -0.0
+    x[np.minimum(pairs + 1, n - 1)] = 0.0
+    flipped = z[k // 4: k // 2]
+    x[flipped] = 0.0
+    x[np.minimum(flipped + 1, n - 1)] = -0.0
+    return x

@@ -7,6 +7,9 @@ inside the test, never at import).  Run on a machine with a card:
 
 Min and argmin are exact, so every RMQ comparison is bit-for-bit
 (tolerance 0): values, leftmost positions and the +inf / PAD_POS padding.
+The builds, the update and the value-only queries on zero-heavy input are
+compared as integer views (``_same_bits``: ``torch.equal`` takes -0.0 for
++0.0), so a summary must carry its chunk's leftmost minimal entry's bits.
 Attention (B8) is held to its plain version within 2e-5 in float32 (the
 same softmax summed in another order) and 2e-2 in bfloat16 (8-bit
 mantissa inputs and output), the reference's own kernel-test tolerances.
@@ -29,6 +32,7 @@ from _torch_cases import (
     edge_spans,
     query_batch,
     tied_input,
+    zero_heavy,
 )
 from repro_torch.core import RMQ, build_hierarchy, make_plan, rmq_walk_batch
 from repro_torch.kernels.hierarchy_build import ops as build_ops
@@ -78,11 +82,11 @@ def test_builds_match_plain(card, n, c, t, cap, dtype, with_pos):
         1, plan.num_levels - 1)
     assert build_ops.LAUNCHES.launches - level0 == plan.num_levels - 1
     for got in (got_f, got_l):
-        _assert_same(ref.base, got.base)
-        _assert_same(ref.upper, got.upper)
+        _same_bits(got.base, ref.base)
+        _same_bits(got.upper, ref.upper)
         assert got.with_positions == with_pos
         if with_pos:
-            _assert_same(ref.upper_pos, got.upper_pos)
+            _same_bits(got.upper_pos, ref.upper_pos)
 
 
 @pytest.mark.gpu
@@ -325,7 +329,9 @@ def test_bulk_kernel_matches_plain(card, n, c, t, cap, dtype, ordered):
 
 
 def _int_view(t):
-    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
 
 
 def _same_bits(got, want):
@@ -392,6 +398,87 @@ def test_short_bulk_tie_edges_match_fused(card, n, c, t, cap, kind, dtype,
             _same_bits(v, w)
     assert bulk_ops.LAUNCHES.launches - b0 == 6
     assert short_ops.LAUNCHES.launches - s0 == 4
+
+
+# Zero-heavy input: a third of the entries -0.0 or +0.0, so most chunks'
+# minimum is a zero and the leftmost one's sign is the summary's (ROADMAP
+# C5: the value-only builds and B6 kept whichever zero a lane met first).
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,t,cap", CARD_GEOMETRIES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("with_pos", [False, True])
+def test_builds_zero_heavy_match_plain(card, n, c, t, cap, dtype, with_pos):
+    """B1 and B3 on zero-heavy input: the plain build's bits (integer
+    views), value-only and with positions."""
+    x = torch.from_numpy(
+        zero_heavy(np.random.default_rng(5 * n + c), n, dtype)).to(card)
+    plan = make_plan(n, c=c, t=t, capacity=cap)
+    ref = build_hierarchy(x, plan, with_positions=with_pos)
+    for build in (fused_ops.build_hierarchy_fused,
+                  build_ops.build_hierarchy_percall):
+        got = build(x, plan, with_pos)
+        torch.cuda.synchronize()
+        _same_bits(got.upper, ref.upper)
+        if with_pos:
+            _same_bits(got.upper_pos, ref.upper_pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,t,cap", CARD_GEOMETRIES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("with_pos", [False, True])
+def test_update_zero_heavy_matches_plain(card, n, c, t, cap, dtype,
+                                         with_pos):
+    """B6 on zero-heavy hierarchies and batches (zeros of either sign
+    written over zeros and over values): the plain update's bits."""
+    from repro_torch.kernels.hierarchy_update import ops as upd_ops
+    from repro_torch.streaming import updates as U
+
+    rng = np.random.default_rng(11 * n + c)
+    x = torch.from_numpy(zero_heavy(rng, n, dtype)).to(card)
+    plan = make_plan(n, c=c, t=t, capacity=cap)
+    h = build_hierarchy(x, plan, with_positions=with_pos)
+    idxs = rng.integers(0, plan.capacity, 512)
+    vals = zero_heavy(rng, 512, dtype, share=0.5)
+    tail = zero_heavy(rng, min(plan.capacity - n, 257), dtype, share=0.5)
+    got = [upd_ops.update_hierarchy_cuda(h, idxs, vals)]
+    want = [U.update_hierarchy(h, torch.from_numpy(idxs),
+                               torch.from_numpy(vals))]
+    if tail.size:
+        got.append(upd_ops.append_hierarchy_cuda(got[0], tail, n))
+        want.append(U.append_hierarchy(want[0], torch.from_numpy(tail), n))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _same_bits(g.base, w.base)
+        _same_bits(g.upper, w.upper)
+        if with_pos:
+            _same_bits(g.upper_pos, w.upper_pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,t,cap", CARD_GEOMETRIES)
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_value_only_builds_answer_with_the_leftmost_zero(card, n, c, t, cap,
+                                                         dtype):
+    """B2 on value-only B1 and B3 builds of zero-heavy data equals B2 on a
+    position build of the same data, bit for bit, and each answer is its
+    leftmost minimal entry's bits."""
+    rng = np.random.default_rng(13 * n + c)
+    xn = zero_heavy(rng, n, dtype)
+    x = torch.from_numpy(xn).to(card)
+    plan = make_plan(n, c=c, t=t, capacity=cap)
+    ls_n, rs_n = query_batch(rng, n, c)
+    ls, rs = torch.from_numpy(ls_n).to(card), torch.from_numpy(rs_n).to(card)
+    hp = fused_ops.build_hierarchy_fused(x, plan, True)
+    fv, _ = qfused_ops.rmq_fused_batch(hp, ls, rs, track_pos=True)
+    got = [qfused_ops.rmq_fused_value_batch(build(x, plan, False), ls, rs)
+           for build in (fused_ops.build_hierarchy_fused,
+                         build_ops.build_hierarchy_percall)]
+    torch.cuda.synchronize()
+    for v in got:
+        _same_bits(v, fv)
+    _, bp = brute_force(xn, ls_n, rs_n)
+    np.testing.assert_array_equal(_bits(fv.cpu().numpy()), _bits(xn[bp]))
 
 
 @pytest.mark.gpu

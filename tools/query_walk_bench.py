@@ -61,6 +61,7 @@ from chip_smoke import (  # noqa: E402
     kernel_launch_ms,
     level0_bytes,
     partial_chunks,
+    ptxas_all,
     ptxas_of,
     same_bits,
     span_bytes,
@@ -171,17 +172,6 @@ def main() -> int:
     bad += bulk_and_short(args.label, torch, h, plan, ls, rs, n, m)
     print(card_line())
     return 1 if bad else 0
-
-
-def ptxas_all(report: str, stem: str):
-    """``{template arguments: registers and spills}`` of every kernel in
-    a ``-Xptxas -v`` report whose mangled name contains ``stem``."""
-    out = {}
-    for line in report.splitlines():
-        if "Compiling entry" in line and stem in line:
-            name = line.split(stem, 1)[1].split("EEEv", 1)[0]
-            out[name] = ptxas_of(report, stem + name)
-    return out
 
 
 def sorted_batch(torch, ls, rs, plan):
