@@ -38,10 +38,15 @@ outside the repository.  Phases:
    builds' run instances (``build_hopper.cuh``), and the level-1 value
    and position planes' bytes beside the 50 MB L2;
 7. mutation at geometry A: one batch of 2^16 random indices with
-   duplicates through ``RMQ.update`` on the ``cuda`` and the ``fused``
-   index (``hierarchy_update``, three launches each), held against the
-   plain ``update_hierarchy`` on the card, sampled spans of the successor
-   against torch.min, the predecessor against its own data;
+   duplicates, already on the card, through ``RMQ.update`` on the
+   ``cuda`` and the ``fused`` index (``hierarchy_update``, three launches
+   each, one host call), held against the plain ``update_hierarchy`` on
+   the card, sampled spans of the successor against torch.min, the
+   predecessor against its own data.  Both updates run under
+   ``torch.cuda.set_sync_debug_mode("error")`` and must return while a
+   sleep kernel queued before them still runs (they never wait for the
+   card); control: the plain update raises under that mode and returns
+   only after the sleep;
 8. the query engine at geometry A over 2^20 "mixed" spans (short buckets
    to ``rmq_short``, mid to ``rmq_scan``, long to the hybrid top), a
    fused engine's ``query_mixed`` (one ``rmq_fused`` launch per bucket)
@@ -63,13 +68,25 @@ outside the repository.  Phases:
    build equals it on the position build in every answer's sign (a
    gate), and sampled spans are their leftmost minimal entry's bits, with
    a control (``rmq_fused``'s values with -0.0 set to +0.0) that must fail
-   the bit check and pass ``torch.equal``;
+   the bit check and pass ``torch.equal``; and NaNs at A (float32) and D
+   (float64): a copy of the input with quiet NaNs of both signs and their
+   own payloads (single, in runs, on chunk edges), on which every RMQ
+   kernel (B1 / B3 builds, B2, B4, B5, B7 on the plain build, B6 writing
+   NaNs over numbers and numbers over NaNs) equals its plain version as
+   integer views (NaN is the least value: a span holding one answers its
+   leftmost NaN); the reading (entries that differ) is a gate at 0, and
+   the control (the plain versions with NaN mapped to +inf) must fail it
+   for each kernel;
 10. times of the three kernels of phases 7-9 at geometry A beside their
    bounds, their plain versions and the comparison each exists for
    (``rmq_fused`` on the same spans; for ``hierarchy_update`` the
    ``index_select`` + ``torch.min`` pair at level 1, timed in turns with
    the kernel), and the whole
    ``RMQ.update`` call with and without the successor's copy.
+   ``hierarchy_update`` is also timed with the L2 flushed before each
+   call, as an event span and as each launch's device time from
+   torch.profiler; its bound counts each touched chunk's entries once
+   and one 32-byte sector for each scattered write and position gather.
    ``rmq_short`` and ``rmq_bulk`` are timed per launch at the sizes the
    engine launches them (a 4096-span bucket: device time from
    torch.profiler; a 2^20 bucket: a pass of CUDA events over its
@@ -594,6 +611,32 @@ def geometry(torch, n, m, seed, dtype="float32", capacity=None):
     return x, ls, rs, time.perf_counter() - t0
 
 
+def returns_while_busy(torch, fn, strict: bool,
+                       cycles: int = 200_000_000):
+    """Whether ``fn()`` returns while a sleep kernel of ``cycles`` clocks,
+    queued on the stream just before it, still runs (so it never waited
+    for the card), with ``fn`` under ``set_sync_debug_mode("error")``
+    where ``strict`` (any host sync in it raises): ``{"busy", "call_s",
+    "sleep_s"}``, the host seconds of the call and of the sleep alone."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    sleep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    if strict:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    busy = not torch.cuda.current_stream().query()
+    call_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return {"busy": busy, "call_s": call_s, "sleep_s": sleep_s}
+
+
 def update_phase(torch, x, plan, rf, rc, seed):
     """Phase 7: one update batch through the facade on both indexes."""
     import numpy as np
@@ -608,11 +651,43 @@ def update_phase(torch, x, plan, rf, rc, seed):
     idxs = torch.from_numpy(idxs).cuda()
     vals = torch.from_numpy(vals).cuda()
 
+    # the batch is on the card: the update must never wait for it.  Two
+    # checks: any host sync raises under set_sync_debug_mode("error"), and
+    # the calls return while a sleep kernel queued before them still runs.
+    # Control: the plain update (its per-level torch.unique: the batch is
+    # smaller than level 1) raises under the mode and returns only after
+    # the sleep
     count = zero_counts()
-    rc2 = rc.update(idxs, vals)
-    rf2 = rf.update(idxs, vals)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rc2 = rc.update(idxs, vals)
+        rf2 = rf.update(idxs, vals)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     launches = read(torch, count)
     expect("A update", launches, hierarchy_update=2 * (levels - 1))
+    # the sleep check on a further call, after one that leaves the
+    # allocator holding a successor's blocks (a fresh 4 GB allocation takes
+    # host time of its own)
+    returns_while_busy(torch, lambda: rc.update(idxs, vals), strict=True)
+    free = returns_while_busy(torch, lambda: rc.update(idxs, vals),
+                              strict=True)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        U.update_hierarchy(rc.hierarchy, idxs, vals)
+        control_raised = False
+    except RuntimeError:
+        control_raised = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    control = returns_while_busy(
+        torch, lambda: U.update_hierarchy(rc.hierarchy, idxs, vals),
+        strict=False)
+    require(free["busy"] and free["call_s"] < 0.9 * free["sleep_s"]
+            and control["call_s"] >= 0.9 * control["sleep_s"]
+            and control_raised,
+            f"A update: the update waited for the card ({free}) or the "
+            f"control did not ({control}, raised {control_raised})")
 
     want = U.update_hierarchy(rc.hierarchy, idxs, vals)  # plain, on card
     pairs = []
@@ -634,76 +709,164 @@ def update_phase(torch, x, plan, rf, rc, seed):
     brute_force_check(torch, x, ql, qr, rc.query(ql, qr),
                       rc.query_index(ql, qr), 256, seed, n)
     print(f"A update: 2^16 indices, launches {launches}, max_abs_err "
-          f"{err}, successor and predecessor brute force 256/256 ok")
+          f"{err}, successor and predecessor brute force 256/256 ok; both "
+          f"updates ran under torch.cuda.set_sync_debug_mode('error') and "
+          f"returned while the card was busy ({json.dumps(free)}); the "
+          f"control (the plain update) raised under the mode and waited "
+          f"({json.dumps(control)})")
     return {"launches": launches, "err": err, "rc2": rc2, "want": want,
             "idxs": idxs, "vals": vals}
 
 
-def update_launches(torch, plan, want, idxs):
-    """B6's launches for the update batch ``idxs`` at ``plan``, from the
-    updated plain hierarchy ``want``: ``(kernels, yardstick, plain,
-    bytes, touched)``.  ``kernels()`` runs ``update_level_cuda`` once a
-    level, ``plain()`` the plain re-reduction, both into copies of
-    ``want``'s upper planes; ``yardstick()`` is the level-1
-    ``index_select`` + ``torch.min`` pair; ``bytes`` is what the launches
-    must move (each touched chunk's source entries read once, a summary
-    and a position written); ``touched`` the chunks per level."""
+def update_bytes(torch, plan, idxs, item: int):
+    """``(bytes, touched, level_ids)`` of B6 for the update batch ``idxs``:
+    what its launches must move (the sorted batch, int32 indices and
+    values, read once; each touched chunk's c source entries read once;
+    one 32-byte sector for each written summary and position, for each
+    winning base entry and, above level 1, for the winner's carried
+    position), the touched chunks per level and their ids."""
+    c = plan.c
+    idxs = idxs.long()
+    valid = idxs[(idxs >= 0) & (idxs < plan.capacity)]
+    level_ids = [torch.unique(valid // c ** level)
+                 for level in range(1, plan.num_levels)]
+    moved = idxs.numel() * (4 + item) + torch.unique(valid).numel() * SECTOR
+    for k, lid in enumerate(level_ids, 1):
+        moved += lid.numel() * (c * item + 2 * SECTOR
+                                + (SECTOR if k > 1 else 0))
+    return moved, [lid.numel() for lid in level_ids], level_ids
+
+
+def update_launches(torch, h, idxs, vals):
+    """B6's launches for the update batch ``idxs`` / ``vals`` of
+    hierarchy ``h``: ``(kernels, yardstick, plain, bytes, touched)``.
+    ``kernels()`` is ``update_levels_cuda``, one host call and one launch
+    a level, into copies of ``h``'s planes (written again each call: the
+    same writes and the same summaries); ``plain()`` the same work
+    plainly (the winning entries' write and each level's re-reduction of
+    its touched chunks); ``yardstick()`` the level-1 ``index_select`` +
+    ``torch.min`` pair; ``bytes`` and ``touched`` from
+    :func:`update_bytes`."""
     from repro_torch.kernels.hierarchy_update import ops as upd_ops
     from repro_torch.streaming import updates as U
 
-    c = plan.c
-    base = want.base
-    upper, upos = want.upper.clone(), want.upper_pos.clone()
-    ids = idxs.long() // c
-    level_ids = []
-    for level in range(1, plan.num_levels):
-        ids = U.touched_chunk_ids(ids, plan.level_lens[level])
-        level_ids.append(ids.to(torch.int32))
-        ids = ids // c
-    sources = [U.level_source(plan, base, upper, upos, k)
-               for k in range(1, plan.num_levels)]
-    outs = [(upper[o:o + p], upos[o:o + p])
-            for o, p in zip(plan.offsets, plan.padded_lens)]
+    plan, c = h.plan, h.plan.c
+    keys, svals = U.sort_batch(h, idxs, vals)
+    planes = (h.base.clone(), h.upper.clone(), h.upper_pos.clone())
+    plain_planes = (h.base.clone(), h.upper.clone(), h.upper_pos.clone())
+    # the winning writes (the last of each run of equal indices)
+    k = keys.long()
+    last = torch.cat([k[1:] != k[:-1], k.new_ones(1, dtype=torch.bool)])
+    win = last & (k < plan.capacity)
+    widx, wval = k[win], svals[win]
+    moved, touched, level_ids = update_bytes(torch, plan, idxs,
+                                             h.base.element_size())
 
     def kernels():
-        for (sv, sp), lid, (ov, op) in zip(sources, level_ids, outs):
-            upd_ops.update_level_cuda(sv, sp, lid, c, ov, op)
+        upd_ops.update_levels_cuda(plan, *planes, keys, svals)
 
     def plain():
+        base, upper, upos = plain_planes
+        base[widx] = wval
         for k, lid in enumerate(level_ids, 1):
-            U.repair_plain(plan, base, upper, upos, k, lid.long())
+            U.repair_plain(plan, base, upper, upos, k, lid)
 
     def yardstick():
-        return torch.min(base.view(-1, c).index_select(0, level_ids[0]),
+        return torch.min(h.base.view(-1, c).index_select(0, level_ids[0]),
                          dim=1)
 
-    item = base.element_size()
-    moved = 0
-    for k, lid in enumerate(level_ids, 1):
-        per = item + (4 if k > 1 else 0)  # level 1 synthesizes positions
-        moved += lid.numel() * (c * per + item + 4 + 4)
-    return kernels, yardstick, plain, moved, [lid.numel()
-                                               for lid in level_ids]
+    return kernels, yardstick, plain, moved, touched
+
+
+def l2_flusher(torch):
+    """A callable that overwrites a buffer of twice the 50 MB L2, so the
+    next launch finds nothing of its operands in the cache."""
+    buf = torch.empty(100 << 20, dtype=torch.uint8, device="cuda")
+    return lambda: buf.fill_(1)
+
+
+def time_flushed(torch, fn, iters: int, flush, warmup: int = 2):
+    """Mean event span (ms) of ``fn()`` with the L2 flushed before each
+    call: CUDA events around each call alone."""
+    for _ in range(warmup):
+        fn()
+    pairs = []
+    for _ in range(iters):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return mean([a.elapsed_time(b) for a, b in pairs])
+
+
+def kernel_times_in_order(torch, fn, names, rounds: int, flush=None):
+    """Device ms of each launch of a kernel whose name contains one of
+    ``names``, per call of ``fn`` in launch order (a list per call), from
+    a torch.profiler trace of ``rounds`` calls (the L2 flushed before
+    each where ``flush``); None where the profiler fails or saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(rounds):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if getattr(e, "device_type", None) == DeviceType.CUDA
+                  and any(n in e.name for n in names)]
+        events.sort(key=lambda e: e.time_range.start)
+        ms = [(e.time_range.end - e.time_range.start) / 1e3 for e in events]
+    except Exception as exc:
+        print(f"torch.profiler failed: {exc!r}")
+        return None
+    if not ms or len(ms) % rounds:
+        return None
+    per = len(ms) // rounds
+    return [ms[i * per:(i + 1) * per] for i in range(rounds)]
+
+
+# B6's kernels (hierarchy_update.cu), by the stems of their names
+UPDATE_KERNELS = ("update_runs_kernel", "update_parts_kernel")
 
 
 def time_update(torch, plan, rc, up):
-    """Phase 10 for hierarchy_update: the three launches alone, the plain
-    re-reduction, the level-1 index_select + torch.min pair, and the
-    whole RMQ.update call with and without the successor copy."""
-    kernels, yardstick, plain, moved, touched = update_launches(
-        torch, plan, up["want"], up["idxs"])
+    """Phase 10 for hierarchy_update: the one host call of three launches
+    (CUDA events; with the L2 flushed before each call, the event span and
+    each launch's kernel time from torch.profiler), the plain version, the
+    level-1 index_select + torch.min pair, and the whole RMQ.update call
+    with and without the successor copy."""
     h = rc.hierarchy
     idxs, vals = up["idxs"], up["vals"]
+    kernels, yardstick, plain, moved, touched = update_launches(
+        torch, h, idxs, vals)
+    flush = l2_flusher(torch)
     turns = time_turns(torch, {"kernel": kernels, "library": yardstick}, 20)
+    per_call = kernel_times_in_order(torch, kernels, UPDATE_KERNELS, 10,
+                                     flush)
     out = {
         "ms": mean(turns["kernel"]),
         "library_ms": mean(turns["library"]),
         "turns_ms": turns,
+        "span_flushed_ms": time_flushed(torch, kernels, 20, flush),
+        "kernel_ms_per_level": None if per_call is None else [
+            mean(col) for col in zip(*per_call)],
         "plain_ms": time_ms(torch, plain, 5),
         "call_ms": time_ms(torch, lambda: rc.update(idxs, vals), 5),
         "copy_ms": time_ms(torch, lambda: (h.base.clone(), h.upper.clone(),
                                            h.upper_pos.clone()), 5),
     }
+    if per_call is not None:
+        out["kernel_ms"] = sum(out["kernel_ms_per_level"])
     out["bound"] = bound_ms(moved, sum(touched) * plan.c)
     # the whole call's floor: the successor's planes read and written once
     planes = sum(t.numel() * t.element_size()
@@ -1009,6 +1172,149 @@ def zero_phase(torch, name, x, plan, ls, rs, seed, value_only=False):
           f"their leftmost minimal entry's bits{note}")
     return (max_abs_err(torch, pairs[3:6]), max_abs_err(torch, pairs[:3]),
             max_abs_err(torch, build_pairs))
+
+
+def with_nans(torch, x, c: int, g):
+    """A copy of ``x`` with quiet NaNs of either sign, each with its own
+    payload bits: about n / 4096 single ones, 64 runs of up to 2c and both
+    sides of 64 chunk edges (of c and of c^2)."""
+    n, dev = x.numel(), x.device
+
+    def ri(hi, k):
+        return torch.randint(0, hi, (k,), generator=g, device=dev)
+
+    lane = torch.arange(2 * c, device=dev)
+    runs = ri(n, 64)[:, None] + lane
+    runs = runs[lane < ri(2 * c, 64)[:, None] + 1]
+    edges = torch.cat([(ri(max(n // s, 1), 64) + 1) * s
+                       for s in (c, c * c)])
+    at = torch.cat([ri(n, max(n >> 12, 1)), runs, edges - 1, edges])
+    at = at[at < n]
+    k = at.numel()
+    neg = ri(2, k).bool()
+    z = x.clone()
+    if x.dtype == torch.float32:
+        bits = 0x7FC00000 + ri(1 << 22, k)
+        bits = torch.where(neg, bits - (1 << 31), bits)  # sign bit set
+        z.view(torch.int32)[at] = bits.to(torch.int32)
+    else:
+        bits = 0x7FF8000000000000 + ri(1 << 51, k)
+        bits = torch.where(neg, bits | -(1 << 63), bits)
+        z.view(torch.int64)[at] = bits
+    return z
+
+
+def bits_differ(torch, pairs) -> int:
+    """Entries that differ in bits over (got, want) pairs (integer views;
+    a shape or dtype mismatch counts every entry)."""
+    out = 0
+    for got, want in pairs:
+        if got.shape != want.shape or got.dtype != want.dtype:
+            out += max(got.numel(), want.numel())
+        else:
+            out += int((as_bits(torch, got) != as_bits(torch, want)).sum())
+    return out
+
+
+def nan_phase(torch, name, x, plan, ls, rs, seed, value_only=False):
+    """C7, NaN is the least value: a chunk or span that holds a NaN answers
+    its leftmost NaN, that entry's bits and index.  On a copy of the
+    geometry's input with NaNs (:func:`with_nans`), every RMQ kernel
+    against its plain version as integer views: B1 and B3 (with positions,
+    and value-only where ``value_only``) against the plain build; on the
+    plain position build B2 (both planes and value-only), B4 (both
+    launches) and B7 (sorted, 2^20 buckets) against the plain walk over
+    the first 2^20 spans, B5 against its plain version on those spans cut
+    to the short class; B6, an update of 2^16 indices writing NaNs over
+    numbers and numbers over NaNs, against the plain update.  The reading
+    (entries that differ in bits) is a gate at 0; control: the same plain
+    versions with every NaN mapped to +inf must fail it, kernel by kernel
+    (every kernel's plain output holds a NaN here).  Comparison
+    launches only; returns the reading by kernel."""
+    from repro_torch.core import RMQ, build_hierarchy, rmq_walk_batch
+    from repro_torch.kernels.hierarchy_update import ops as upd_ops
+    from repro_torch.kernels.rmq_fused.ops import (
+        rmq_fused_batch,
+        rmq_fused_value_batch,
+    )
+    from repro_torch.kernels.rmq_scan.ops import (
+        rmq_index_batch_cuda,
+        rmq_value_batch_cuda,
+    )
+    from repro_torch.kernels.rmq_short import ops as short_ops
+    from repro_torch.streaming import updates as U
+
+    n, c, dev = plan.n, plan.c, x.device
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    z = with_nans(torch, x, c, g)
+    nans = int(z.isnan().sum())
+    pairs = {k: [] for k in ("hierarchy_fused", "hierarchy_build",
+                             "rmq_fused", "rmq_scan", "rmq_short",
+                             "rmq_bulk", "hierarchy_update")}
+    h = build_hierarchy(z, plan, True)
+    for pos in ((False, True) if value_only else (True,)):
+        want = h if pos else build_hierarchy(z, plan, False)
+        for backend, key in (("fused", "hierarchy_fused"),
+                             ("cuda", "hierarchy_build")):
+            hb = RMQ.build(z, with_positions=pos, backend=backend,
+                           plan=plan, device=dev).hierarchy
+            pairs[key].append((hb.upper, want.upper))
+            if pos:
+                pairs[key].append((hb.upper_pos, want.upper_pos))
+        del want
+    m = min(ls.numel(), 1 << 20)
+    ql, qr = ls[:m].contiguous(), rs[:m].contiguous()
+    wv, wp = rmq_walk_batch(h, ql, qr, True)
+    fv, fp = rmq_fused_batch(h, ql, qr, True)
+    pairs["rmq_fused"] += [(fv, wv), (fp, wp),
+                           (rmq_fused_value_batch(h, ql, qr), wv)]
+    pairs["rmq_scan"] += [(rmq_value_batch_cuda(h, ql, qr), wv),
+                          (rmq_index_batch_cuda(h, ql, qr), wp)]
+    order = bulk_order(torch, ql, qr, c, plan.capacity)
+    bv, bp = bulk_pass(h, ql[order].contiguous(), qr[order].contiguous(),
+                       True)
+    pairs["rmq_bulk"] += [(bv, wv[order]), (bp, wp[order])]
+    sl, sr = short_of(torch, ql, qr, c)
+    kv, kp = short_ops.rmq_short_batch(h, sl, sr, True)
+    pv, pp = short_ops.rmq_short_batch_plain(h.base, sl, sr, c,
+                                             plan.capacity, True)
+    pairs["rmq_short"] += [(kv, pv), (kp, pp)]
+    idxs = torch.randint(0, n, (1 << 16,), generator=g, device=dev)
+    at = torch.nonzero(z.isnan())[:, 0]  # numbers written over NaNs too
+    idxs[: 1 << 12] = at[torch.randint(0, at.numel(), (1 << 12,),
+                                       generator=g, device=dev)]
+    vals = with_nans(torch, torch.rand(1 << 16, generator=g, device=dev,
+                                       dtype=z.dtype) - 0.5, 4, g)
+    got = upd_ops.update_hierarchy_cuda(h, idxs, vals)
+    want = U.update_hierarchy(h, idxs, vals)
+    pairs["hierarchy_update"] += [(got.base, want.base),
+                                  (got.upper, want.upper),
+                                  (got.upper_pos, want.upper_pos)]
+    torch.cuda.synchronize()
+    reading = {k: bits_differ(torch, p) for k, p in pairs.items()}
+    inf = float("inf")
+    control = {k: bits_differ(torch, [
+        (got_, torch.where(want_.isnan(), inf, want_)
+         if want_.is_floating_point() else want_)
+        for got_, want_ in p]) for k, p in pairs.items()}
+    holds = {k: any(bool(w.isnan().any()) for _, w in p
+                    if w.is_floating_point()) for k, p in pairs.items()}
+    answered = int(wv.isnan().sum())
+    print(f"{name} NaN: {nans} NaNs in the input, {answered} of {m} spans "
+          f"answer a NaN; entries that differ in bits from the plain "
+          f"versions (gate: 0): {json.dumps(reading)}; control (the plain "
+          f"versions with NaN mapped to +inf; each kernel whose plain "
+          f"output holds a NaN must fail it): {json.dumps(control)}")
+    require(answered > 0 and nans > 0, f"{name} NaN: no span met a NaN")
+    require(sum(reading.values()) == 0,
+            f"{name} NaN: kernels differ in bits from their plain versions: "
+            f"{reading}")
+    require(all(holds.values()), f"{name} NaN: a kernel's plain output "
+            f"holds no NaN: {holds}")
+    require(all(control[k] > 0 for k in pairs),
+            f"{name} NaN: the control (NaN mapped to +inf) did not fail "
+            f"the gate for every kernel: {control}")
+    return reading
 
 
 def stream_phase(torch, name, x, plan, seed):
@@ -1961,8 +2267,17 @@ def run(torch, seed: int):
     library["hierarchy_update"] = t_up["library_ms"]
     library["rmq_short"] = library["rmq_bulk"] = None
     print(f"A hierarchy_update (ms): {json.dumps(t_up)}; touched chunks "
-          "per level as listed; call_ms is the whole RMQ.update, copy_ms "
-          "the successor's three clones alone")
+          "per level as listed; ms is the event span of the one host call "
+          "(three launches) in turns with the yardstick, span_flushed_ms "
+          "the same with the L2 flushed before each call, "
+          "kernel_ms_per_level each launch's device time (torch.profiler, "
+          "L2 flushed); call_ms is the whole RMQ.update, copy_ms the "
+          "successor's three clones alone")
+    print(f"A hierarchy_update ptxas: " + json.dumps({
+        **ptxas_all(reports.get("hierarchy_update", ""),
+                    "update_runs_kernel"),
+        **ptxas_all(reports.get("hierarchy_update", ""),
+                    "update_parts_kernel")}))
     print(f"A rmq_short (ms; ms, bound and plain_ms per launch of a "
           f"{t_short['bucket']}-span bucket, call_ms for all "
           f"{t_short['queries']} short spans in one call; value + index): "
@@ -1977,6 +2292,7 @@ def run(torch, seed: int):
     for key, e in (("rmq_short", zs), ("rmq_bulk", zb),
                    ("hierarchy_fused", zh), ("hierarchy_build", zh)):
         errors[key] = max(errors[key], e)
+    nan_phase(torch, "A", x, plan, ls, rs, seed)
     del h, hp, x, ls, rs, rf, rc, wv, wp, up, eng
     torch.cuda.empty_cache()
 
@@ -2018,6 +2334,8 @@ def run(torch, seed: int):
             for key, e in (("rmq_short", zs), ("rmq_bulk", zb),
                            ("hierarchy_fused", zh), ("hierarchy_build", zh)):
                 errors[key] = max(errors[key], e)
+            nan_phase(torch, name, x, plan_g, ls, rs, seed,
+                      value_only=True)
         if name in ("B", "D"):
             st = stream_phase(torch, name, x, plan_g, seed)
             for key, e in st["err"].items():

@@ -27,7 +27,7 @@ from repro_torch.core import protocol as px
 from repro_torch.core.api import resolve_device
 from repro_torch.core.hierarchy import Hierarchy, build_hierarchy
 from repro_torch.core.plan import make_plan
-from repro_torch.core.query import rmq_value_batch
+from repro_torch.core.query import nan_less, rmq_value_batch
 
 __all__ = ["FullScan", "SparseTable", "TwoLevelBlocks", "floor_log2"]
 
@@ -73,9 +73,17 @@ class FullScan:
         for s in range(0, ls.shape[0], step):
             mask = (idx >= ls[s:s + step, None]) & (idx <= rs[s:s + step,
                                                               None])
-            out[s:s + step] = torch.where(mask, self.x,
-                                          float("inf")).amin(dim=1)
+            w = torch.where(mask, self.x, float("inf"))
+            # argmin's rule (NaN least, first occurrence): the leftmost
+            # minimal entry's own bits
+            out[s:s + step] = w.gather(1, w.argmin(dim=1, keepdim=True))[:, 0]
         return out
+
+
+def _take_right(vl, vr, pl, pr):
+    """Where ``(vr, pr)`` is the lexicographic minimum, NaN least."""
+    tie = (vr == vl) | (vr.isnan() & vl.isnan())
+    return nan_less(vr, vl) | (tie & (pr < pl))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,10 +121,11 @@ class SparseTable:
                 pshift = torch.cat([pprev[half:],
                                     pprev.new_full((half,), pad_pos)])
                 # lexicographic (value, position) min: leftmost on ties
-                take2 = (shifted < prev) | ((shifted == prev)
-                                            & (pshift < pprev))
+                take2 = _take_right(prev, shifted, pprev, pshift)
                 prows.append(torch.where(take2, pshift, pprev))
-            rows.append(torch.minimum(prev, shifted))
+            else:
+                take2 = nan_less(shifted, prev)  # ties: the left window
+            rows.append(torch.where(take2, shifted, prev))
         return SparseTable(table=torch.stack(rows),
                            pos=torch.stack(prows) if track else None, n=n)
 
@@ -140,9 +149,9 @@ class SparseTable:
         r2 = r + 1 - (1 << j)
         vl, vr = self.table[j, l], self.table[j, r2]
         if not track:
-            return torch.minimum(vl, vr), None
+            return torch.where(nan_less(vr, vl), vr, vl), None
         pl, pr = self.pos[j, l], self.pos[j, r2]
-        take_r = (vr < vl) | ((vr == vl) & (pr < pl))
+        take_r = _take_right(vl, vr, pl, pr)
         return torch.where(take_r, vr, vl), torch.where(take_r, pr, pl)
 
     def query_batch(self, ls, rs) -> torch.Tensor:

@@ -23,7 +23,7 @@ from repro_torch.core.api import resolve_device
 from repro_torch.core.baselines import SparseTable
 from repro_torch.core.hierarchy import Hierarchy, pos_dtype_for
 from repro_torch.core.plan import HierarchyPlan, make_plan
-from repro_torch.core.query import _merge, walk_lower_levels
+from repro_torch.core.query import _merge, inf_at_l, walk_lower_levels
 
 __all__ = ["HybridRMQ"]
 
@@ -126,10 +126,11 @@ class HybridRMQ:
         hi = torch.maximum(r - 1, l).clamp(0, last)
         tm, tp = self.top_table.lookup(lo, hi, track)
         tm = torch.where(nonempty, tm, float("inf"))
-        if track:
-            tp = torch.where(nonempty, tp.to(torch.int64), ident)
-        m, p = _merge(m, p, tm, tp, track)
-        return m, (p.to(pos_dtype) if track else None)
+        if not track:  # a key inside the top's part orders it (_keys)
+            tp = lo * self.plan.c ** (self.plan.num_levels - 1)
+        tp = torch.where(nonempty, tp.to(torch.int64), ident)
+        m, p = _merge(m, p, tm, tp)
+        return m, (inf_at_l(m, p, ls).to(pos_dtype) if track else None)
 
     def query(self, ls, rs) -> torch.Tensor:
         """Batched ``RMQ_value`` with the O(1) top."""

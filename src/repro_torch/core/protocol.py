@@ -182,6 +182,13 @@ def coerce_values(x, device) -> torch.Tensor:
     float16), as in the reference.  bfloat16 inputs are refused: the
     reference keeps them as bf16 and the port has no bf16 path yet
     (ROADMAP A3).
+
+    NaN is accepted and is the least value, as ``torch.argmin`` has it: a
+    chunk or a span that holds a NaN answers its leftmost NaN, with that
+    entry's own bits as the value and its index as the position, on every
+    path (plain and kernels alike).  Nothing scans the input for NaN (that
+    would cost a pass over it and a read-back).  Subnormals are kept as
+    they are, never flushed to zero.
     """
     x = torch.as_tensor(x)
     if x.ndim != 1:

@@ -12,10 +12,15 @@ batch tensors, level by level, with the kernels' decomposition:
 * the top level (at most ``c * t`` entries) is scanned in full, masked
   to ``[l, r)``.
 
-Every candidate is a ``(value, position)`` pair and the merge is
+Every candidate is a ``(value, key)`` pair, the key its position (or,
+value-only, the first level-0 index it covers), and the merge is
 lexicographic, so the answer is the minimum and its leftmost position,
-whatever order the windows come in.  Large batches are walked in slices
-so that no gathered window tensor exceeds ``_WINDOW_ELEMS`` entries.
+whatever order the windows come in.  NaN is the least value (the rule of
+``torch.argmin`` and of the port's kernels): a span that holds a NaN
+answers its leftmost NaN, with that entry's own bits.  Values are always
+the winning entry's bits, so a zero minimum keeps its leftmost sign.
+Large batches are walked in slices so that no gathered window tensor
+exceeds ``_WINDOW_ELEMS`` entries.
 
 Query convention: ``(l, r)`` are **inclusive**, ``0 <= l <= r < n``
 (paper §2.1).  Invalid bounds give unspecified answers but every read
@@ -38,7 +43,12 @@ __all__ = [
     "rmq_walk_batch",
 ]
 
-_WINDOW_ELEMS = 1 << 24
+# Entries of the largest window tensor a slice gathers.  A slice takes
+# about 200 small PyTorch operations: at 1 << 24 entries (2^15 spans a
+# slice under a 512-entry top) a large batch on the card waits on the
+# host's dispatch of them; at 1 << 26 it waits on the card (temporaries
+# of about 16 bytes an entry).
+_WINDOW_ELEMS = 1 << 26
 
 
 def _debug_checks_enabled() -> bool:
@@ -82,38 +92,71 @@ def check_query_args(ls, rs, n: int, debug: Optional[bool] = None,
     return ls, rs
 
 
-def _window_min(vals, pos, mask, track, ident):
-    """(min, leftmost pos) over the last axis where ``mask`` holds."""
+def nan_less(a, b):
+    """``a < b`` under the port's order, where NaN is the least value (two
+    NaNs tie)."""
+    return (a < b) | (a.isnan() & ~b.isnan())
+
+
+def _window_min(vals, mask, lane):
+    """``(value, at)``: the least entry over the last axis where ``mask``
+    holds, and its index on that axis (``at`` keeps the axis; ``lane`` is
+    ``arange`` of it).  NaN is the least value and ties go to the first
+    entry, so on a window whose keys ascend along the axis the winner has
+    the least key; the value is its own bits.  Where ``mask`` holds
+    nowhere: +inf at the last index, whose key means nothing (a span whose
+    minimum is +inf answers its own ``l``, as in the kernels)."""
     masked = torch.where(mask, vals, float("inf"))
-    m = masked.amin(dim=-1)
-    if not track:
-        return m, None
-    cand = torch.where(mask & (masked == m.unsqueeze(-1)), pos, ident)
-    return m, cand.amin(dim=-1)
+    m = masked.amin(dim=-1, keepdim=True)  # NaN wherever one is in mask
+    # the entries equal to the minimum: the NaNs where it is NaN (none
+    # equals it then, and there is no NaN where it is not)
+    hit = (masked == m).logical_or_(masked != masked).logical_and_(mask)
+    at = torch.where(hit, lane, lane.shape[0] - 1).amin(dim=-1,
+                                                        keepdim=True)
+    return masked.gather(-1, at)[..., 0], at
 
 
-def _merge(m, p, m2, p2, track):
-    if not track:
-        return torch.minimum(m, m2), None
-    take = (m2 < m) | ((m2 == m) & (p2 < p))
+def _merge(m, p, m2, p2):
+    """The lexicographic (value, key) minimum of two candidates, NaN
+    least (two NaNs tie)."""
+    before = p2 < p
+    take = (m2 < m) | ((m2 == m) & before) | (
+        (m2 != m2) & ((m == m) | before))
     return torch.where(take, m2, m), torch.where(take, p2, p)
+
+
+def _keys(idx, parr, level: int, c: int, track: bool):
+    """Tie keys of entries ``idx`` of a level: their positions where
+    ``track``, else the first level-0 index each entry covers.  Either
+    grows from left to right across the segments of a walk."""
+    if not track:
+        return idx * c ** level if level else idx
+    return idx if parr is None else parr[idx].to(torch.int64)
+
+
+def inf_at_l(m, p, ls):
+    """Keys of a walk's answers with a span whose minimum is +inf (every
+    entry +inf) answering its leftmost entry, ``l``: the walk keeps no
+    key for +inf candidates."""
+    return torch.where(m == float("inf"), ls.to(p.device, torch.int64), p)
 
 
 def walk_lower_levels(h: Hierarchy, ls, rs, track: bool, ident: int):
     """Levels ``0 .. L-2`` of the walk for inclusive bounds.
 
-    Returns ``(m, p, l, r)``: the merged ``(value, position)`` of those
-    levels (positions ``None`` unless ``track``) and the range ``[l, r)``
-    still to answer on the top level, in its coordinates.
+    Returns ``(m, p, l, r)``: the merged ``(value, key)`` of those levels
+    (keys are positions where ``track``, see :func:`_keys`; a +inf
+    minimum's key means nothing, see :func:`inf_at_l`) and the range
+    ``[l, r)`` still to answer on the top level, in its coordinates.
     """
     plan, c = h.plan, h.plan.c
     dev = h.base.device
     l = ls.to(device=dev, dtype=torch.int64)
     r = rs.to(device=dev, dtype=torch.int64) + 1  # exclusive
     m = torch.full(l.shape, float("inf"), dtype=h.base.dtype, device=dev)
-    p = torch.full(l.shape, ident, dtype=torch.int64, device=dev) \
-        if track else None
+    p = torch.full(l.shape, ident, dtype=torch.int64, device=dev)
     lane = torch.arange(c, device=dev)
+    lane2 = torch.arange(2 * c, device=dev)
 
     for level in range(plan.num_levels - 1):
         if level == 0:
@@ -132,11 +175,9 @@ def walk_lower_levels(h: Hierarchy, ls, rs, track: bool, ident: int):
         hi = torch.stack([torch.minimum(next_l, r), r], 1).unsqueeze(-1)
         mask = ((idx >= lo) & (idx < hi)).flatten(1)
         idx = idx.flatten(1)
-        pos = None
-        if track:
-            pos = idx if parr is None else parr[idx].to(torch.int64)
-        wm, wp = _window_min(arr[idx], pos, mask, track, ident)
-        m, p = _merge(m, p, wm, wp, track)
+        wm, at = _window_min(arr[idx], mask, lane2)
+        j = idx.gather(-1, at)[:, 0]
+        m, p = _merge(m, p, wm, _keys(j, parr, level, c, track))
         l, r = -((-l) // c), r // c
     return m, p, l, r
 
@@ -145,20 +186,19 @@ def _walk_slice(h: Hierarchy, ls, rs, track: bool, ident: int):
     plan = h.plan
     dev = h.base.device
     m, p, l, r = walk_lower_levels(h, ls, rs, track, ident)
-    if plan.num_levels == 1:
+    top_level = plan.num_levels - 1
+    if top_level == 0:
         top, top_pos = h.base, None
     else:
-        off, length = plan.level_slice(plan.num_levels - 1)
+        off, length = plan.level_slice(top_level)
         top = h.upper[off:off + length]
         top_pos = h.upper_pos[off:off + length] if track else None
     idx = torch.arange(top.shape[0], device=dev)
     mask = (idx >= l.unsqueeze(-1)) & (idx < r.unsqueeze(-1))
-    pos = None
-    if track:
-        pos = idx if top_pos is None else top_pos.to(torch.int64)
-    wm, wp = _window_min(top.expand(l.shape[0], -1), pos, mask, track,
-                         ident)
-    return _merge(m, p, wm, wp, track)
+    wm, at = _window_min(top.expand(l.shape[0], -1), mask, idx)
+    m, p = _merge(m, p, wm, _keys(at[:, 0], top_pos, top_level, plan.c,
+                                  track))
+    return m, (inf_at_l(m, p, ls) if track else p)
 
 
 def rmq_walk_batch(

@@ -5,6 +5,9 @@
 // §4.1/§5.6: "a group of g adjacent threads reduces a chunk of c adjacent
 // entries via warp reductions to a single summary".
 //
+// NaN is the least value: a chunk that holds a NaN answers its leftmost
+// NaN, bits and position, as the plain build's torch.argmin does.
+//
 // Ties: a chunk's summary is the bits of its leftmost minimal entry, and
 // its position is that entry's (the index itself at level 0, the carried
 // position above), in value-only builds as in position builds, zeros of
@@ -37,16 +40,37 @@ template <> __device__ __forceinline__ double pos_inf<double>() {
   return __longlong_as_double(0x7ff0000000000000LL);
 }
 
-__device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
+// The port's order on values: NaN is the least value (two NaNs tie), as
+// torch.argmin has it.  vmin returns a NaN (not necessarily the entry's
+// bits) when either operand is one: min.NaN is one instruction, as fminf
+// is; float64 has no such instruction.  Answers never take vmin's bits:
+// they are the winning entry's, found by its index.
+__device__ __forceinline__ float vmin(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
 __device__ __forceinline__ double vmin(double a, double b) {
-  return fmin(a, b);
+  return a != a ? a : (b != b ? b : fmin(a, b));
+}
+
+// a < b in that order.
+template <typename T>
+__device__ __forceinline__ bool vless(T a, T b) {
+  return !(a >= b) && b == b;
+}
+
+// a and b tie in that order (-0.0 and +0.0 tie too).
+template <typename T>
+__device__ __forceinline__ bool vsame(T a, T b) {
+  return a == b || (a != a && b != b);
 }
 
 // One step of a lane's scan in index order: entry `i` of value x.
 template <typename T>
 __device__ __forceinline__ void lane_take(T& v, uint32_t& idx, T x,
                                           uint32_t i) {
-  if (x < v) {
+  if (vless(x, v)) {
     v = x;
     idx = i;
   }
@@ -63,7 +87,7 @@ __device__ __forceinline__ uint32_t pick_index(T v, uint32_t idx,
   T m = v;
   for (int o = width >> 1; o > 0; o >>= 1)
     m = vmin(m, __shfl_xor_sync(kFullMask, m, o));
-  uint32_t key = v == m ? idx : 0xffffffffu;
+  uint32_t key = vsame(v, m) ? idx : 0xffffffffu;
   if (width == kWarp) return __reduce_min_sync(kFullMask, key);
   for (int o = width >> 1; o > 0; o >>= 1)
     key = min(key, __shfl_xor_sync(kFullMask, key, o));
@@ -117,31 +141,42 @@ __device__ __forceinline__ int chunks_per_warp(int c) {
   return c < kWarp ? kWarp / c : 1;
 }
 
-// One warp reduces the chunks_per_warp(c) chunks that start at chunk
-// `first` (chunk j is entries [j*c, (j+1)*c)).  For c >= 32 each lane
-// covers c/32 entries of the one chunk, lane-strided so that every load
-// instruction of the warp reads 32 neighbouring entries; for c < 32 the
-// warp holds 32/c chunks side by side.  Every lane returns its own
-// chunk's winning value and the winner's index in the source.
+// One warp reduces up to chunks_per_warp(c) chunks, one for each group of
+// chunk_lanes(c) lanes: `chunk` is the calling lane's group's chunk (-1:
+// none; entries [chunk*c, (chunk+1)*c)).  For c >= 32 each lane covers c/32
+// entries of the one chunk, lane-strided so that every load instruction of
+// the warp reads 32 neighbouring entries; for c < 32 the warp holds 32/c
+// chunks side by side.  Every lane returns its own group's winning value
+// and the winner's index in the source.
+template <typename T, typename Src>
+__device__ __forceinline__ void reduce_chunk_at(const Src& src, int64_t chunk,
+                                                int c, int lane, T& v,
+                                                int64_t& at) {
+  const int lanes = chunk_lanes(c);
+  const int per_lane = c / lanes;
+  const int gl = lane & (lanes - 1);
+  const int64_t chunk0 = chunk * c;
+  v = pos_inf<T>();
+  uint32_t idx = gl;
+  if (chunk >= 0) {
+#pragma unroll 4
+    for (int j = 0; j < per_lane; ++j) {
+      const int e = gl + j * lanes;
+      if (chunk0 + e < src.len) lane_take(v, idx, src.val(chunk0 + e), e);
+    }
+  }
+  const uint32_t w = pick_index(v, idx, lanes);
+  v = __shfl_sync(kFullMask, v, static_cast<int>(w) & (lanes - 1), lanes);
+  at = chunk0 + w;
+}
+
+// The chunks_per_warp(c) consecutive chunks from chunk `first`.
 template <typename T, typename Src>
 __device__ __forceinline__ void reduce_chunk_group(const Src& src,
                                                    int64_t first, int c,
                                                    int lane, T& v,
                                                    int64_t& at) {
-  const int lanes = chunk_lanes(c);
-  const int per_lane = c / lanes;
-  const int gl = lane & (lanes - 1);
-  const int64_t chunk0 = (first + lane / lanes) * c;
-  v = pos_inf<T>();
-  uint32_t idx = gl;
-#pragma unroll 4
-  for (int j = 0; j < per_lane; ++j) {
-    const int e = gl + j * lanes;
-    if (chunk0 + e < src.len) lane_take(v, idx, src.val(chunk0 + e), e);
-  }
-  const uint32_t w = pick_index(v, idx, lanes);
-  v = __shfl_sync(kFullMask, v, static_cast<int>(w) & (lanes - 1), lanes);
-  at = chunk0 + w;
+  reduce_chunk_at<T>(src, first + lane / chunk_lanes(c), c, lane, v, at);
 }
 
 // A whole level, warp-strided: the warps warp, warp + nwarps, ... of the

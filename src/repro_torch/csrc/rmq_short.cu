@@ -16,10 +16,10 @@
 // whose top is level 0 itself, read in place through L1 and never staged
 // (a block would copy all of a small level 0 for a few spans): one warp a
 // span, 32 spans a tile (WLQ bounds), 16-byte loads of only the sectors of
-// [l, r], the minimum by fminf and the leftmost (vector, entry) by a key
-// reduction, then the winning entry's own bits and its index.  So B5
-// returns the bits B2 / B4 / B7 return on the same span of a position
-// build, zeros of either sign included.  Reading only [l, r] needs neither the reference's anchor
+// [l, r], the minimum by vmin (NaN least) and the leftmost (vector, entry)
+// by a key reduction, then the winning entry's own bits and its index.  So
+// B5 returns the bits B2 / B4 / B7 return on the same span of a position
+// build, zeros of either sign and NaNs included.  Reading only [l, r] needs neither the reference's anchor
 // clamp to capacity - 2c nor its fallback for capacity < 2c.  The work a
 // warp takes is sized by the batch (short_tile): the engine's buckets of
 // at most 4096 spans would be 128 tiles of 32 (16 blocks of 8 warps, or 4
@@ -27,14 +27,20 @@
 // another; as one-span tiles they are 4096 warps, 3168 of them resident
 // at once (132 SMs x 3 blocks of 8 warps), each waiting on memory once.
 //
-// Registers (-Xptxas -v, sm_90a): 37-44 by type and vector width (40 for
-// float32 at 16 bytes), no spills, no stack.
+// Registers (-Xptxas -v, sm_90a): capped at 40 (kShortMinBlocks = 6
+// blocks of 256 threads an SM); 39-40 by type and vector width, no
+// spills, no stack.  Left to itself, the NaN rule's second walk took the
+// kernel to 44-48 registers, five blocks an SM, and a call of 349526
+// short spans (10923 tiles of 32) then needed three tiles from some warps
+// where six blocks an SM need two.
 #include "rmq_walk_hopper.cuh"
 
 namespace rmq {
 
+constexpr int kShortMinBlocks = 6;
+
 template <typename T, int V>
-__global__ void __launch_bounds__(kQueryThreads, hopper::kQueryMinBlocks)
+__global__ void __launch_bounds__(kQueryThreads, kShortMinBlocks)
     rmq_short_kernel(WalkGeo g, const T* __restrict__ base,
                      const int32_t* __restrict__ ls,
                      const int32_t* __restrict__ rs, int64_t m, int tq,

@@ -34,8 +34,12 @@
 //    goes through L1 (CACHE0: B5 / B7, whose sorted or short batches read
 //    neighbouring sectors again); upper-level reads are L2 evict_last
 //    (paper §5.8: the upper levels stay in cache);
-//  * each lane merges its vectors in rank order with fminf and keeps the
-//    first vector that lowered its minimum (a strict <); the group takes
+//  * each lane merges its vectors in rank order with vmin (min.NaN, so a
+//    NaN reaches the minimum) and keeps the first vector that lowered its
+//    minimum (a strict <); a query whose minimum comes out NaN is walked
+//    again with NaN as the least value (`lowered`), so a NaN-free span
+//    pays one vote a round for the NaN rule (and the kernel the second
+//    walk's code and registers); the group takes
 //    the value minimum M by shuffles and the smallest (rank, vector) key
 //    among the lanes that hold M with __reduce_min_sync.  No float is read
 //    as an ordered integer: -0.0 and +0.0 compare equal and the key
@@ -46,11 +50,12 @@
 //    winning entry's, never a min of two signed zeros) and gathers its
 //    position, all 32 queries at once.  A span whose minimum is +inf (or
 //    an empty one) answers (+inf, l) ((+inf, PAD_POS) when empty), the
-//    leftmost entry, as the lexicographic walk does.
+//    leftmost entry, as the lexicographic walk does; a span that holds a
+//    NaN answers its leftmost NaN, bits and position.
 // So the kernels on this walk return the same bits for the same span, zeros
-// of either sign included, on any hierarchy whose upper entries carry the
-// bits of their chunk's leftmost minimal entry (every build, value-only
-// or with positions: build_hopper.cuh, rmq_common.cuh).
+// of either sign and NaNs included, on any hierarchy whose upper entries
+// carry the bits of their chunk's leftmost minimal entry (every build,
+// value-only or with positions: build_hopper.cuh, rmq_common.cuh).
 #pragma once
 
 #include "hopper_ld.cuh"
@@ -162,10 +167,21 @@ __device__ __forceinline__ void level_part(int s, int32_t lo0, int32_t hi0,
   if (lo >= hi) b = a;  // a level the walk never reaches
 }
 
+// Whether a merge lowered a lane's running minimum from `before` to v.  A
+// query's first walk compares as floats (vmin still carries a NaN into v,
+// but a NaN never lowers it there); a query whose minimum comes out NaN is
+// walked again with NAN_LEAST, where NaN is the least value (vless of
+// rmq_common.cuh).  So a NaN-free span pays only the vote on its minimum.
+template <bool NAN_LEAST, typename T>
+__device__ __forceinline__ bool lowered(T v, T before) {
+  if constexpr (NAN_LEAST) return vless(v, before);
+  return v < before;
+}
+
 // The vectors gl, gl + G, ... of one part that lane gl of a G-lane group
 // holds, loaded and merged in ascending order: the strict < keeps the
 // lane's leftmost minimum.
-template <int G, bool LEVEL0, typename T, int V, bool C0>
+template <int G, bool LEVEL0, bool NAN_LEAST, typename T, int V, bool C0>
 __device__ __forceinline__ void part_walk(const Walk<T, V, C0>& w,
                                           const T* p, int32_t cs, int32_t a,
                                           int32_t b, uint32_t rank, int gl,
@@ -185,7 +201,7 @@ __device__ __forceinline__ void part_walk(const Walk<T, V, C0>& w,
 #pragma unroll
       for (int e = 0; e < V; ++e)
         if (st + e >= a && st + e < b) v = vmin(v, x.x[e]);
-      if (v < before) {
+      if (lowered<NAN_LEAST>(v, before)) {
         best_rank = rank;
         best_sub = vi;
       }
@@ -193,7 +209,7 @@ __device__ __forceinline__ void part_walk(const Walk<T, V, C0>& w,
   }
 }
 
-template <int G, typename T, int V, bool C0>
+template <int G, bool NAN_LEAST, typename T, int V, bool C0>
 __device__ __forceinline__ void part_any(const Walk<T, V, C0>& w,
                                          int32_t lo0, int32_t hi0, int k,
                                          bool left, int gl, uint64_t stream,
@@ -204,11 +220,11 @@ __device__ __forceinline__ void part_any(const Walk<T, V, C0>& w,
   level_part(w.s, lo0, hi0, k, left, cs, a, b);
   const uint32_t rank = left ? k : 2 * w.top_k - k;
   if (k == 0) {
-    part_walk<G, true>(w, w.base, cs, a, b, rank, gl, stream, v, best_rank,
-                       best_sub);
+    part_walk<G, true, NAN_LEAST>(w, w.base, cs, a, b, rank, gl, stream,
+                                  v, best_rank, best_sub);
   } else {
-    part_walk<G, false>(w, w.upper + w.offs[k - 1], cs, a, b, rank, gl,
-                        keep, v, best_rank, best_sub);
+    part_walk<G, false, NAN_LEAST>(w, w.upper + w.offs[k - 1], cs, a, b,
+                                   rank, gl, keep, v, best_rank, best_sub);
   }
 }
 
@@ -224,7 +240,7 @@ __device__ __forceinline__ void bounds0(int32_t capacity, int32_t l,
 // Levels kb.. of a walk whose range at level kb is [lo, hi): left parts
 // up, the top, right parts down (levels kb and above only), by lane gl of
 // a G-lane group.
-template <int G, typename T, int V, bool C0>
+template <int G, bool NAN_LEAST, typename T, int V, bool C0>
 __device__ __forceinline__ void walk_from(const Walk<T, V, C0>& w,
                                           int32_t lo0, int32_t hi0,
                                           int32_t lo, int32_t hi, int kb,
@@ -234,8 +250,8 @@ __device__ __forceinline__ void walk_from(const Walk<T, V, C0>& w,
                                           int32_t& best_sub) {
   int kp = kb;  // live levels below the top
   while (kp < w.top_k && lo < hi) {
-    part_any<G>(w, lo0, hi0, kp, true, gl, stream, keep, v, best_rank,
-                best_sub);
+    part_any<G, NAN_LEAST>(w, lo0, hi0, kp, true, gl, stream, keep, v,
+                           best_rank, best_sub);
     lo = ceil_shift(lo, w.s);
     hi >>= w.s;
     ++kp;
@@ -254,15 +270,15 @@ __device__ __forceinline__ void walk_from(const Walk<T, V, C0>& w,
 #pragma unroll
       for (int e = 0; e < V; ++e)
         if (t0 + e >= lo && t0 + e < end) v = vmin(v, x.x[e]);
-      if (v < before) {
+      if (lowered<NAN_LEAST>(v, before)) {
         best_rank = w.top_k;
         best_sub = it * G + gl;
       }
     }
   }
   for (int k = kp - 1; k >= kb; --k)
-    part_any<G>(w, lo0, hi0, k, false, gl, stream, keep, v, best_rank,
-                best_sub);
+    part_any<G, NAN_LEAST>(w, lo0, hi0, k, false, gl, stream, keep, v,
+                           best_rank, best_sub);
 }
 
 // ---------------------------------------------------------------------------
@@ -270,11 +286,12 @@ __device__ __forceinline__ void walk_from(const Walk<T, V, C0>& w,
 // vector of each part): the loads of the first kBatchLevels levels, both
 // parts, are issued before the first merge.  Offsets are unsigned 32-bit
 // (the capacity check keeps every coordinate below 2^31), so an address
-// is one wide multiply-add.
+// is one wide multiply-add.  The levels' offsets come from shared memory
+// (w.offs): held in registers, they pushed B2's instances past the cap of
+// 80 (8-16 bytes of spills) once the NaN second walk was added.
 // ---------------------------------------------------------------------------
 template <typename T, int V, bool C0>
 __device__ __forceinline__ void walk_batched(const Walk<T, V, C0>& w,
-                                             const uint32_t* up_off,
                                              int32_t lo0, int32_t hi0,
                                              int lane, uint64_t stream,
                                              uint64_t keep, T& v,
@@ -298,7 +315,8 @@ __device__ __forceinline__ void walk_batched(const Walk<T, V, C0>& w,
       const uint32_t bl = (next_l < hi ? next_l : hi) - csl;
       const uint32_t br = next_l < hi ? hi & c1 : 0u;
       pk[k] = al | (bl << 8) | (br << 16);
-      const T* lv = k == 0 ? w.base : w.upper + up_off[k];
+      const T* lv =
+          k == 0 ? w.base : w.upper + static_cast<uint32_t>(w.offs[k - 1]);
       if (st + V > al && st < bl) {
         if (k == 0) {
           ld_level0<T, V, C0>(xl[k], lv + (csl + st), stream);
@@ -333,9 +351,9 @@ __device__ __forceinline__ void walk_batched(const Walk<T, V, C0>& w,
       if (v < before) best_rank = k;
     }
   }
-  walk_from<kWarp>(w, lo0, hi0, static_cast<int32_t>(lo),
-                   static_cast<int32_t>(hi), kb, lane, stream, keep, v,
-                   best_rank, best_sub);
+  walk_from<kWarp, false>(w, lo0, hi0, static_cast<int32_t>(lo),
+                              static_cast<int32_t>(hi), kb, lane, stream,
+                              keep, v, best_rank, best_sub);
 #pragma unroll
   for (int k = UL - 1; k >= 0; --k) {
     const uint32_t br = pk[k] >> 16;
@@ -430,46 +448,50 @@ __device__ __forceinline__ void walk_grouped(const Walk<T, V, C0>& w,
           if (pm < before) ps = gl + j * G;
         }
       }
+      // vmin: a NaN part still reaches v, so the query is walked again
       if (pm <= vr) {
-        vr = pm;
         rr = 2 * w.top_k - k;
         rsub = ps;
       }
+      vr = vmin(vr, pm);
       kb = k + 1;
       lo = next_l >> w.s;
       hi >>= w.s;
     }
   }
-  walk_from<G>(w, lo0, hi0, static_cast<int32_t>(lo),
-               static_cast<int32_t>(hi), kb, gl, stream, keep, v, best_rank,
-               best_sub);
+  walk_from<G, false>(w, lo0, hi0, static_cast<int32_t>(lo),
+                          static_cast<int32_t>(hi), kb, gl, stream, keep, v,
+                          best_rank, best_sub);
   if (vr < v) {
-    v = vr;
     best_rank = rr;
     best_sub = rsub;
   }
+  v = vmin(v, vr);
   key = (best_rank << w.sub_bits) | static_cast<uint32_t>(best_sub);
 }
 
-// The same walk for every other layout, from registers, part by part.
-template <typename T, int V, bool C0>
+// The same walk part by part, G lanes a query (lane gl of the group):
+// every layout's first walk where the one-chunk-a-warp layout does not
+// hold, and any layout's second walk (NAN_LEAST) of a query whose minimum
+// came out NaN.
+template <int G, bool NAN_LEAST, typename T, int V, bool C0>
 __device__ __forceinline__ void walk_plain(const Walk<T, V, C0>& w,
                                            int32_t lo0, int32_t hi0,
-                                           int lane, uint64_t stream,
+                                           int gl, uint64_t stream,
                                            uint64_t keep, T& v,
                                            uint32_t& key) {
   v = pos_inf<T>();
   uint32_t best_rank = 0;
-  int32_t best_sub = lane;
-  walk_from<kWarp>(w, lo0, hi0, lo0, hi0, 0, lane, stream, keep, v,
-                   best_rank, best_sub);
+  int32_t best_sub = gl;
+  walk_from<G, NAN_LEAST>(w, lo0, hi0, lo0, hi0, 0, gl, stream, keep, v,
+                          best_rank, best_sub);
   key = (best_rank << w.sub_bits) | static_cast<uint32_t>(best_sub);
 }
 
 // A group's answer to one query: the minimum M over its G lanes
 // (shuffles) and the smallest key among the lanes that hold it
 // (__reduce_min_sync on the group's lanes).
-template <int G, typename T>
+template <int G, bool NAN_LEAST, typename T>
 __device__ __forceinline__ void group_min(T v, uint32_t key, int lane, T& m,
                                           uint32_t& kmin) {
   m = v;
@@ -478,7 +500,9 @@ __device__ __forceinline__ void group_min(T v, uint32_t key, int lane, T& m,
     m = vmin(m, __shfl_xor_sync(kFullMask, m, o));
   unsigned mask = kFullMask;
   if constexpr (G < kWarp) mask = ((1u << G) - 1u) << (lane & ~(G - 1));
-  kmin = __reduce_min_sync(mask, v == m ? key : 0xffffffffu);
+  // a first walk's NaN minimum is walked again, so its key is not used
+  const bool hold = NAN_LEAST ? vsame(v, m) : v == m;
+  kmin = __reduce_min_sync(mask, hold ? key : 0xffffffffu);
 }
 
 // End of a tile: lane `lane` answers its own query from (M, key): the
@@ -491,8 +515,8 @@ __device__ __forceinline__ void answer(const Walk<T, V, C0>& w, int32_t l,
                                        T& val, int32_t& pos) {
   int32_t lo0, hi0;
   bounds0(w.capacity, l, r, lo0, hi0);
-  if (!(res_m < pos_inf<T>())) {
-    // No finite entry: the leftmost entry of the span, +inf.
+  if (res_m == pos_inf<T>()) {
+    // Every entry +inf: the leftmost entry of the span, +inf.
     val = pos_inf<T>();
     pos = lo0 < hi0 ? lo0 : kPadPos;
     return;
@@ -527,7 +551,7 @@ __device__ __forceinline__ void answer(const Walk<T, V, C0>& w, int32_t l,
   int e_win = V - 1;
 #pragma unroll
   for (int e = V - 1; e >= 0; --e)
-    if (start + e >= a && start + e < b && x.x[e] == res_m) e_win = e;
+    if (start + e >= a && start + e < b && vsame(x.x[e], res_m)) e_win = e;
   T got = x.x[0];
 #pragma unroll
   for (int e = 1; e < V; ++e)
@@ -559,11 +583,6 @@ __device__ __forceinline__ void answer_batch(const Walk<T, V, C0>& w,
                 "lane groups need the one-chunk-a-warp layout");
   const int lane = threadIdx.x & (kWarp - 1);
   const int gl = lane & (G - 1);
-  // FAST: the batch levels' offsets in `upper` (level k at up_off[k]).
-  uint32_t up_off[kBatchLevels];
-#pragma unroll
-  for (int k = 0; k < kBatchLevels; ++k)
-    up_off[k] = k > 0 && k < w.top_k ? w.offs[k - 1] : 0u;
   // Tile counters fit 32 bits: 2^31 tiles of bounds would not fit a card.
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / kWarp;
   const int nwarps = gridDim.x * blockDim.x / kWarp;
@@ -577,11 +596,12 @@ __device__ __forceinline__ void answer_batch(const Walk<T, V, C0>& w,
   }
   const uint64_t stream = evict_first_policy();
   const uint64_t keep = evict_last_policy();
-  // Lane groups: the tile's bounds and answers, one entry a thread.
-  __shared__ int32_t tile_l[G < kWarp ? kQueryThreads : 1];
-  __shared__ int32_t tile_r[G < kWarp ? kQueryThreads : 1];
-  __shared__ T tile_m[G < kWarp ? kQueryThreads : 1];
-  __shared__ uint32_t tile_k[G < kWarp ? kQueryThreads : 1];
+  // Lane groups: the tile's bounds and answers, one entry a thread (a
+  // whole warp parks its own there around a second walk).
+  __shared__ int32_t tile_l[kQueryThreads];
+  __shared__ int32_t tile_r[kQueryThreads];
+  __shared__ T tile_m[kQueryThreads];
+  __shared__ uint32_t tile_k[kQueryThreads];
   for (int tile = first; tile < end; tile += step) {
     const int64_t qi = static_cast<int64_t>(tile) * tq + lane;
     const bool mine = lane < tq && qi < m;
@@ -602,24 +622,53 @@ __device__ __forceinline__ void answer_batch(const Walk<T, V, C0>& w,
       __syncwarp();
     }
     for (int j = 0; j < rounds; ++j) {
-      int32_t lo0, hi0;
-      if constexpr (G < kWarp) {
-        const int t = (threadIdx.x & ~(G - 1)) | j;
-        bounds0(w.capacity, tile_l[t], tile_r[t], lo0, hi0);
-      } else {
-        bounds0(w.capacity, __shfl_sync(kFullMask, my_l, j),
-                __shfl_sync(kFullMask, my_r, j), lo0, hi0);
-      }
       T v, mm;
       uint32_t key, kmin;
-      if constexpr (!FAST) {
-        walk_plain(w, lo0, hi0, lane, stream, keep, v, key);
-      } else if constexpr (G == kWarp) {
-        walk_batched(w, up_off, lo0, hi0, lane, stream, keep, v, key);
-      } else {
-        walk_grouped<G>(w, lo0, hi0, gl, stream, keep, v, key);
+      {
+        int32_t lo0, hi0;
+        if constexpr (G < kWarp) {
+          const int t = (threadIdx.x & ~(G - 1)) | j;
+          bounds0(w.capacity, tile_l[t], tile_r[t], lo0, hi0);
+        } else {
+          bounds0(w.capacity, __shfl_sync(kFullMask, my_l, j),
+                  __shfl_sync(kFullMask, my_r, j), lo0, hi0);
+        }
+        if constexpr (!FAST) {
+          walk_plain<kWarp, false>(w, lo0, hi0, lane, stream, keep, v, key);
+        } else if constexpr (G == kWarp) {
+          walk_batched(w, lo0, hi0, lane, stream, keep, v, key);
+        } else {
+          walk_grouped<G>(w, lo0, hi0, gl, stream, keep, v, key);
+        }
       }
-      group_min<G>(v, key, lane, mm, kmin);
+      group_min<G, false>(v, key, lane, mm, kmin);
+      if constexpr (G == kWarp) {
+        if (__any_sync(kFullMask, mm != mm)) {
+          // A NaN in this round's span: walk it again, NaN least.  What
+          // the rounds keep in registers waits in shared memory meanwhile
+          // (volatile: really stored), so this rare path needs no more of
+          // them than the first walks.
+          volatile int32_t* park_l = tile_l;
+          volatile int32_t* park_r = tile_r;
+          volatile T* park_m = tile_m;
+          volatile uint32_t* park_k = tile_k;
+          __syncwarp();
+          park_l[threadIdx.x] = my_l;
+          park_r[threadIdx.x] = my_r;
+          park_m[threadIdx.x] = res_m;
+          park_k[threadIdx.x] = res_key;
+          __syncwarp();
+          int32_t lo0, hi0;
+          const int t = (threadIdx.x & ~(kWarp - 1)) | j;
+          bounds0(w.capacity, park_l[t], park_r[t], lo0, hi0);
+          walk_plain<G, true>(w, lo0, hi0, gl, stream, keep, v, key);
+          group_min<G, true>(v, key, lane, mm, kmin);
+          my_l = park_l[threadIdx.x];
+          my_r = park_r[threadIdx.x];
+          res_m = park_m[threadIdx.x];
+          res_key = park_k[threadIdx.x];
+        }
+      }
       if (gl == j) {
         if constexpr (G < kWarp) {
           tile_m[threadIdx.x] = mm;
@@ -631,6 +680,28 @@ __device__ __forceinline__ void answer_batch(const Walk<T, V, C0>& w,
       }
     }
     if constexpr (G < kWarp) {
+      // Lane groups: the tile's queries whose minimum came out NaN are
+      // walked again, NaN least, after its rounds (one vote a tile).
+      if (__any_sync(kFullMask,
+                     tile_m[threadIdx.x] != tile_m[threadIdx.x])) {
+        __syncwarp();  // every lane's answers, before lanes read others
+        for (int j = 0; j < rounds; ++j) {
+          const int t = (threadIdx.x & ~(G - 1)) | j;
+          const T mj = tile_m[t];
+          if (__any_sync(kFullMask, mj != mj)) {
+            int32_t lo0, hi0;
+            bounds0(w.capacity, tile_l[t], tile_r[t], lo0, hi0);
+            T v, mm;
+            uint32_t key, kmin;
+            walk_plain<G, true>(w, lo0, hi0, gl, stream, keep, v, key);
+            group_min<G, true>(v, key, lane, mm, kmin);
+            if (gl == j) {
+              tile_m[threadIdx.x] = mm;
+              tile_k[threadIdx.x] = kmin;
+            }
+          }
+        }
+      }
       my_l = tile_l[threadIdx.x];
       my_r = tile_r[threadIdx.x];
       res_m = tile_m[threadIdx.x];

@@ -1,20 +1,28 @@
-"""Hierarchy updates through the per-level re-reduction kernel (B6).
+"""Hierarchy updates through the sorted-run re-reduction kernel (B6).
 
 The counterpart of the reference's ``update_hierarchy_pallas`` /
-``append_hierarchy_pallas`` (``repro/kernels/hierarchy_update/ops.py``):
-the same last-wins base scatter and per-level chunk dedupe as the plain
-path (:mod:`repro_torch.streaming.updates`), with each level's
-re-reduction one launch of ``csrc/hierarchy_update.cu``, ``L - 1``
-launches per update, each writing straight into its level's slot of the
-successor's ``upper`` / ``upper_pos``.  Every level records
-``record_launch("hierarchy_update", level=..., touched=...)``, as the
-reference does.  On a CPU hierarchy each level takes the plain version,
-:func:`repair_level_plain`.
+``append_hierarchy_pallas`` (``repro/kernels/hierarchy_update/ops.py``).
+An update sorts its batch once (:func:`repro_torch.streaming.updates.
+sort_batch`: a stable sort, out-of-range indices set to ``capacity`` at
+the end) and hands it, at its static size, to one C call that launches
+``csrc/hierarchy_update.cu`` once per upper level on PyTorch's current
+stream: the level-1 launch writes the batch into the successor's level 0
+(last wins) and every launch re-reduces the chunks the batch touches,
+straight into the successor's ``upper`` / ``upper_pos``.  An append
+passes its ``arange`` indices the same way.  Nothing on this path waits
+for the card: no dedupe, no compaction, no read-back.  Every level records
+``record_launch("hierarchy_update", level=..., touched=...)`` with the
+batch's static size, as the reference records its static ``jnp.unique``
+size, once its launch has gone out.  A CPU hierarchy takes the plain
+update (:func:`repro_torch.streaming.updates.update_hierarchy` /
+``append_hierarchy``) and records the same launches; a CUDA hierarchy
+launches or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -27,68 +35,88 @@ from repro_torch.streaming import updates as U
 __all__ = [
     "LAUNCHES",
     "append_hierarchy_cuda",
-    "repair_level",
     "repair_level_plain",
     "update_hierarchy_cuda",
-    "update_level_cuda",
+    "update_levels_cuda",
 ]
 
 LAUNCHES = profiling.KernelCounter("hierarchy_update")
 
 _SIGNATURES = {
-    "rmq_update_level": (
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    "rmq_update_levels": (
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
     ),
 }
 
 repair_level_plain = U.repair_level_plain
 
 
-def update_level_cuda(src_v, src_p, ids, c: int, out_v, out_p) -> None:
-    """One launch: re-reduce chunks ``ids`` (deduped) of the source level
-    into ``out_v[id]`` (and ``out_p[id]``).  ``src_p=None`` with
-    ``out_p`` means level 0, whose positions are the indices."""
-    ids = ids.to(torch.int32).contiguous()
-    if ids.numel() == 0:
+def _record(plan: HierarchyPlan, level: int, touched: int, track: bool,
+            item: int, lowering: str) -> None:
+    profiling.record_launch(
+        "hierarchy_update", lowering=lowering, level=level, touched=touched,
+        with_positions=track,
+        operand_bytes=touched * plan.c * (item + (4 if track else 0)))
+
+
+def update_levels_cuda(plan: HierarchyPlan, base, upper, upper_pos, keys,
+                       vals) -> None:
+    """Write the sorted batch ``keys`` / ``vals`` (:func:`U.sort_batch`)
+    into ``base`` and re-reduce every upper level in place: one host call,
+    ``L - 1`` launches."""
+    levels = plan.num_levels
+    if levels < 2 or keys.numel() == 0:
         return
-    _build.require_cuda("hierarchy_update", src_v, src_p, ids, out_v, out_p)
-    if out_p is not None and out_p.dtype != torch.int32:
+    _build.require_cuda("hierarchy_update", base, upper, upper_pos, keys,
+                        vals)
+    if keys.dtype != torch.int32 or vals.dtype != base.dtype:
+        raise TypeError("hierarchy_update: keys must be int32 and values "
+                        "of the base's dtype")
+    if upper_pos is not None and upper_pos.dtype != torch.int32:
         raise TypeError("hierarchy_update: positions must be int32")
     lib = _build.load("hierarchy_update", _SIGNATURES)
-    with torch.cuda.device(src_v.device):
-        rc = lib.rmq_update_level(
-            _build.dtype_code(src_v.dtype), int(out_p is not None),
-            _build.ptr(src_v), _build.ptr(src_p), src_v.numel(), c,
-            _build.ptr(ids), ids.numel(), _build.ptr(out_v),
-            _build.ptr(out_p), _build.stream_of(src_v.device))
+    offsets = (ctypes.c_longlong * (levels - 1))(*plan.offsets)
+    src_lens = (ctypes.c_longlong * (levels - 1))(
+        plan.capacity, *plan.padded_lens[:-1])
+    launched = ctypes.c_int(0)
+    with torch.cuda.device(base.device):
+        rc = lib.rmq_update_levels(
+            _build.dtype_code(base.dtype), int(upper_pos is not None),
+            _build.ptr(base), plan.capacity, _build.ptr(upper),
+            _build.ptr(upper_pos), offsets, src_lens, levels,
+            plan.c.bit_length() - 1, _build.ptr(keys), _build.ptr(vals),
+            keys.numel(), ctypes.byref(launched),
+            _build.stream_of(base.device))
+    for level in range(1, launched.value + 1):
+        LAUNCHES.hit()
+        _record(plan, level, keys.numel(), upper_pos is not None,
+                base.element_size(), "cuda")
     _build.check(lib, rc, "hierarchy_update")
-    LAUNCHES.hit()
 
 
-def repair_level(plan: HierarchyPlan, base, upper, upper_pos, level: int,
-                 ids: torch.Tensor) -> None:
-    """One level of an update: one launch on the card, the plain version
-    on the CPU; both write in place into ``upper`` / ``upper_pos``."""
-    src_v, src_p = U.level_source(plan, base, upper, upper_pos, level)
-    track = upper_pos is not None
-    profiling.record_launch(
-        "hierarchy_update",
-        lowering="cuda" if base.is_cuda else "eager",
-        level=level,
-        touched=int(ids.numel()),
-        with_positions=track,
-        operand_bytes=int(ids.numel()) * plan.c * (
-            base.element_size() + (4 if track else 0)),
-    )
-    if not base.is_cuda:
-        U.repair_plain(plan, base, upper, upper_pos, level, ids)
-        return
-    off, n_k = plan.offsets[level - 1], plan.padded_lens[level - 1]
-    update_level_cuda(
-        src_v, src_p, ids, plan.c, upper[off:off + n_k],
-        upper_pos[off:off + n_k] if track else None)
+def _launch(h: Hierarchy, keys, vals) -> Hierarchy:
+    if h.plan.num_levels < 2:  # no upper level: no launch
+        return dataclasses.replace(h, base=U.scatter_base(h.base, keys,
+                                                          vals))
+    base = h.base.clone()
+    upper = h.upper.clone()
+    upper_pos = None if h.upper_pos is None else h.upper_pos.clone()
+    update_levels_cuda(h.plan, base, upper, upper_pos, keys, vals)
+    return Hierarchy(base=base, upper=upper, upper_pos=upper_pos,
+                     plan=h.plan)
+
+
+def _plain(h: Hierarchy, out: Hierarchy, size: int) -> Hierarchy:
+    """The plain successor ``out`` of a CPU hierarchy, with the launches
+    the card would have made recorded (none for an empty batch)."""
+    for level in range(1, h.plan.num_levels if size else 1):
+        _record(h.plan, level, size, h.upper_pos is not None,
+                h.base.element_size(), "eager")
+    return out
 
 
 def _check(h: Hierarchy) -> None:
@@ -99,10 +127,19 @@ def _check(h: Hierarchy) -> None:
 def update_hierarchy_cuda(h: Hierarchy, idxs, vals) -> Hierarchy:
     """Batched point updates (last wins), one launch per upper level."""
     _check(h)
-    return U.update_hierarchy(h, idxs, vals, repair=repair_level)
+    if not h.base.is_cuda:
+        return _plain(h, U.update_hierarchy(h, idxs, vals),
+                      torch.as_tensor(idxs).numel())
+    return _launch(h, *U.sort_batch(h, idxs, vals))
 
 
 def append_hierarchy_cuda(h: Hierarchy, vals, start: int) -> Hierarchy:
     """Append ``vals`` at ``start``, one launch per upper level."""
     _check(h)
-    return U.append_hierarchy(h, vals, start, repair=repair_level)
+    vals = torch.as_tensor(vals, device=h.device).to(h.base.dtype)
+    vals = vals.reshape(-1)
+    if not h.base.is_cuda:
+        return _plain(h, U.append_hierarchy(h, vals, start), vals.numel())
+    keys = torch.arange(int(start), int(start) + vals.shape[0],
+                        dtype=U.key_dtype(h.plan), device=h.device)
+    return _launch(h, keys, vals)

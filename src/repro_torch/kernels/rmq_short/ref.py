@@ -27,7 +27,8 @@ def rmq_short_batch_ref(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The reference's ``rmq_short_batch_ref``: a ``min(2c, capacity)``
     window anchored at ``floor(l/c)*c`` (clamped to the level), masked to
-    ``[l, r]``; positions are the window indices."""
+    ``[l, r]``; positions are the window indices.  The answer is the
+    leftmost least entry, NaN least, with its own bits."""
     w = min(2 * c, capacity)
     dev = base.device
     ls = torch.as_tensor(ls, device=dev).reshape(-1).to(torch.int64)
@@ -44,10 +45,11 @@ def rmq_short_batch_ref(
         idx = anchor[:, None] + lane
         mask = (idx >= l[:, None]) & (idx <= r[:, None])
         masked = torch.where(mask, base[idx], float("inf"))
-        m = masked.amin(dim=1)
-        vals[s:s + step] = m
+        m = masked.amin(dim=1, keepdim=True)  # NaN where one is unmasked
+        hit = mask & ((masked == m) | masked.isnan())
+        cand = torch.where(hit, idx, torch.iinfo(pos_dtype).max)
+        at = cand.argmin(dim=1, keepdim=True)
+        vals[s:s + step] = masked.gather(1, at)[:, 0]
         if track_pos:
-            ident = torch.iinfo(pos_dtype).max
-            cand = torch.where(mask & (masked == m[:, None]), idx, ident)
-            pos[s:s + step] = cand.amin(dim=1).to(pos_dtype)
+            pos[s:s + step] = cand.gather(1, at)[:, 0].to(pos_dtype)
     return vals, pos

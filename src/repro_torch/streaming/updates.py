@@ -20,14 +20,22 @@ Per batch:
 The result equals a fresh build of the mutated array, bit for bit.  The
 predecessor is never written: the successor gets its own ``base``,
 ``upper`` and ``upper_pos``, so an index that was updated still answers
-for its own data.  The CUDA realization of step 2 is
-``repro_torch.kernels.hierarchy_update`` (one launch per upper level).
+for its own data.  Summaries follow the plain build's rule (the leftmost
+least entry's bits, NaN least: ``torch.argmin``).
+
+The CUDA realization (``repro_torch.kernels.hierarchy_update``, one
+launch per upper level) never dedupes: :func:`sort_batch` sorts the
+batch once at its static size, the level-1 launch writes each run of
+equal indices' last entry into level 0, and level k re-reduces the chunk
+of every entry whose chunk differs from its predecessor's.  The
+scatter of step 1 waits for nothing either; ``torch.unique`` in step 2
+waits for the card, so the plain update is not the card's path.
 Not ported: the packed and bf16 planes (ROADMAP A3).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,19 +45,16 @@ from repro_torch.core.plan import HierarchyPlan
 
 __all__ = [
     "append_hierarchy",
+    "key_dtype",
     "level_source",
     "propagate_updates",
     "repair_level_plain",
     "repair_plain",
     "scatter_base",
+    "sort_batch",
     "touched_chunk_ids",
     "update_hierarchy",
 ]
-
-# repair(plan, base, upper, upper_pos, level, ids): re-reduce chunks
-# ``ids`` of ``level`` into ``upper`` / ``upper_pos`` in place.
-Repair = Callable[..., None]
-
 
 def scatter_base(base: torch.Tensor, idxs: torch.Tensor,
                  vals: torch.Tensor) -> torch.Tensor:
@@ -57,23 +62,26 @@ def scatter_base(base: torch.Tensor, idxs: torch.Tensor,
 
     Duplicate indices resolve last-wins (the latest batch entry, as if
     applied one by one): a stable sort groups each index's entries in
-    batch order and only the last of each group is written, so the
-    scatter never sees a duplicate (on the card a duplicate write has no
-    defined winner).  Indices outside ``[0, len(base))`` are dropped.
+    batch order and every entry of a group writes the group's last value,
+    so the scatter's duplicates agree (on the card a duplicate write has
+    no defined winner).  Indices outside ``[0, len(base))`` are dropped:
+    they write a scratch slot past the end.  Nothing here waits for the
+    card.
     """
     cap = base.shape[0]
     idxs = idxs.to(device=base.device, dtype=torch.int64).reshape(-1)
     vals = vals.to(device=base.device, dtype=base.dtype).reshape(-1)
-    out = base.clone()
-    valid = (idxs >= 0) & (idxs < cap)
-    vi, vv = idxs[valid], vals[valid]
-    if vi.numel() == 0:
-        return out
-    si, perm = torch.sort(vi, stable=True)
-    last = torch.ones_like(si, dtype=torch.bool)
-    last[:-1] = si[1:] != si[:-1]
-    out[si[last]] = vv[perm[last]]
-    return out
+    if idxs.numel() == 0:
+        return base.clone()
+    keys = torch.where((idxs >= 0) & (idxs < cap), idxs, cap)
+    keys, perm = torch.sort(keys, stable=True)
+    q = torch.arange(keys.numel(), device=keys.device)
+    nxt = torch.cat([keys[1:], keys.new_full((1,), -1)])
+    last = torch.where(nxt != keys, q, keys.numel())
+    last = torch.flip(torch.cummin(torch.flip(last, (0,)), 0).values, (0,))
+    out = torch.cat([base, base.new_zeros(1)])
+    out.scatter_(0, keys, vals.index_select(0, perm.index_select(0, last)))
+    return out[:cap]
 
 
 def touched_chunk_ids(ids: torch.Tensor, num_chunks: int) -> torch.Tensor:
@@ -151,7 +159,6 @@ def propagate_updates(
     upper: torch.Tensor,
     upper_pos: Optional[torch.Tensor],
     idxs: torch.Tensor,
-    repair: Repair = repair_plain,
 ) -> None:
     """Re-reduce every chunk on the root-to-leaf paths of ``idxs``, in
     place on ``upper`` / ``upper_pos``; ``base`` holds the new values.
@@ -166,30 +173,28 @@ def propagate_updates(
     ids = idxs // plan.c
     for level in range(1, plan.num_levels):
         ids = touched_chunk_ids(ids, plan.level_lens[level])
-        repair(plan, base, upper, upper_pos, level, ids)
+        repair_plain(plan, base, upper, upper_pos, level, ids)
         ids = ids // plan.c
 
 
-def _successor(h: Hierarchy, base: torch.Tensor, idxs: torch.Tensor,
-               repair: Repair) -> Hierarchy:
+def _successor(h: Hierarchy, base: torch.Tensor,
+               idxs: torch.Tensor) -> Hierarchy:
     upper = h.upper.clone()
     upper_pos = None if h.upper_pos is None else h.upper_pos.clone()
-    propagate_updates(h.plan, base, upper, upper_pos, idxs, repair)
+    propagate_updates(h.plan, base, upper, upper_pos, idxs)
     return Hierarchy(base=base, upper=upper, upper_pos=upper_pos,
                      plan=h.plan)
 
 
-def update_hierarchy(h: Hierarchy, idxs, vals,
-                     repair: Repair = repair_plain) -> Hierarchy:
+def update_hierarchy(h: Hierarchy, idxs, vals) -> Hierarchy:
     """The successor of ``h`` after ``a[idxs] = vals`` (last wins)."""
     idxs = torch.as_tensor(idxs, device=h.device)
     vals = torch.as_tensor(vals, device=h.device)
     base = scatter_base(h.base, idxs, vals)
-    return _successor(h, base, idxs, repair)
+    return _successor(h, base, idxs)
 
 
-def append_hierarchy(h: Hierarchy, vals, start: int,
-                     repair: Repair = repair_plain) -> Hierarchy:
+def append_hierarchy(h: Hierarchy, vals, start: int) -> Hierarchy:
     """The successor of ``h`` with ``vals`` written at ``[start,
     start + B)``; the caller guarantees ``start + B <= capacity``."""
     vals = torch.as_tensor(vals, device=h.device).to(h.base.dtype)
@@ -198,4 +203,25 @@ def append_hierarchy(h: Hierarchy, vals, start: int,
     base = h.base.clone()
     base[start:start + vals.shape[0]] = vals
     idxs = start + torch.arange(vals.shape[0], device=h.device)
-    return _successor(h, base, idxs, repair)
+    return _successor(h, base, idxs)
+
+
+def key_dtype(plan: HierarchyPlan) -> torch.dtype:
+    """The sorted batch's index dtype: int32 where every index and the
+    out-of-range mark (``capacity``) fit."""
+    return torch.int32 if plan.capacity < 2**31 else torch.int64
+
+
+def sort_batch(h: Hierarchy, idxs, vals):
+    """``(keys, vals)``: the batch as the update kernel takes it, at its
+    static size.  The indices ascend by a stable sort, so equal indices
+    keep their batch order and the last of each run is the write that
+    stays; each value stays beside its index; indices outside ``[0,
+    capacity)`` become ``capacity`` and sort to the end, where they are
+    skipped.  Nothing here waits for the card."""
+    cap = h.plan.capacity
+    idxs = torch.as_tensor(idxs, device=h.device).to(torch.int64)
+    vals = torch.as_tensor(vals, device=h.device).to(h.base.dtype)
+    keys = torch.where((idxs >= 0) & (idxs < cap), idxs.reshape(-1), cap)
+    keys, perm = torch.sort(keys.to(key_dtype(h.plan)), stable=True)
+    return keys, vals.reshape(-1).index_select(0, perm)

@@ -61,7 +61,12 @@ GEOMETRIES = [
 
 # Edge cases of the leftmost-tie rule (B2 / B4): each kind of input with
 # the spans that exercise it, over a plan whose capacity may exceed n.
-EDGE_KINDS = ("signed_zeros", "inf_runs", "ties_across_segments")
+# The JAX package answers NaN inconsistently and flushes subnormals to zero
+# on the CPU (ROADMAP C7, C2), so tests against it take the first three
+# kinds only; the port's own rule (NaN least, subnormals kept) is held by
+# tests/test_torch_nan.py on the CPU and by the card tests on all five.
+REFERENCE_EDGE_KINDS = ("signed_zeros", "inf_runs", "ties_across_segments")
+EDGE_KINDS = REFERENCE_EDGE_KINDS + ("nan", "subnormals")
 EDGE_GEOMETRIES = [
     (70_000, 128, 4, 1 << 17),   # default c, capacity > n, three levels
     (50_003, 64, 8, 1 << 16),    # c = 64: one chunk a warp for float64
@@ -79,7 +84,15 @@ def edge_input(kind, rng, n, c, dtype=np.float32):
     ``inf_runs``: +inf runs of a few chunks, one of them reaching the live
     end; ``ties_across_segments``: few distinct values, and one value
     below them every c - 1 entries, so one span finds equal minima in its
-    partial chunks, on every upper level and in the top."""
+    partial chunks, on every upper level and in the top; ``nan``: quiet
+    NaNs of both signs with distinct payloads, single, in runs and at
+    chunk and segment edges (:func:`nan_input`); ``subnormals``: a
+    sixteenth of the entries subnormal, of both signs, few distinct values
+    so they tie (:func:`subnormal_input`)."""
+    if kind == "nan":
+        return nan_input(rng, n, c, dtype)
+    if kind == "subnormals":
+        return subnormal_input(rng, n, dtype)
     x = (rng.random(n) + 0.5).astype(dtype)
     if kind == "signed_zeros":
         z = rng.integers(0, max(n - 1, 1), max(n // 16, 2))
@@ -131,4 +144,59 @@ def zero_heavy(rng, n, dtype=np.float32, share=0.3):
     flipped = z[k // 4: k // 2]
     x[flipped] = 0.0
     x[np.minimum(flipped + 1, n - 1)] = -0.0
+    return x
+
+
+def _int_dtype(dtype):
+    return np.int32 if np.dtype(dtype) == np.float32 else np.int64
+
+
+def quiet_nans(rng, k, dtype=np.float32):
+    """``k`` quiet NaNs of either sign, each with its own payload bits."""
+    if np.dtype(dtype) == np.float32:
+        bits = (0x7FC00000 | rng.integers(0, 1 << 22, k)).astype(np.int64)
+        bits |= np.where(rng.random(k) < 0.5, 1 << 31, 0)
+        return bits.astype(np.uint32).view(np.int32).view(np.float32)
+    bits = (0x7FF8000000000000 | rng.integers(0, 1 << 51, k)).astype(
+        np.uint64)
+    bits |= np.where(rng.random(k) < 0.5, np.uint64(1 << 63),
+                     np.uint64(0)).astype(np.uint64)
+    return bits.view(np.float64)
+
+
+def nan_input(rng, n, c, dtype=np.float32):
+    """Values in [0.5, 1.5) with NaNs: single ones (about n / 128), runs
+    of up to 2c, and NaNs on both sides of chunk edges (of c and c^2), each
+    NaN with its own payload and sign; one number below every other value
+    near each run, so spans beside a NaN have a least number too."""
+    x = (rng.random(n) + 0.5).astype(dtype)
+    if n == 0:
+        return x
+    at = [rng.integers(0, n, max(n // 128, 1))]
+    for start in rng.integers(0, n, max(n // (32 * c), 1)):
+        at.append(np.arange(start, min(start + int(rng.integers(1, 2 * c)),
+                                       n)))
+        x[max(start - 1, 0)] = 0.25
+    for step in (c, c * c):
+        edges = (rng.integers(1, max(n // step, 1) + 1, 4) * step)
+        at.append(np.concatenate([edges - 1, edges]))
+    at = np.concatenate(at)
+    at = at[(at >= 0) & (at < n)]
+    x[at] = quiet_nans(rng, at.size, dtype)
+    return x
+
+
+def subnormal_input(rng, n, dtype=np.float32):
+    """Values in [0.5, 1.5) with a sixteenth of the entries subnormal: the
+    smallest few of either sign and one near the normal range, so equal
+    subnormals tie and the least of a span is often one."""
+    x = (rng.random(n) + 0.5).astype(dtype)
+    if n == 0:
+        return x
+    top = (1 << 23) - 1 if np.dtype(dtype) == np.float32 else (1 << 52) - 1
+    pool = np.array([1, 2, 3, top], _int_dtype(dtype)).view(dtype)
+    k = max(n // 16, 2)
+    z = rng.integers(0, n, k)
+    sign = np.where(rng.random(k) < 0.5, -1, 1).astype(dtype)
+    x[z] = pool[rng.integers(0, pool.size, k)] * sign
     return x

@@ -7,9 +7,11 @@ inside the test, never at import).  Run on a machine with a card:
 
 Min and argmin are exact, so every RMQ comparison is bit-for-bit
 (tolerance 0): values, leftmost positions and the +inf / PAD_POS padding.
-The builds, the update and the value-only queries on zero-heavy input are
-compared as integer views (``_same_bits``: ``torch.equal`` takes -0.0 for
-+0.0), so a summary must carry its chunk's leftmost minimal entry's bits.
+The builds, the update and the value-only queries on zero-heavy input, and
+every RMQ kernel on NaN and subnormal input, are compared as integer views
+(``_same_bits``: ``torch.equal`` takes -0.0 for +0.0 and NaN for no value),
+so a summary must carry its chunk's leftmost minimal entry's bits, NaN
+being the least value.
 Attention (B8) is held to its plain version within 2e-5 in float32 (the
 same softmax summed in another order) and 2e-2 in bfloat16 (8-bit
 mantissa inputs and output), the reference's own kernel-test tolerances.
@@ -17,6 +19,8 @@ The SSD scan (B9) is held within 1e-4 of max|plain| (the reference's SSD
 test tolerance; float32 sums in other orders), its gradient and the
 train steps on the card as stated at each test.
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -131,11 +135,12 @@ def _bits(a: np.ndarray) -> np.ndarray:
 def test_queries_tie_edges_match_plain(card, n, c, t, cap, kind, dtype, m):
     """B2 (both planes and value-only) and both B4 launches on the edges
     of the leftmost-tie rule: -0.0 beside +0.0, +inf minima, equal minima
-    in several segments of a span, batches around the 32-query tile.
-    Positions bit for bit against the plain walk and brute force; values
-    bit for bit against the winning entry (brute force's leftmost argmin)
-    and equal to the plain walk's (whose sign of a zero minimum is
-    torch.amin's, which PyTorch leaves open)."""
+    in several segments of a span, NaNs (the least value: a span answers
+    its leftmost NaN) and subnormals, batches around the 32-query tile.
+    Positions bit for bit against the plain walk and brute force (whose
+    np.argmin takes the first NaN); values as integer views against the
+    plain walk's and the winning entry's (every route returns the winning
+    entry's own bits)."""
     rng = np.random.default_rng(n + m)
     xn = edge_input(kind, rng, n, c, dtype)
     ls_n, rs_n = edge_spans(rng, n, c, m)
@@ -156,10 +161,33 @@ def test_queries_tie_edges_match_plain(card, n, c, t, cap, kind, dtype, m):
     assert qfused_ops.LAUNCHES.launches - f0 == 2
     assert scan_ops.LAUNCHES.launches - s0 == 2
     for v in (fv, fv_only, sv):
-        assert v.dtype == want_v.dtype and torch.equal(v, want_v)
+        _same_bits(v, want_v)
         np.testing.assert_array_equal(_bits(v.cpu().numpy()), _bits(xn[bp]))
     for p in (fp, sp):
         _assert_same(want_p, p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,t,cap", CARD_GEOMETRIES)
+@pytest.mark.parametrize("kind", ["nan", "subnormals"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("with_pos", [False, True])
+def test_builds_nan_and_subnormals_match_plain(card, n, c, t, cap, kind,
+                                               dtype, with_pos):
+    """B1 and B3 on NaN and subnormal input: the plain build's bits
+    (integer views), value-only and with positions: a chunk holding a NaN
+    keeps its leftmost NaN's bits and position, subnormals stay."""
+    rng = np.random.default_rng(17 * n + c)
+    x = torch.from_numpy(edge_input(kind, rng, n, c, dtype)).to(card)
+    plan = make_plan(n, c=c, t=t, capacity=cap)
+    ref = build_hierarchy(x, plan, with_positions=with_pos)
+    for build in (fused_ops.build_hierarchy_fused,
+                  build_ops.build_hierarchy_percall):
+        got = build(x, plan, with_pos)
+        torch.cuda.synchronize()
+        _same_bits(got.upper, ref.upper)
+        if with_pos:
+            _same_bits(got.upper_pos, ref.upper_pos)
 
 
 @pytest.mark.gpu
@@ -453,6 +481,171 @@ def test_update_zero_heavy_matches_plain(card, n, c, t, cap, dtype,
         _same_bits(g.upper, w.upper)
         if with_pos:
             _same_bits(g.upper_pos, w.upper_pos)
+
+
+# B6's layouts: the run layout (c = 128 float32, c = 64 float64, whole
+# vectors), part by part with sub-warp chunks, several entries a lane and
+# a capacity that is not a whole number of vectors, a level with fewer
+# chunks than the batch, and single-level plans (no launch).
+UPDATE_GEOMETRIES = [
+    (70_000, 128, 4, 1 << 17),
+    (50_003, 64, 8, 1 << 16),
+    (9_000, 4, 4, 1 << 14),
+    (40_000, 1024, 4, None),
+    (20_001, 16, 4, 20_001),
+    (4096, 8, 2, None),
+    (700, 128, 64, None),
+]
+
+
+def _runs_batch(rng, cap, size, dtype, kind):
+    """Indices with duplicates, a run of one index over three 32-entry
+    slices, negatives and indices past capacity; values of ``kind``."""
+    idxs = rng.integers(-4, cap + 4, size)
+    idxs[: size // 4] = idxs[size // 4: 2 * (size // 4)]
+    idxs[-70:] = idxs[-71]
+    if kind == "zero_heavy":
+        vals = zero_heavy(rng, size, dtype, share=0.5)
+    elif kind == "tied":
+        vals = tied_input(rng, size, dtype) - 0.75
+    else:
+        vals = edge_input(kind, rng, size, 4, dtype) - 0.75
+    return idxs.astype(np.int64), vals.astype(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,t,cap", UPDATE_GEOMETRIES)
+@pytest.mark.parametrize("kind", ["tied", "nan", "subnormals",
+                                  "zero_heavy"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("with_pos", [False, True])
+@pytest.mark.parametrize("size", [1, 33, 5000])
+def test_update_sorted_runs_match_plain(card, n, c, t, cap, kind, dtype,
+                                        with_pos, size):
+    """B6 on the cases of the CPU rehearsal (tests/test_torch_update_runs
+    .py): an update and two appends, each equal to the plain update as
+    integer views, with L - 1 launches each."""
+    from repro_torch.kernels.hierarchy_update import ops as upd_ops
+    from repro_torch.streaming import updates as U
+
+    rng = np.random.default_rng(19 * n + size)
+    plan = make_plan(n, c=c, t=t, capacity=cap)
+    base = tied_input(rng, n, dtype) if kind == "tied" else (
+        zero_heavy(rng, n, dtype) if kind == "zero_heavy"
+        else edge_input(kind, rng, n, c, dtype))
+    h = build_hierarchy(torch.from_numpy(base).to(card), plan, with_pos)
+    idxs, vals = _runs_batch(rng, plan.capacity, max(size, 72), dtype, kind)
+    it = torch.from_numpy(idxs[:size]).to(card)
+    vt = torch.from_numpy(vals[:size]).to(card)
+    before = upd_ops.LAUNCHES.launches
+    got = [upd_ops.update_hierarchy_cuda(h, it, vt)]
+    want = [U.update_hierarchy(h, it, vt)]
+    room = plan.capacity - n
+    for count in (min(room, 300), min(room - min(room, 300), 5)):
+        if count <= 0:
+            continue
+        tail = torch.from_numpy(vals[:count]).to(card) - 1
+        start = plan.capacity - room
+        got.append(upd_ops.append_hierarchy_cuda(got[-1], tail, start))
+        want.append(U.append_hierarchy(want[-1], tail, start))
+        room -= count
+    torch.cuda.synchronize()
+    assert upd_ops.LAUNCHES.launches - before == len(got) * (
+        plan.num_levels - 1)
+    for g, w in zip(got, want):
+        _same_bits(g.base, w.base)
+        _same_bits(g.upper, w.upper)
+        if with_pos:
+            _same_bits(g.upper_pos, w.upper_pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["cuda", "fused"])
+def test_mutations_never_wait_for_the_card(card, backend):
+    """RMQ.update and StreamingRMQ.update / append / retire, with the batch
+    already on the card, run under torch.cuda.set_sync_debug_mode("error")
+    (any host sync raises), each with L - 1 launches, and equal the plain
+    path; they also return while a sleep kernel queued before them still
+    runs.  Control: the plain update of a batch smaller than level 1 (its
+    per-level torch.unique) on the card raises under the same mode and
+    returns only after the sleep."""
+    from repro_torch.kernels.hierarchy_update import ops as upd_ops
+    from repro_torch.streaming import StreamingRMQ
+    from repro_torch.streaming import updates as U
+
+    rng = np.random.default_rng(23)
+    n, cap, c, t = 70_000, 1 << 17, 128, 4
+    xn = tied_input(rng, n)
+    rmq = RMQ.build(xn, c=c, t=t, with_positions=True, backend=backend,
+                    capacity=cap)
+    s = StreamingRMQ.from_array(xn, c=c, t=t, capacity=cap,
+                                with_positions=True, backend=backend)
+    levels = rmq.plan.num_levels
+    assert levels >= 3
+    idxs = torch.from_numpy(rng.integers(-2, cap + 2, 4000)).to(card)
+    vals = torch.from_numpy(rng.random(4000).astype(np.float32)).to(card)
+    tail = torch.from_numpy(rng.random(999).astype(np.float32)).to(card)
+    rmq.update(idxs, vals)  # builds the library outside the mode
+    torch.cuda.synchronize()
+    before = upd_ops.LAUNCHES.launches
+    got = {}
+
+    def mutate():
+        got["r2"] = rmq.update(idxs, vals)
+        got["s2"] = s.update(idxs, vals).append(tail).retire(1000)
+
+    assert not _waits_for_the_card(mutate, strict=True)
+    torch.cuda.synchronize()
+    r2, s2 = got["r2"], got["s2"]
+    assert upd_ops.LAUNCHES.launches - before == 4 * (levels - 1)
+    want = U.update_hierarchy(rmq.hierarchy, idxs, vals)
+    for g, w in ((r2.hierarchy.upper, want.upper),
+                 (r2.hierarchy.upper_pos, want.upper_pos),
+                 (r2.hierarchy.base, want.base)):
+        _same_bits(g, w)
+    ws = U.update_hierarchy(s.hierarchy, idxs, vals)
+    ws = U.append_hierarchy(ws, tail, n)
+    ws = U.update_hierarchy(ws, torch.arange(1000, device=card),
+                            torch.full((1000,), float("inf"), device=card))
+    _same_bits(s2.hierarchy.upper, ws.upper)
+    _same_bits(s2.hierarchy.upper_pos, ws.upper_pos)
+    h = rmq.hierarchy
+    # fewer indices than level 1 has chunks: the plain update dedupes them
+    # with torch.unique (a larger batch re-reduces every chunk instead)
+    few, fv = idxs[:500], vals[:500]
+    assert few.numel() < rmq.plan.level_lens[1]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            U.update_hierarchy(h, few, fv)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _waits_for_the_card(lambda: U.update_hierarchy(h, few, fv),
+                               strict=False)
+
+
+def _waits_for_the_card(fn, strict: bool, cycles: int = 200_000_000):
+    """Whether ``fn()`` waited for a sleep kernel queued on the stream just
+    before it: it returned after the sleep's own time (measured alone), or
+    found the stream idle; ``fn`` runs under
+    ``set_sync_debug_mode("error")`` where ``strict``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    torch.cuda.synchronize()
+    sleep_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    if strict:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    busy = not torch.cuda.current_stream().query()
+    call_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return call_s >= 0.9 * sleep_s or not busy
 
 
 @pytest.mark.gpu

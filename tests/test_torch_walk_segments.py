@@ -27,8 +27,8 @@ import pytest
 import torch
 
 from _torch_cases import (
-    EDGE_KINDS,
     GEOMETRIES,
+    REFERENCE_EDGE_KINDS,
     brute_force,
     edge_input,
     edge_spans,
@@ -159,7 +159,7 @@ def test_tied_inputs_match_reference(n, c, t, cap):
     _check(x, n, c, t, cap, ls, rs)
 
 
-@pytest.mark.parametrize("kind", EDGE_KINDS)
+@pytest.mark.parametrize("kind", REFERENCE_EDGE_KINDS)
 @pytest.mark.parametrize("n,c,t,cap", GEOMETRIES)
 def test_tie_edges_match_reference(n, c, t, cap, kind):
     rng = np.random.default_rng(11 * n + c)
@@ -184,7 +184,7 @@ def _short_of(ls, rs, c):
     return ls, np.minimum(rs, (ls // c) * c + 2 * c - 1).astype(np.int32)
 
 
-@pytest.mark.parametrize("kind", EDGE_KINDS)
+@pytest.mark.parametrize("kind", REFERENCE_EDGE_KINDS)
 @pytest.mark.parametrize("n,c,t,cap", GEOMETRIES)
 def test_one_level_walk_matches_reference_short(n, c, t, cap, kind):
     """B5's geometry: level 0 alone, as the top.  Positions bit for bit
@@ -220,7 +220,7 @@ def test_one_level_walk_matches_reference_short(n, c, t, cap, kind):
         np.testing.assert_array_equal(got_v, np.asarray(v), err_msg=name)
 
 
-@pytest.mark.parametrize("kind", EDGE_KINDS)
+@pytest.mark.parametrize("kind", REFERENCE_EDGE_KINDS)
 @pytest.mark.parametrize("n,c,t,cap", GEOMETRIES)
 def test_sorted_bulk_batches_match_reference(n, c, t, cap, kind):
     """B7's batches: sorted by (chunk(l), chunk(r)) and padded with the

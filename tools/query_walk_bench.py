@@ -23,6 +23,8 @@ mean of 10 launches, taken in two turns:
 * ``rmq_scan value`` and ``rmq_scan index``: the two B4 launches;
 * ``bound``: the level-0 sectors of the batch's partial chunks plus its
   bounds and answers at 3.35 TB/s, as ``chip_smoke.py`` computes it;
+* ``plain walk``: the plain version of B2 (``rmq_walk_batch``, both
+  planes, also the eager backend's query path), the mean of 2 calls;
 * ``by class``: ``rmq_fused`` (both planes) on m/3 spans of each paper
   §5.1 size class alone (``make_queries`` "small", "medium", "large"),
   each beside its own bound: where the mixed batch's time goes.
@@ -154,6 +156,8 @@ def main() -> int:
     out = {k: sum(v) / len(v) for k, v in times.items()}
     out["rmq_scan pair"] = out["rmq_scan value"] + out["rmq_scan index"]
     out["bound"] = moved / HBM_BYTES_PER_S * 1e3
+    out["plain walk"] = time_ms(
+        torch, lambda: rmq_walk_batch(h, ls, rs, True), 2, warmup=0)
     out["turns"] = times
     print(f"[{args.label}] times (ms, CUDA events): {json.dumps(out)}")
     by_class = {}
