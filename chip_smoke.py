@@ -136,6 +136,31 @@ outside the repository.  Phases:
    CUDA-core figure, its three CUDA kernels' shares of a call
    (``torch.profiler``) with their ``-Xptxas -v`` registers and spills,
    its plain version, a ``torch.profiler`` top-12 of one step, peak
+   memory;
+13. the compact planes (H; run after phase 10, before 11), at geometry A's
+   data: ``RMQ.build`` with ``packed_pos=True``, ``summary_dtype=
+   "bfloat16"`` and both, through ``hierarchy_fused`` (1 launch) and
+   ``hierarchy_build`` (L - 1), each plane equal to the plain compact
+   build as integer views (packed words word for word, bf16 as int16),
+   the unpacked plane to the classic build's; the 2^24 spans on the
+   packed index through ``rmq_fused``, the ``rmq_scan`` pair, ``rmq_bulk``
+   and ``rmq_short`` (counted), on the bf16 indexes through the
+   exact-recovery walk on the card with no launch, all equal to the
+   classic index's answers bit for bit, and a control (the walk without
+   the level-0 re-compare) that must disagree; the engine over 2^20
+   spans on the packed index; ``RMQ.update`` of 2^16 indices and a
+   ``StreamingRMQ`` append / retire on packed + bf16 indexes (the plain
+   update, no launch) against rebuilds; ``RMQ.build_out_of_core`` at n =
+   2^31 + 4096 with packed positions from a host callable (slabs of 2^24
+   made from the seed, one ``hierarchy_fused`` launch a slab) against the
+   plain build of the same values on the card, queried through the eager
+   walk (2^20 spans sampled against torch.min / first argmin, and 64
+   spans that end past 2^31); the same call at A from a host numpy array
+   against ``RMQ.build``, queried through ``rmq_fused``.  Printed: the
+   builds' times (pack and cast included), ``memory_bytes`` /
+   ``auxiliary_bytes`` of every layout beside the plan's, the unpack's
+   time a call, the exact walk's time against B2 on the classic index,
+   the update's, and the out-of-core build's time, launches and peak
    memory.
 
 Each phase sets every launch counter to 0 just before it drives its
@@ -301,11 +326,14 @@ def max_abs_err(torch, pairs) -> float:
 
 
 def as_bits(torch, t):
-    """The integer view of a float tensor (its bits); others as they are."""
-    if t.dtype == torch.float32:
+    """The integer view of a float tensor (its bits; bf16 as int16) or of
+    packed uint32 words (int32); others as they are."""
+    if t.dtype in (torch.float32, torch.uint32):
         return t.view(torch.int32)
     if t.dtype == torch.float64:
         return t.view(torch.int64)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16)
     return t
 
 
@@ -1368,6 +1396,404 @@ def stream_phase(torch, name, x, plan, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the compact planes (H)
+# ---------------------------------------------------------------------------
+LAYOUTS = {
+    "packed": dict(packed_pos=True),
+    "bf16": dict(summary_dtype="bfloat16"),
+    "both": dict(packed_pos=True, summary_dtype="bfloat16"),
+}
+OOC_N = (1 << 31) + 4096   # past the int32 index space
+OOC_SEGMENT = 1 << 24      # elements a slab
+SLAB_BLOCK = 1 << 22       # the host generator's block: values by block id
+
+
+def planes_of(h):
+    return [h.base, h.upper, h.upper_pos]
+
+
+def bits_differ_count(torch, got, want) -> int:
+    """Entries whose bits differ (a shape or dtype mismatch: all)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return int(got.numel())
+    return int((as_bits(torch, got) != as_bits(torch, want)).sum())
+
+
+def compact_builds(torch, x, plan, classic_h):
+    """``RMQ.build`` of each layout through B1 and B3, counted; every
+    plane against the plain compact build as integer views; the unpacked
+    plane against the classic build's.  Returns the indexes and times."""
+    from repro_torch.core import RMQ, bitpack, build_hierarchy, make_plan
+
+    levels = plan.num_levels
+    out, times = {}, {}
+    for name, lay in LAYOUTS.items():
+        plan_l = make_plan(plan.n, c=plan.c, t=plan.t, **lay)
+        hp = build_hierarchy(x, plan_l, with_positions=True)
+        for backend, want in (("fused", dict(hierarchy_fused=1)),
+                              ("cuda", dict(hierarchy_build=levels - 1))):
+            count = zero_counts()
+            r = RMQ.build(x, with_positions=True, backend=backend,
+                          device="cuda", **lay)
+            launches = read(torch, count)
+            expect(f"H build {name} {backend}", launches, **want)
+            require(same_bits(torch, list(zip(planes_of(r.hierarchy),
+                                              planes_of(hp)))),
+                    f"H build {name} {backend}: a plane differs in bits "
+                    "from the plain compact build")
+            out[(name, backend)] = r
+            times[f"{name} {backend}"] = time_ms(
+                torch, lambda: RMQ.build(x, with_positions=True,
+                                         backend=backend, device="cuda",
+                                         **lay), 5)
+        times[f"{name} plain"] = time_ms(
+            torch, lambda: build_hierarchy(x, plan_l, True), 2, warmup=1)
+        h = out[(name, "fused")].hierarchy
+        if plan_l.packed_pos:
+            require(h.upper_pos.dtype == torch.uint32 and same_bits(torch, [
+                (bitpack.resolve_positions(h.upper_pos, plan_l),
+                 classic_h.upper_pos)]),
+                    f"H build {name}: the unpacked plane differs from the "
+                    "classic build's")
+        if plan_l.summary_dtype == "bfloat16":
+            require(same_bits(torch, [(h.upper, classic_h.upper.to(
+                torch.bfloat16))]),
+                    f"H build {name}: the bf16 plane is not the classic "
+                    "plane cast")
+    times["classic fused"] = time_ms(
+        torch, lambda: RMQ.build(x, with_positions=True, backend="fused",
+                                 device="cuda"), 5)
+    return out, times
+
+
+def compact_queries(torch, idx, classic, ls, rs, cv, cp):
+    """The 2^24 spans on the packed index through B2, the B4 pair, B7 and
+    B5 (counted), and on the bf16 indexes through the exact walk with no
+    launch, each equal to the classic index's answers bit for bit; the
+    control walk without the level-0 re-compare must disagree."""
+    from repro_torch.core import bitpack, rmq_walk_batch
+    from repro_torch.kernels.rmq_fused.ops import rmq_fused_batch
+    from repro_torch.kernels.rmq_short import ops as short_ops
+
+    c = classic.plan.c
+    kf, kc = idx[("packed", "fused")], idx[("packed", "cuda")]
+    order = bulk_order(torch, ls, rs, c, classic.capacity)
+    bl, br = ls[order].contiguous(), rs[order].contiguous()
+    sl, sr = short_of(torch, ls, rs, c)
+    count = zero_counts()
+    got = [(kf.query(ls, rs), cv), (kf.query_index(ls, rs), cp),
+           (kc.query(ls, rs), cv), (kc.query_index(ls, rs), cp)]
+    bv, bp = bulk_pass(kf.hierarchy, bl, br, True)
+    sv, sp = short_ops.rmq_short_batch(kf.hierarchy, sl, sr, True)
+    launches = read(torch, count)
+    expect("H packed queries", launches, rmq_fused=2, rmq_scan=2,
+           rmq_bulk=-(-ls.numel() // (1 << 20)), rmq_short=1)
+    wsv, wsp = short_ops.rmq_short_batch(classic.hierarchy, sl, sr, True)
+    got += [(bv, cv[order]), (bp, cp[order]), (sv, wsv), (sp, wsp)]
+    require(same_bits(torch, got),
+            "H packed queries differ from the classic index's")
+    out = {"packed launches": launches}
+
+    for name in ("bf16", "both"):
+        rf, rc = idx[(name, "fused")], idx[(name, "cuda")]
+        count = zero_counts()
+        pairs = [(rf.query(ls, rs), cv), (rf.query_index(ls, rs), cp),
+                 (rc.query_index(ls, rs), cp)]
+        launches = read(torch, count)
+        expect(f"H {name} queries", launches)
+        require(same_bits(torch, pairs),
+                f"H {name}: the exact walk differs from the classic index")
+    h = idx[("bf16", "fused")].hierarchy
+    lossy = type(h)(base=h.base, upper=h.upper.float(),
+                    upper_pos=h.upper_pos, plan=h.plan)
+    differ = bits_differ_count(
+        torch, rmq_walk_batch(lossy, ls, rs, False)[0], cv)
+    require(differ > 0, "H control: the walk without the level-0 "
+            "re-compare agrees with the classic index")
+    out["control differing answers"] = differ
+
+    hk = kf.hierarchy
+    out["unpack ms"] = time_ms(
+        torch, lambda: bitpack.unpack_to_absolute(hk.upper_pos, hk.plan), 10)
+    t = time_turns(torch, {
+        "B2 classic": lambda: rmq_fused_batch(classic.hierarchy, ls, rs,
+                                              True),
+        "B2 packed (unpack included)": lambda: rmq_fused_batch(hk, ls, rs,
+                                                               True)}, 5)
+    out.update({k: mean(v) for k, v in t.items()})
+    out["exact walk ms (value + index, bf16)"] = time_ms(
+        torch, lambda: rmq_walk_batch(h, ls, rs, True), 1, warmup=1)
+    out["plain walk ms (value + index, classic)"] = time_ms(
+        torch, lambda: rmq_walk_batch(classic.hierarchy, ls, rs, True), 1,
+        warmup=1)
+    return out
+
+
+def compact_mutation(torch, x, plan, seed):
+    """``RMQ.update`` of 2^16 indices and a ``StreamingRMQ`` append /
+    retire on packed + bf16 indexes (the plain update on the card, no B6
+    launch), each against a rebuild; returns the update's time."""
+    import numpy as np
+
+    from repro_torch.core import RMQ, build_hierarchy, make_plan
+    from repro_torch.streaming import StreamingRMQ
+    from repro_torch.streaming import updates as U
+    from repro_torch.tune.measure import make_queries
+
+    both = LAYOUTS["both"]
+    n = plan.n
+    r = RMQ.build(x, with_positions=True, backend="cuda", device="cuda",
+                  **both)
+    rng = np.random.default_rng(seed + 13)
+    idxs = torch.from_numpy(rng.integers(0, n, 1 << 16)).cuda()
+    idxs[:4096] = idxs[4096:8192].clone()  # duplicates: the last wins
+    vals = torch.from_numpy(
+        (rng.random(1 << 16) - 0.5).astype(np.float32)).cuda()
+    count = zero_counts()
+    r2 = r.update(idxs, vals)
+    launches = read(torch, count)
+    expect("H update", launches)
+    x2 = U.scatter_base(x, idxs, vals)
+    fresh = build_hierarchy(x2, r.plan, True)
+    require(same_bits(torch, list(zip(planes_of(r2.hierarchy),
+                                      planes_of(fresh)))),
+            "H update: the compact successor differs from a rebuild")
+    ms = time_ms(torch, lambda: r.update(idxs, vals), 3)
+    rc = RMQ.build(x, with_positions=True, backend="cuda", device="cuda")
+    ms_classic = time_ms(torch, lambda: rc.update(idxs, vals), 3)
+    del r2, x2, fresh, rc
+
+    live0 = n - 4096
+    s = StreamingRMQ.from_array(x[:live0], with_positions=True,
+                                backend="cuda", capacity=n, device="cuda",
+                                **both)
+    tail = torch.from_numpy(rng.random(777).astype(np.float32) - 0.5).cuda()
+    count = zero_counts()
+    s3 = s.append(tail).retire(1024)
+    launches_s = read(torch, count)
+    expect("H append/retire", launches_s)
+    want = torch.cat([x[:live0], tail])
+    want[:1024] = float("inf")
+    fresh = build_hierarchy(want, make_plan(live0 + 777, c=plan.c, t=plan.t,
+                                            capacity=n, **both), True)
+    require(same_bits(torch, list(zip(planes_of(s3.hierarchy),
+                                      planes_of(fresh)))),
+            "H append/retire: the compact successor differs from a rebuild")
+    ql, qr = (torch.from_numpy(a.astype(np.int64) + 1024).cuda()
+              for a in make_queries(live0 + 777 - 1024, 1 << 16, "mixed",
+                                    seed=seed + 14))
+    brute_force_check(torch, want, ql, qr, s3.query(ql, qr),
+                      s3.query_index(ql, qr), 256, seed, live0 + 777)
+    print(f"H mutation (packed + bf16): RMQ.update of 2^16 indices "
+          f"{ms} ms on the plain update (classic on B6 {ms_classic} ms), "
+          f"launches {launches}; append 777 / retire 1024 launches "
+          f"{launches_s}; both equal a rebuild as integer views, brute "
+          "force 256/256 ok")
+    return ms, ms_classic
+
+
+def compact_engine(torch, idx, seed):
+    """``engine().query`` over 2^20 mixed spans on the packed index,
+    against the facade."""
+    from repro_torch.tune.measure import make_queries
+
+    from repro_torch.core import RMQ
+
+    r = idx[("packed", "cuda")]
+    ql, qr = (torch.from_numpy(a).cuda()
+              for a in make_queries(r.n, 1 << 20, "mixed", seed=seed + 15))
+    e = r.engine(cache_size=0)
+    count = zero_counts()
+    (v, p), secs = wall(torch, lambda: (e.query(ql, qr),
+                                        e.query_index(ql, qr)))
+    launches = read(torch, count)
+    require(same_bits(torch, [(v, r.query(ql, qr)),
+                              (p, r.query_index(ql, qr))]),
+            "H engine on the packed index differs from the facade")
+    require(launches["rmq_scan"] > 0 and launches["rmq_short"] > 0,
+            f"H engine: no kernel launched ({launches})")
+    # the same engine over the classic index, in turns on the host clock
+    rc = RMQ.build(r.hierarchy.base, with_positions=True, backend="cuda",
+                   device="cuda")
+    ec = rc.engine(cache_size=0)
+    turns = {"classic": [], "packed": []}
+    for name, eng in (("classic", ec), ("packed", e), ("packed", e),
+                      ("classic", ec)):
+        turns[name].append(wall(torch, lambda: (
+            eng.query(ql, qr), eng.query_index(ql, qr)))[1])
+    print(f"H engine (packed, 2^20 spans, value + index): {secs} s, "
+          f"launches {launches}, equal to the facade; in turns (s, host "
+          f"clock): {json.dumps(turns)}")
+    return turns
+
+
+def slab_source(seed: int):
+    """A host callable ``slab(start, stop)``: float32 values in [0, 1)
+    made block by block from the seed, so any slab is the same values
+    whatever the slab size."""
+    import numpy as np
+
+    def block(b):
+        return np.random.default_rng([seed, b]).random(SLAB_BLOCK,
+                                                       np.float32)
+
+    def slab(start, stop):
+        out = np.empty(stop - start, np.float32)
+        for b in range(start // SLAB_BLOCK, (stop - 1) // SLAB_BLOCK + 1):
+            lo = max(start, b * SLAB_BLOCK)
+            hi = min(stop, (b + 1) * SLAB_BLOCK)
+            out[lo - start:hi - start] = block(b)[lo - b * SLAB_BLOCK:
+                                                  hi - b * SLAB_BLOCK]
+        return out
+
+    return slab
+
+
+def out_of_core_phase(torch, seed, x, plan, ls, rs, cp):
+    """``RMQ.build_out_of_core`` at n = 2^31 + 4096 (packed positions)
+    from a host callable, against the plain build of the same values on
+    the card; queries through the eager walk; then the same call at
+    geometry A from a host numpy array, queried through B2."""
+    import numpy as np
+
+    from repro_torch.core import RMQ, build_hierarchy
+
+    n = OOC_N
+    slab = slab_source(seed + 21)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    count = zero_counts()
+    r, secs = wall(torch, lambda: RMQ.build_out_of_core(
+        slab, n, with_positions=True, packed_pos=True,
+        segment_size=OOC_SEGMENT, device="cuda"))
+    launches = read(torch, count)
+    peak = torch.cuda.max_memory_allocated() - before
+    slabs = -(-n // OOC_SEGMENT)
+    expect("H out of core", launches, hierarchy_fused=slabs)
+    h = r.hierarchy
+    require(r.backend == "eager" and h.upper_pos.dtype == torch.uint32,
+            "H out of core: backend or plane")
+    xb = torch.empty(n, dtype=torch.float32, device="cuda")
+
+    def fill():  # the same slabs, made and copied without the build
+        for s0 in range(0, n, OOC_SEGMENT):
+            stop = min(s0 + OOC_SEGMENT, n)
+            xb[s0:stop] = torch.from_numpy(slab(s0, stop)).cuda()
+
+    fill_s = wall(torch, fill)[1]
+    hp = build_hierarchy(xb, r.plan, with_positions=True)
+    require(same_bits(torch, list(zip(planes_of(h), planes_of(hp)))),
+            "H out of core: the hierarchy differs from the plain build")
+    del hp
+    g = torch.Generator(device="cuda").manual_seed(seed + 22)
+    m = 1 << 20
+    ql = torch.randint(0, n, (m,), device="cuda", generator=g)
+    qr = torch.minimum(ql + torch.randint(0, n, (m,), device="cuda",
+                                          generator=g), torch.tensor(n - 1))
+    ql, qr = torch.minimum(ql, qr), torch.maximum(ql, qr)
+    # spans that end past 2^31
+    tl = (1 << 31) - torch.randint(1, 1 << 20, (64,), device="cuda",
+                                   generator=g)
+    tr = (1 << 31) + torch.randint(0, 4096, (64,), device="cuda",
+                                   generator=g)
+    ql, qr = torch.cat([ql, tl]), torch.cat([qr, tr])
+    (qv, qp), q_secs = wall(torch, lambda: (r.query(ql, qr),
+                                            r.query_index(ql, qr)))
+    require(qp.dtype == torch.int64 and bool(((qp >= ql) & (qp <= qr)).all()),
+            "H out of core: a position lies outside its span")
+    brute_force_check(torch, xb, ql[:m], qr[:m], qv[:m], qp[:m], 256, seed,
+                      n)
+    brute_force_check(torch, xb, ql[m:], qr[m:], qv[m:], qp[m:], 64, seed,
+                      n)
+    mem = {"memory_bytes": r.memory_bytes(),
+           "auxiliary_bytes": r.auxiliary_bytes(),
+           "planned": r.plan.auxiliary_bytes_planned(True)}
+    del r, h, xb, qv, qp
+    torch.cuda.empty_cache()
+    print(f"H out of core: n = 2^31 + 4096 float32 from a host callable, "
+          f"packed positions, {slabs} slabs of 2^24: {secs} s on the host "
+          f"clock (slab generation included; making and copying the same "
+          f"slabs alone {fill_s} s), launches {launches}, peak "
+          f"device memory {peak} bytes; equal to the plain build as "
+          f"integer views; {m} + 64 spans (64 end past 2^31) through the "
+          f"eager walk in {q_secs} s, brute force 256/256 and 64/64 ok; "
+          f"{json.dumps(mem)}")
+
+    host = x.cpu().numpy()
+    count = zero_counts()
+    ra, secs_a = wall(torch, lambda: RMQ.build_out_of_core(
+        host, plan.n, with_positions=True, packed_pos=True,
+        segment_size=OOC_SEGMENT, backend="fused", device="cuda"))
+    launches_a = read(torch, count)
+    expect("H out of core at A", launches_a,
+           hierarchy_fused=-(-plan.n // OOC_SEGMENT))
+    rb = RMQ.build(x, with_positions=True, packed_pos=True, backend="fused",
+                   device="cuda")
+    require(same_bits(torch, list(zip(planes_of(ra.hierarchy),
+                                      planes_of(rb.hierarchy)))),
+            "H out of core at A: the hierarchy differs from RMQ.build's")
+    count = zero_counts()
+    pa = ra.query_index(ls, rs)
+    launches_q = read(torch, count)
+    expect("H out of core at A, queries", launches_q, rmq_fused=1)
+    require(same_bits(torch, [(pa, cp)]),
+            "H out of core at A: B2's answers differ from the classic")
+    print(f"H out of core at A: from a host numpy array in {secs_a} s, "
+          f"launches {launches_a}; equal to RMQ.build's hierarchy; 2^24 "
+          f"spans through B2 (launches {launches_q}) equal the classic "
+          "index's")
+    return {"ooc_s": secs, "ooc_fill_s": fill_s, "ooc_peak_bytes": peak,
+            "ooc_query_s": q_secs,
+            "ooc_a_s": secs_a, **{f"ooc {k}": v for k, v in mem.items()}}
+
+
+def compact_phase(torch, seed):
+    """Phase 13: the compact planes at geometry A and out of core."""
+    from repro_torch.core import RMQ, make_plan
+
+    n, m, c, t = 1 << 30, 1 << 24, 128, 64
+    x, ls, rs, setup = geometry(torch, n, m, seed)
+    plan = make_plan(n, c=c, t=t)
+    print(f"H: n=2^30 float32, m=2^24 mixed (geometry A's data, made in "
+          f"{setup:.3f} s)")
+    classic = RMQ.build(x, with_positions=True, backend="fused",
+                        device="cuda")
+    from repro_torch.kernels.rmq_fused.ops import rmq_fused_batch
+
+    cv, cp = rmq_fused_batch(classic.hierarchy, ls, rs, True)
+    idx, build_ms = compact_builds(torch, x, plan, classic.hierarchy)
+    mem = {"classic": (classic.memory_bytes(), classic.auxiliary_bytes(),
+                       plan.auxiliary_bytes_planned(True))}
+    for name, lay in LAYOUTS.items():
+        r = idx[(name, "fused")]
+        mem[name] = (r.memory_bytes(), r.auxiliary_bytes(),
+                     r.plan.auxiliary_bytes_planned(True))
+        require(mem[name][1] == mem[name][2],
+                f"H {name}: auxiliary bytes differ from the plan's")
+    big = {}
+    for name, lay in [("classic", {})] + list(LAYOUTS.items()):
+        p = make_plan(OOC_N, c=c, t=t, **lay)
+        big[name] = p.auxiliary_bytes_planned(True)
+    print(f"H builds (ms, CUDA events, pack / cast included): "
+          f"{json.dumps(build_ms)}")
+    print(f"H memory at n = 2^30 [memory_bytes, auxiliary_bytes, "
+          f"plan.auxiliary_bytes_planned]: {json.dumps(mem)}; planned "
+          f"auxiliary bytes at n = 2^31 + 4096: {json.dumps(big)}")
+    q = compact_queries(torch, idx, classic, ls, rs, cv, cp)
+    print(f"H queries (2^24 mixed spans; ms): {json.dumps(q)}")
+    eng = compact_engine(torch, idx, seed)
+    up_ms, up_classic = compact_mutation(torch, x, plan, seed)
+    del idx
+    torch.cuda.empty_cache()
+    ooc = out_of_core_phase(torch, seed, x, plan, ls, rs, cp)
+    return {"build_ms": build_ms, "memory": mem, "queries": q,
+            "engine_s": eng, "update_ms": up_ms,
+            "update_classic_ms": up_classic, **ooc}
+
+
+# ---------------------------------------------------------------------------
 # phase 11: serving llama3.2-3b (F)
 # ---------------------------------------------------------------------------
 F_BATCH, F_PROMPT, F_NEW = 4, 2048, 64
@@ -2342,6 +2768,14 @@ def run(torch, seed: int):
                 errors[key] = max(errors[key], e)
         del x, ls, rs
         torch.cuda.empty_cache()
+
+    # -- phase 13: the compact planes ---------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    compact = compact_phase(torch, seed)
+    print(f"H summary: {json.dumps(compact)}")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- phase 11: serving llama3.2-3b -------------------------------------
     gc.collect()  # the earlier phases' engines hold their indexes in cycles

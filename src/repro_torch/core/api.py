@@ -9,10 +9,17 @@ per level and per output plane), ``"eager"`` (plain PyTorch), or
 ``"auto"`` (``"cuda"`` on a card, ``"eager"`` on the CPU).  Every
 backend gives bit-identical hierarchies and answers.
 
+``packed_pos=True`` stores bit-packed chunk-local positions and
+``summary_dtype="bfloat16"`` bf16 upper values with exact recovery from
+level 0 (:mod:`repro_torch.core.bitpack`, :mod:`repro_torch.core.query`).
+``RMQ.build_out_of_core`` builds from slabs (a callable, a numpy array or
+memmap, a tensor), so the input never has to exist as one array off
+the card, and serves capacities past 2^31 through the ``eager`` walk.
+
 ``update`` / ``append`` return a successor index with ``generation + 1``
 (the predecessor keeps its own buffers and answers as before);
 ``engine()`` puts the span-routed :class:`repro_torch.qe.QueryEngine`
-on top.  Not ported yet: ``build_out_of_core`` (ROADMAP A3).
+on top.
 """
 
 from __future__ import annotations
@@ -61,9 +68,14 @@ class RMQ:
         backend: str = "auto",
         plan: Optional[HierarchyPlan] = None,
         capacity: Optional[int] = None,
+        packed_pos: Optional[bool] = None,
+        summary_dtype: Optional[str] = None,
         device=None,
     ) -> "RMQ":
-        """Build over ``x``; ``capacity > len(x)`` reserves an +inf tail."""
+        """Build over ``x``; ``capacity > len(x)`` reserves an +inf tail.
+        ``packed_pos`` / ``summary_dtype`` pick the compact planes
+        (``None``: the classic layout); an explicit ``plan`` carries its
+        own."""
         dev = resolve_device(device)
         x = px.coerce_values(x, dev)
         if plan is not None and capacity is not None:
@@ -71,11 +83,51 @@ class RMQ:
                 "pass capacity via make_plan(..., capacity=...) when "
                 "supplying an explicit plan")
         if plan is None:
-            plan = make_plan(int(x.shape[0]), c=c, t=t, capacity=capacity)
+            plan = make_plan(int(x.shape[0]), c=c, t=t, capacity=capacity,
+                             packed_pos=packed_pos,
+                             summary_dtype=summary_dtype)
         backend = px.resolve_backend(backend, dev)
         h = px.build_hierarchy_with_backend(
             x, plan, with_positions=with_positions, backend=backend)
         return RMQ(hierarchy=h, backend=backend, length=plan.n)
+
+    @staticmethod
+    def build_out_of_core(
+        source,
+        n: int,
+        c: int = 128,
+        t: int = 64,
+        with_positions: bool = False,
+        capacity: Optional[int] = None,
+        segment_size: Optional[int] = None,
+        packed_pos: Optional[bool] = None,
+        summary_dtype: Optional[str] = None,
+        backend: str = "eager",
+        device=None,
+    ) -> "RMQ":
+        """Build by streaming slabs of ``segment_size`` through the fused
+        build (one B1 launch a slab on a card).
+
+        ``source`` is a callable ``source(start, stop) -> values``, or a
+        sliceable array (numpy array or memmap, tensor), of logical
+        length ``n``.  Position builds past 2^31 get an int64 plane.
+        Bit-identical to :meth:`build`.  ``backend`` picks the query
+        lowering of the index: ``"eager"`` by default, the one walk whose
+        coordinates are exact past 2^31 (the kernels refuse such
+        extents).
+        """
+        dev = resolve_device(device)
+        plan = make_plan(n, c=c, t=t, capacity=capacity,
+                         packed_pos=packed_pos, summary_dtype=summary_dtype)
+        from repro_torch.kernels.hierarchy_fused.ops import (
+            build_hierarchy_streamed,
+        )
+
+        h = build_hierarchy_streamed(source, plan,
+                                     with_positions=with_positions,
+                                     segment_size=segment_size, device=dev)
+        return RMQ(hierarchy=h, backend=px.resolve_backend(backend, dev),
+                   length=n)
 
     # -- incremental maintenance ------------------------------------------
     def update(self, idxs, vals) -> "RMQ":

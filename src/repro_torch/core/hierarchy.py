@@ -13,13 +13,22 @@ entry:
   the position in the original array of its minimum, leftmost on ties,
   with ``PAD_POS`` in the padding.
 
+Compact layouts (``plan.packed_pos`` / ``plan.summary_dtype``): a packed
+plan stores ``upper_pos`` as uint32 words of chunk-local offsets
+(:mod:`repro_torch.core.bitpack`), and a ``"bfloat16"`` plan stores
+``upper`` as bfloat16 (float32 input, positions required: queries
+re-read quantized ties from level 0 through the positions).
+
 :func:`build_hierarchy` is the plain PyTorch construction: one
-``(m, c)`` argmin per level straight into the preallocated buffer.  The
-CUDA builds (``kernels/hierarchy_fused``: one launch;
-``kernels/hierarchy_build``: one launch per level) are held bit-identical
-to it.  When ``capacity == n`` the hierarchy's ``base`` is the input
-tensor itself, not a copy (4 GiB saved at n = 2^30): writing to the
-input afterwards changes the index.
+``(m, c)`` argmin per level straight into the preallocated buffer; a
+packed build keeps each level's argmin as the local offset and packs at
+the end, a bf16 build casts ``upper`` at the end.  The CUDA builds
+(``kernels/hierarchy_fused``: one launch; ``kernels/hierarchy_build``:
+one launch per level) build the classic planes and go through
+:func:`finalize_compact`; all are held bit-identical to it.  When
+``capacity == n`` the hierarchy's ``base`` is the input tensor itself,
+not a copy (4 GiB saved at n = 2^30): writing to the input afterwards
+changes the index.
 """
 
 from __future__ import annotations
@@ -38,9 +47,13 @@ __all__ = [
     "build_upper_planes",
     "check_build_input",
     "check_compact_build",
+    "chunk_min",
+    "finalize_compact",
     "pad_to",
     "pos_dtype_for",
+    "quantized_planes",
     "reduce_level",
+    "reduce_upper_levels",
 ]
 
 
@@ -50,6 +63,14 @@ def pos_dtype_for(n: int) -> torch.dtype:
     this never refuses; the CUDA kernels refuse capacities past the
     int32 index space on their own (``protocol.check_capacity_limit``)."""
     return torch.int32 if n < 2**31 else torch.int64
+
+
+def quantized_planes(upper: torch.Tensor, base: torch.Tensor) -> bool:
+    """Do these planes store bf16 summaries (``upper`` narrower than
+    ``base``)?  Such summaries can tie where the values differ, so every
+    walk and update over them re-reads level 0 (the exact re-compare),
+    and no query kernel compares them (:attr:`Hierarchy.quantized`)."""
+    return upper.dtype != base.dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +89,11 @@ class Hierarchy:
     @property
     def device(self) -> torch.device:
         return self.base.device
+
+    @property
+    def quantized(self) -> bool:
+        """bf16 summaries: :func:`quantized_planes`."""
+        return quantized_planes(self.upper, self.base)
 
     def memory_bytes(self) -> int:
         """Total bytes of the structure (input + auxiliary)."""
@@ -90,12 +116,48 @@ def pad_to(x: torch.Tensor, length: int, fill) -> torch.Tensor:
     return torch.cat([x, x.new_full((pad,), fill)])
 
 
-def check_compact_build(plan: HierarchyPlan) -> None:
-    """Refuse the compact layouts, which are not ported yet (ROADMAP A3)."""
-    if plan.packed_pos or plan.summary_dtype != "float32":
-        raise NotImplementedError(
-            "compact planes (packed_pos=True / summary_dtype='bfloat16') "
-            "are not ported yet (ROADMAP A3); build the classic layout")
+def check_compact_build(plan: HierarchyPlan, with_positions: bool,
+                        dtype: torch.dtype) -> None:
+    """Refuse compact-layout builds that cannot answer exactly: bf16
+    summaries need positions (the exact re-compare reads level 0 through
+    them) and float32 input."""
+    if plan.summary_dtype == "bfloat16":
+        if not with_positions:
+            raise ValueError(
+                "summary_dtype='bfloat16' requires with_positions=True: "
+                "exact queries re-compare bf16-tied candidates on level 0 "
+                "through the stored positions")
+        if dtype != torch.float32:
+            raise ValueError(
+                "summary_dtype='bfloat16' supports float32 inputs only, "
+                f"got {str(dtype).replace('torch.', '')}")
+
+
+def finalize_compact(h: Hierarchy) -> Hierarchy:
+    """The plan's compact layouts applied to a freshly built hierarchy:
+    an absolute position plane packed into words where
+    ``plan.packed_pos`` (a no-op on uint32 words), ``upper`` cast to
+    bfloat16 where ``plan.summary_dtype == "bfloat16"``.  The CUDA
+    builds build the classic planes and go through here."""
+    plan = h.plan
+    if (plan.packed_pos and h.upper_pos is not None
+            and h.upper_pos.dtype != torch.uint32):
+        from repro_torch.core import bitpack
+
+        h = dataclasses.replace(
+            h, upper_pos=bitpack.pack_plane_from_absolute(h.upper_pos, plan))
+    if plan.summary_dtype == "bfloat16" and h.upper.dtype != torch.bfloat16:
+        h = dataclasses.replace(h, upper=h.upper.to(torch.bfloat16))
+    return h
+
+
+def chunk_min(values: torch.Tensor, c: int, out_len: int):
+    """``(minima, argmin)`` of ``out_len`` chunks of ``values`` (+inf past
+    its end): the leftmost least entry's bits and its in-chunk offset,
+    NaN least (``torch.argmin``'s rule)."""
+    v = pad_to(values, out_len * c, float("inf")).view(out_len, c)
+    idx = torch.argmin(v, dim=1)  # first occurrence: the leftmost tie
+    return v.gather(1, idx[:, None])[:, 0], idx
 
 
 def reduce_level(
@@ -112,13 +174,11 @@ def reduce_level(
     +inf / ``PAD_POS``.  ``positions=None`` means level 0, whose
     positions are the indices themselves (``PAD_POS`` past its end).
     """
-    v = pad_to(values, out_len * c, float("inf")).view(out_len, c)
-    idx = torch.argmin(v, dim=1)  # first occurrence: the leftmost tie
-    nxt_v = v.gather(1, idx[:, None])[:, 0]
+    nxt_v, idx = chunk_min(values, c, out_len)
     if not track:
         return nxt_v, None
     if positions is None:
-        p = idx + torch.arange(out_len, device=v.device) * c
+        p = idx + torch.arange(out_len, device=idx.device) * c
         nxt_p = torch.where(p < values.shape[0], p, PAD_POS).to(pos_dtype)
     else:
         p = pad_to(positions, out_len * c, PAD_POS).view(out_len, c)
@@ -135,39 +195,73 @@ def build_upper_planes(
     level's padding, since only live entries are written.
     """
     upper = base.new_full((plan.upper_size,), float("inf"))
-    pos_dtype = pos_dtype_for(plan.capacity)
     upper_pos = (
-        torch.full((plan.upper_size,), PAD_POS, dtype=pos_dtype,
-                   device=base.device)
+        torch.full((plan.upper_size,), PAD_POS,
+                   dtype=pos_dtype_for(plan.capacity), device=base.device)
         if with_positions else None
     )
-    cur_v, cur_p = base, None
-    for k in range(1, plan.num_levels):
-        nxt_v, nxt_p = reduce_level(cur_v, cur_p, plan.c, plan.level_lens[k],
-                                    with_positions, pos_dtype)
-        off = plan.offsets[k - 1]
-        upper[off:off + plan.level_lens[k]] = nxt_v
-        if with_positions:
-            upper_pos[off:off + plan.level_lens[k]] = nxt_p
-        cur_v, cur_p = nxt_v, nxt_p
+    reduce_upper_levels(plan, upper, upper_pos, 1, base, None)
     return upper, upper_pos
 
 
-def check_build_input(x: torch.Tensor, plan: HierarchyPlan) -> None:
+def reduce_upper_levels(plan: HierarchyPlan, upper: torch.Tensor,
+                        upper_pos: Optional[torch.Tensor], first: int,
+                        cur_v: torch.Tensor,
+                        cur_p: Optional[torch.Tensor]) -> None:
+    """Levels ``first`` .. L-1 into their slots of ``upper`` /
+    ``upper_pos`` (positions where it is not ``None``), reduced from the
+    live entries ``cur_v`` / ``cur_p`` of level ``first - 1``
+    (``cur_p=None`` for level 0)."""
+    track = upper_pos is not None
+    for k in range(first, plan.num_levels):
+        cur_v, cur_p = reduce_level(
+            cur_v, cur_p, plan.c, plan.level_lens[k], track,
+            upper_pos.dtype if track else torch.int32)
+        off = plan.offsets[k - 1]
+        upper[off:off + plan.level_lens[k]] = cur_v
+        if track:
+            upper_pos[off:off + plan.level_lens[k]] = cur_p
+
+
+def check_build_input(x: torch.Tensor, plan: HierarchyPlan,
+                      with_positions: bool) -> None:
     if x.ndim != 1:
         raise ValueError(f"input must be rank-1, got shape {tuple(x.shape)}")
     if x.shape[0] != plan.n:
         raise ValueError(f"plan is for n={plan.n}, input has n={x.shape[0]}")
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"values must be float32 or float64, got {x.dtype}")
-    check_compact_build(plan)
+    check_compact_build(plan, with_positions, x.dtype)
+
+
+def _packed_upper_planes(base: torch.Tensor, plan: HierarchyPlan):
+    """``(upper, packed words)``: each level's argmin is its chunk-local
+    offset, packed once at the end; no absolute chain is built."""
+    from repro_torch.core import bitpack
+
+    upper = base.new_full((plan.upper_size,), float("inf"))
+    local = torch.zeros(plan.upper_size, dtype=torch.int32,
+                        device=base.device)
+    cur = base
+    for k in range(1, plan.num_levels):
+        off, n_k = plan.offsets[k - 1], plan.level_lens[k]
+        cur, idx = chunk_min(cur, plan.c, n_k)
+        upper[off:off + n_k] = cur
+        local[off:off + n_k] = idx.to(torch.int32)
+    return upper, bitpack.pack_offsets(local, bitpack.pos_bits(plan.c))
 
 
 def build_hierarchy(
     x: torch.Tensor, plan: HierarchyPlan, with_positions: bool = False
 ) -> Hierarchy:
-    """Plain construction on ``x``'s device (the kernels' oracle)."""
-    check_build_input(x, plan)
+    """Plain construction on ``x``'s device (the kernels' oracle), in the
+    plan's layout."""
+    check_build_input(x, plan, with_positions)
     base = pad_to(x, plan.capacity, float("inf"))
-    upper, upper_pos = build_upper_planes(base, plan, with_positions)
+    if with_positions and plan.packed_pos:
+        upper, upper_pos = _packed_upper_planes(base, plan)
+    else:
+        upper, upper_pos = build_upper_planes(base, plan, with_positions)
+    if plan.summary_dtype == "bfloat16":
+        upper = upper.to(torch.bfloat16)
     return Hierarchy(base=base, upper=upper, upper_pos=upper_pos, plan=plan)

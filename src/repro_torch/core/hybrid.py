@@ -9,15 +9,21 @@ position-tracking hierarchy, the table tracks leftmost positions too, so
 long-span route.
 
 :meth:`HybridRMQ.from_hierarchy` wraps an existing hierarchy without
-rebuilding it (one table build over at most ``c·t`` entries).
+rebuilding it (one table build over at most ``c·t`` entries).  A packed
+position plane gives the top's positions through its offset chains
+(:func:`repro_torch.core.bitpack.gather_absolute`) and is unpacked for
+the walk once a batch; bf16 summaries are refused, since the table would
+compare quantized values.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
+from repro_torch.core import bitpack
 from repro_torch.core import protocol as px
 from repro_torch.core.api import resolve_device
 from repro_torch.core.baselines import SparseTable
@@ -42,14 +48,19 @@ class HybridRMQ:
         t: int = 1024,
         with_positions: bool = False,
         backend: str = "auto",
+        packed_pos: Optional[bool] = None,
+        summary_dtype: Optional[str] = None,
         device=None,
     ) -> "HybridRMQ":
         """The default ``t`` is 16x the scan version's: an O(1) top makes a
         large top free at query time (paper §4.5), one level fewer.
-        ``backend`` picks the construction path; the walk is plain."""
+        ``backend`` picks the construction path; the walk is plain.
+        ``packed_pos`` packs the position plane; ``summary_dtype=
+        "bfloat16"`` is refused (``ValueError``)."""
         dev = resolve_device(device)
         x = px.coerce_values(x, dev)
-        plan = make_plan(int(x.shape[0]), c=c, t=t)
+        plan = make_plan(int(x.shape[0]), c=c, t=t, packed_pos=packed_pos,
+                         summary_dtype=summary_dtype)
         h = px.build_hierarchy_with_backend(
             x, plan, with_positions=with_positions,
             backend=px.resolve_backend(backend, dev))
@@ -60,6 +71,11 @@ class HybridRMQ:
         """Add a sparse-table top to an existing hierarchy (no rebuild);
         positions follow the hierarchy's."""
         plan = h.plan
+        if h.quantized:
+            raise ValueError(
+                "HybridRMQ does not support bf16 summaries: the sparse-"
+                "table top would compare quantized values; query bf16 "
+                "indexes through the exact-recovery walk/fused paths")
         if plan.num_levels == 1:
             top = h.base
             top_pos = (torch.arange(h.base.shape[0], dtype=torch.int32,
@@ -68,8 +84,15 @@ class HybridRMQ:
         else:
             off, _ = plan.level_slice(plan.num_levels - 1)
             top = h.upper[off:off + plan.top_len]
-            top_pos = (h.upper_pos[off:off + plan.top_len]
-                       if h.with_positions else None)
+            if not h.with_positions:
+                top_pos = None
+            elif plan.packed_pos:
+                top_pos = bitpack.gather_absolute(
+                    h.upper_pos, plan, plan.num_levels - 1,
+                    torch.arange(plan.top_len, device=h.device),
+                    pos_dtype_for(plan.capacity))
+            else:
+                top_pos = h.upper_pos[off:off + plan.top_len]
         return HybridRMQ(hierarchy=h,
                          top_table=SparseTable.build(top, positions=top_pos))
 
@@ -118,6 +141,9 @@ class HybridRMQ:
         ident = torch.iinfo(pos_dtype).max
         ls = torch.as_tensor(ls, device=h.device).reshape(-1)
         rs = torch.as_tensor(rs, device=h.device).reshape(-1)
+        if track:
+            h = dataclasses.replace(
+                h, upper_pos=bitpack.resolve_positions(h.upper_pos, h.plan))
         m, p, l, r = walk_lower_levels(h, ls, rs, track, ident)
         # O(1) top over [l, r); an empty range contributes (+inf, ident)
         last = self.top_table.n - 1

@@ -78,9 +78,11 @@ class HierarchyPlan:
     offsets:      start of each upper level (k >= 1) inside the single
                   contiguous ``upper`` buffer.
     level_split:  optional :class:`LevelSplit`.
-    packed_pos:   bit-packed position plane (ROADMAP A3; builds refuse it).
-    summary_dtype: ``"float32"`` or ``"bfloat16"`` upper values (A3;
-                  builds refuse ``"bfloat16"``).
+    packed_pos:   bit-packed chunk-local position plane
+                  (``repro_torch.core.bitpack``) in position builds.
+    summary_dtype: ``"float32"`` or ``"bfloat16"`` upper values; bf16
+                  needs float32 input and positions (queries recover
+                  exact answers from level 0).
     """
 
     n: int

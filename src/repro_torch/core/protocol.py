@@ -180,8 +180,8 @@ def coerce_values(x, device) -> torch.Tensor:
 
     Other real dtypes, float16 included, become float32 (exactly, for
     float16), as in the reference.  bfloat16 inputs are refused: the
-    reference keeps them as bf16 and the port has no bf16 path yet
-    (ROADMAP A3).
+    reference keeps them as a bf16 level 0 through its kernels, which
+    the port's kernels do not take yet (ROADMAP A3b).
 
     NaN is accepted and is the least value, as ``torch.argmin`` has it: a
     chunk or a span that holds a NaN answers its leftmost NaN, with that
@@ -195,8 +195,10 @@ def coerce_values(x, device) -> torch.Tensor:
         raise ValueError(f"input must be rank-1, got shape {tuple(x.shape)}")
     if x.dtype == torch.bfloat16:
         raise TypeError(
-            f"{x.dtype} inputs are not supported by the port yet; pass "
-            "float32 or float64 values")
+            f"{x.dtype} inputs are not supported by the port yet (ROADMAP "
+            "A3b: a bf16 level 0 through the kernels); pass float32 or "
+            "float64 values (summary_dtype='bfloat16' keeps bf16 upper "
+            "levels over a float32 input)")
     if x.dtype not in _VALUE_DTYPES:
         x = x.to(torch.float32)
     return x.to(device).contiguous()
@@ -206,7 +208,15 @@ def build_hierarchy_with_backend(
     x: torch.Tensor, plan: HierarchyPlan, with_positions: bool, backend: str
 ) -> Hierarchy:
     """The one construction entry point; every backend gives a
-    bit-identical hierarchy (values, leftmost positions, padding)."""
+    bit-identical hierarchy (values, leftmost positions, padding).
+
+    Compact layouts (``plan.packed_pos`` / ``plan.summary_dtype``) apply
+    on every backend: the plain build makes them natively, the kernel
+    builds (B1, B3) make the classic planes and their wrappers go through
+    :func:`repro_torch.core.hierarchy.finalize_compact`, as the reference
+    routes its Pallas builds.  Each build refuses a compact plan that
+    could not answer exactly (``check_compact_build``).
+    """
     if backend == "fused":
         from repro_torch.kernels.hierarchy_fused import ops as fused_ops
 

@@ -22,6 +22,16 @@ the winning entry's bits, so a zero minimum keeps its leftmost sign.
 Large batches are walked in slices so that no gathered window tensor
 exceeds ``_WINDOW_ELEMS`` entries.
 
+Compact planes: a packed position plane is resolved to the absolute
+plane once a batch (:func:`repro_torch.core.bitpack.resolve_positions`),
+and only where positions are read.  Over bf16 summaries the walk is the
+exact-recovery walk: at every upper level and the top, each candidate
+tied at the quantized minimum (the NaNs, where that minimum is NaN) is
+re-read from level 0 through its position, the exact value decides and
+the smaller position breaks ties, so the answers are the classic
+layout's bit for bit (bf16 rounding is monotone, so the true minimum is
+always among the tied).  Value queries track positions for it.
+
 Query convention: ``(l, r)`` are **inclusive**, ``0 <= l <= r < n``
 (paper §2.1).  Invalid bounds give unspecified answers but every read
 stays inside the hierarchy, as in the kernels.
@@ -29,16 +39,20 @@ stays inside the hierarchy, as in the kernels.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import bitpack
 from repro_torch.core.hierarchy import Hierarchy, pos_dtype_for
 
 __all__ = [
     "check_query_args",
+    "rmq_index",
     "rmq_index_batch",
+    "rmq_value",
     "rmq_value_batch",
     "rmq_walk_batch",
 ]
@@ -98,6 +112,17 @@ def nan_less(a, b):
     return (a < b) | (a.isnan() & ~b.isnan())
 
 
+def _least(vals, mask):
+    """``(masked, hit)``: ``vals`` with +inf where ``mask`` does not hold,
+    and where the least of them over the last axis stands (the NaNs
+    where it is NaN: none equals it then, and there is no NaN where it is
+    not), within ``mask``."""
+    masked = torch.where(mask, vals, float("inf"))
+    m = masked.amin(dim=-1, keepdim=True)  # NaN wherever one is in mask
+    hit = (masked == m).logical_or_(masked != masked).logical_and_(mask)
+    return masked, hit
+
+
 def _window_min(vals, mask, lane):
     """``(value, at)``: the least entry over the last axis where ``mask``
     holds, and its index on that axis (``at`` keeps the axis; ``lane`` is
@@ -106,14 +131,20 @@ def _window_min(vals, mask, lane):
     the least key; the value is its own bits.  Where ``mask`` holds
     nowhere: +inf at the last index, whose key means nothing (a span whose
     minimum is +inf answers its own ``l``, as in the kernels)."""
-    masked = torch.where(mask, vals, float("inf"))
-    m = masked.amin(dim=-1, keepdim=True)  # NaN wherever one is in mask
-    # the entries equal to the minimum: the NaNs where it is NaN (none
-    # equals it then, and there is no NaN where it is not)
-    hit = (masked == m).logical_or_(masked != masked).logical_and_(mask)
+    masked, hit = _least(vals, mask)
     at = torch.where(hit, lane, lane.shape[0] - 1).amin(dim=-1,
                                                         keepdim=True)
     return masked.gather(-1, at)[..., 0], at
+
+
+def _exact_window_min(quant, pos, mask, lane, base):
+    """:func:`_window_min` over quantized (bf16) entries with positions
+    ``pos``: the entries tied at the quantized minimum are re-read from
+    level 0 (``base``) and the least exact value wins, the first (the
+    least position) on ties; the value is level 0's bits."""
+    _, tied = _least(quant, mask)
+    exact = base[pos.clamp(0, base.shape[0] - 1)]
+    return _window_min(exact, tied, lane)
 
 
 def _merge(m, p, m2, p2):
@@ -148,8 +179,12 @@ def walk_lower_levels(h: Hierarchy, ls, rs, track: bool, ident: int):
     (keys are positions where ``track``, see :func:`_keys`; a +inf
     minimum's key means nothing, see :func:`inf_at_l`) and the range
     ``[l, r)`` still to answer on the top level, in its coordinates.
+    Over bf16 summaries (``upper`` narrower than ``base``) the upper
+    levels take the exact re-compare, which needs ``track`` and an
+    absolute position plane.
     """
     plan, c = h.plan, h.plan.c
+    exact = h.quantized
     dev = h.base.device
     l = ls.to(device=dev, dtype=torch.int64)
     r = rs.to(device=dev, dtype=torch.int64) + 1  # exclusive
@@ -175,7 +210,11 @@ def walk_lower_levels(h: Hierarchy, ls, rs, track: bool, ident: int):
         hi = torch.stack([torch.minimum(next_l, r), r], 1).unsqueeze(-1)
         mask = ((idx >= lo) & (idx < hi)).flatten(1)
         idx = idx.flatten(1)
-        wm, at = _window_min(arr[idx], mask, lane2)
+        if exact and level:
+            wm, at = _exact_window_min(arr[idx], parr[idx], mask, lane2,
+                                       h.base)
+        else:
+            wm, at = _window_min(arr[idx], mask, lane2)
         j = idx.gather(-1, at)[:, 0]
         m, p = _merge(m, p, wm, _keys(j, parr, level, c, track))
         l, r = -((-l) // c), r // c
@@ -195,7 +234,13 @@ def _walk_slice(h: Hierarchy, ls, rs, track: bool, ident: int):
         top_pos = h.upper_pos[off:off + length] if track else None
     idx = torch.arange(top.shape[0], device=dev)
     mask = (idx >= l.unsqueeze(-1)) & (idx < r.unsqueeze(-1))
-    wm, at = _window_min(top.expand(l.shape[0], -1), mask, idx)
+    rows = l.shape[0]
+    if top_level and h.quantized:
+        wm, at = _exact_window_min(top.expand(rows, -1),
+                                   top_pos.expand(rows, -1), mask, idx,
+                                   h.base)
+    else:
+        wm, at = _window_min(top.expand(rows, -1), mask, idx)
     m, p = _merge(m, p, wm, _keys(at[:, 0], top_pos, top_level, plan.c,
                                   track))
     return m, (inf_at_l(m, p, ls) if track else p)
@@ -205,11 +250,22 @@ def rmq_walk_batch(
     h: Hierarchy, ls: torch.Tensor, rs: torch.Tensor, track_pos: bool
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``(values, positions)`` of a batch; positions ``None`` unless
-    ``track_pos``.  Positions come in ``pos_dtype_for(capacity)``."""
+    ``track_pos``.  Positions come in ``pos_dtype_for(capacity)``.  A
+    packed plane is unpacked once here; bf16 summaries take the exact
+    walk, positions tracked whatever ``track_pos``."""
     if track_pos and not h.with_positions:
         raise ValueError(
             "hierarchy was built without positions; "
             "use build_hierarchy(..., with_positions=True)")
+    exact = h.quantized
+    if exact and not h.with_positions:
+        raise ValueError(
+            "bf16 summaries need the position plane: the exact walk "
+            "re-reads level 0 through it")
+    track = track_pos or exact
+    if track:
+        h = dataclasses.replace(
+            h, upper_pos=bitpack.resolve_positions(h.upper_pos, h.plan))
     plan = h.plan
     pos_dtype = pos_dtype_for(plan.capacity)
     ident = torch.iinfo(pos_dtype).max
@@ -223,8 +279,7 @@ def rmq_walk_batch(
     width = max(2 * plan.c, plan.top_padded_len)
     step = max(1, _WINDOW_ELEMS // width)
     for s in range(0, count, step):
-        v, p = _walk_slice(h, ls[s:s + step], rs[s:s + step], track_pos,
-                           ident)
+        v, p = _walk_slice(h, ls[s:s + step], rs[s:s + step], track, ident)
         vals[s:s + step] = v
         if track_pos:
             pos[s:s + step] = p
@@ -240,3 +295,14 @@ def rmq_value_batch(h: Hierarchy, ls, rs) -> torch.Tensor:
 def rmq_index_batch(h: Hierarchy, ls, rs) -> torch.Tensor:
     """``RMQ_index`` (leftmost minimum position) for a batch (plain walk)."""
     return rmq_walk_batch(h, ls, rs, track_pos=True)[1]
+
+
+def rmq_value(h: Hierarchy, l, r) -> torch.Tensor:
+    """Single-query ``RMQ_value`` (a 0-d tensor on the hierarchy's
+    device)."""
+    return rmq_value_batch(h, torch.as_tensor([l]), torch.as_tensor([r]))[0]
+
+
+def rmq_index(h: Hierarchy, l, r) -> torch.Tensor:
+    """Single-query ``RMQ_index`` (leftmost minimum position)."""
+    return rmq_index_batch(h, torch.as_tensor([l]), torch.as_tensor([r]))[0]

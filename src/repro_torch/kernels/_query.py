@@ -1,23 +1,48 @@
 """Operand preparation shared by the query wrappers (B2, B4, B7), and the
 launch sequence of B2 ``rmq_fused_query`` and B7 ``rmq_bulk_query``, which
 share a C signature.  The kernels decide their top stage themselves
-(``csrc/rmq_walk_hopper.cuh``)."""
+(``csrc/rmq_walk_hopper.cuh``).
+
+The kernels read the classic planes: a packed position plane is
+unpacked to the absolute int32 plane before a launch that reads
+positions (:func:`launch_planes`), once a call, as the reference unpacks
+inside each launch's program."""
 
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import dataclasses
+
 import torch
 
+from repro_torch.core import bitpack
 from repro_torch.core.hierarchy import Hierarchy
 from repro_torch.core.protocol import check_capacity_limit, kernel_index_extent
 from repro_torch.kernels import _build
 
 __all__ = ["MAX_LEVELS", "TABLE_WALK_SIGNATURE", "int_array",
-           "kernel_bounds", "offsets_table", "table_walk"]
+           "kernel_bounds", "launch_planes", "offsets_table",
+           "table_walk"]
 
 MAX_LEVELS = 32
+
+
+def launch_planes(h: Hierarchy, track_pos: bool) -> Hierarchy:
+    """The planes a launch reads: the absolute position plane (a packed
+    plane unpacked) where it tracks positions, none where it does not.
+    Refuses bf16 summaries (:attr:`Hierarchy.quantized`): the query
+    kernels compare summaries as they are, so such an index is answered
+    by the plain exact-recovery walk (B2, B4) or refused (B7), as in the
+    reference."""
+    if h.quantized:
+        raise ValueError(
+            "the query kernels read float32/float64 summaries; an index "
+            "with bf16 summaries is answered by the exact-recovery walk")
+    pos = (bitpack.resolve_positions(h.upper_pos, h.plan) if track_pos
+           else None)
+    return dataclasses.replace(h, upper_pos=pos)
 
 
 def kernel_bounds(h: Hierarchy, ls, rs, what: str):
@@ -67,6 +92,7 @@ def table_walk(source: str, symbol: str, counter, h: Hierarchy, ls, rs,
                track_pos: bool):
     """One launch of ``symbol`` in ``csrc/<source>.cu``: ``(values,
     positions or None)`` for the batch."""
+    h = launch_planes(h, track_pos)
     ls, rs = kernel_bounds(h, ls, rs, source)
     plan, dev = h.plan, h.base.device
     m = ls.numel()

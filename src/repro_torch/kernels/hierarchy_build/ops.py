@@ -5,7 +5,9 @@ The counterpart of the reference's ``build_hierarchy_pallas``
 ``csrc/hierarchy_build.cu``, each reducing one level straight into its
 slot of the preallocated ``upper`` buffer (so no per-level arrays and no
 concatenate).  On a CPU tensor each level takes the plain version,
-:func:`build_level_plain`.
+:func:`build_level_plain`.  The launches build the classic planes; a
+compact plan's packed words and bf16 summaries come from
+:func:`repro_torch.core.hierarchy.finalize_compact` after the last one.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from repro_torch.core.constants import PAD_POS
 from repro_torch.core.hierarchy import (
     Hierarchy,
     check_build_input,
+    finalize_compact,
     pad_to,
     pos_dtype_for,
     reduce_level,
@@ -75,7 +78,7 @@ def build_hierarchy_percall(
     x: torch.Tensor, plan: HierarchyPlan, with_positions: bool = False
 ) -> Hierarchy:
     """Level-by-level build (paper §4.1, bottom-up), ``L - 1`` launches."""
-    check_build_input(x, plan)
+    check_build_input(x, plan, with_positions)
     on_card = x.is_cuda
     if on_card and with_positions:
         check_capacity_limit(kernel_index_extent(plan))
@@ -108,4 +111,5 @@ def build_hierarchy_percall(
             if with_positions:
                 out_p.copy_(p)
         cur_v, cur_p = out_v, out_p
-    return Hierarchy(base=base, upper=upper, upper_pos=upper_pos, plan=plan)
+    return finalize_compact(
+        Hierarchy(base=base, upper=upper, upper_pos=upper_pos, plan=plan))

@@ -17,6 +17,13 @@ size, once its launch has gone out.  A CPU hierarchy takes the plain
 update (:func:`repro_torch.streaming.updates.update_hierarchy` /
 ``append_hierarchy``) and records the same launches; a CUDA hierarchy
 launches or raises.
+
+Compact layouts take the plain update on every device, as the
+reference's ``_jax_path_only`` sends them to its jnp update: B6 writes
+absolute positions, not packed fields, and has no exact level-0
+re-compare for bf16 summaries (:func:`plain_only`).  That route dedupes
+with ``torch.unique``, which waits for the card, so the sync-free
+property above holds for the classic layout only.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from repro_torch.streaming import updates as U
 __all__ = [
     "LAUNCHES",
     "append_hierarchy_cuda",
+    "plain_only",
     "repair_level_plain",
     "update_hierarchy_cuda",
     "update_levels_cuda",
@@ -119,6 +127,12 @@ def _plain(h: Hierarchy, out: Hierarchy, size: int) -> Hierarchy:
     return out
 
 
+def plain_only(h: Hierarchy) -> bool:
+    """Layouts B6 cannot re-reduce: packed positions (it writes absolute
+    ones) and bf16 summaries (they need the exact re-compare)."""
+    return bool(h.plan.packed_pos) or h.quantized
+
+
 def _check(h: Hierarchy) -> None:
     if h.base.is_cuda:
         check_capacity_limit(kernel_index_extent(h.plan))
@@ -127,6 +141,8 @@ def _check(h: Hierarchy) -> None:
 def update_hierarchy_cuda(h: Hierarchy, idxs, vals) -> Hierarchy:
     """Batched point updates (last wins), one launch per upper level."""
     _check(h)
+    if plain_only(h):
+        return U.update_hierarchy(h, idxs, vals)
     if not h.base.is_cuda:
         return _plain(h, U.update_hierarchy(h, idxs, vals),
                       torch.as_tensor(idxs).numel())
@@ -136,6 +152,8 @@ def update_hierarchy_cuda(h: Hierarchy, idxs, vals) -> Hierarchy:
 def append_hierarchy_cuda(h: Hierarchy, vals, start: int) -> Hierarchy:
     """Append ``vals`` at ``start``, one launch per upper level."""
     _check(h)
+    if plain_only(h):
+        return U.append_hierarchy(h, vals, start)
     vals = torch.as_tensor(vals, device=h.device).to(h.base.dtype)
     vals = vals.reshape(-1)
     if not h.base.is_cuda:

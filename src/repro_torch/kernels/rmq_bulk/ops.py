@@ -13,6 +13,10 @@ batch is answered the same, only without reuse.  Answers are ``rmq_fused``'s
 bit for bit (values, their bits and leftmost positions).  On a CPU
 hierarchy the plain version, :func:`rmq_bulk_batch_plain` (the plain
 walk: the reference's oracle is its branch-free walk too), answers.
+
+Compact planes: a packed position plane is unpacked before an index
+launch; bf16 summaries are refused (``ValueError``), as the reference
+refuses them: the sweep would compare quantized values.
 """
 
 from __future__ import annotations
@@ -56,6 +60,10 @@ def rmq_bulk_batch(
         raise ValueError(
             "hierarchy was built without positions; "
             "use build_hierarchy(..., with_positions=True)")
+    if h.quantized:
+        raise ValueError(
+            "the bulk path does not support bf16 summaries; route bf16 "
+            "indexes through the engine's walk/fused paths instead")
     ls = torch.as_tensor(ls, device=h.base.device)
     rs = torch.as_tensor(rs, device=h.base.device)
     profiling.record_launch(

@@ -7,6 +7,13 @@ The counterpart of the reference's ``rmq_fused_batch``
 The kernel handles degenerate plans (one level, ``capacity < c``) itself,
 where the reference falls back to a jnp program.  On a CPU hierarchy the
 plain version, :func:`rmq_fused_batch_plain` (the plain walk), answers.
+
+Compact planes: a packed position plane is unpacked before the launch
+(``_query.launch_planes``), so a packed index launches B2 as a classic
+one does.  An index with bf16 summaries is answered by the plain
+exact-recovery walk on its own device, the card included, with no
+launch: the reference answers it through its jnp walk too, and neither
+package has a kernel for it.
 """
 
 from __future__ import annotations
@@ -52,16 +59,17 @@ def rmq_fused_batch(
             "use build_hierarchy(..., with_positions=True)")
     ls = torch.as_tensor(ls, device=h.base.device)
     rs = torch.as_tensor(rs, device=h.base.device)
+    quantized = h.quantized
     profiling.record_launch(
         "rmq_fused",
-        lowering="cuda" if h.base.is_cuda else "eager",
+        lowering="cuda" if h.base.is_cuda and not quantized else "eager",
         queries=int(ls.numel()),
         levels=h.plan.num_levels,
         track_pos=bool(track_pos),
         operand_bytes=profiling.operand_bytes(
             h.base, h.upper, h.upper_pos if track_pos else None, ls, rs),
     )
-    if h.base.is_cuda:
+    if h.base.is_cuda and not quantized:
         vals, pos = rmq_fused_batch_cuda(h, ls, rs, track_pos)
         return vals.reshape(ls.shape), (
             pos.reshape(ls.shape) if track_pos else None)

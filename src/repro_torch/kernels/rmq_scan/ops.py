@@ -7,6 +7,10 @@ an index batch is one launch that tracks positions and writes the
 position plane.  Degenerate plans (one level, ``capacity < c``) run in
 the kernel too.  On a CPU hierarchy the plain version,
 :func:`rmq_scan_plain` (the plain walk), answers.
+
+Compact planes, as in ``rmq_fused``: a packed position plane is unpacked
+before an index launch; bf16 summaries are answered by the plain
+exact-recovery walk with no launch, the reference's route.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ def rmq_scan_plain(h: Hierarchy, ls, rs, track_pos: bool) -> torch.Tensor:
 
 def rmq_scan_cuda(h: Hierarchy, ls, rs, track_pos: bool) -> torch.Tensor:
     """One launch: the position plane if ``track_pos``, else values."""
+    h = _query.launch_planes(h, track_pos)
     ls, rs = _query.kernel_bounds(h, ls, rs, "rmq_scan")
     plan, dev = h.plan, h.base.device
     m = ls.numel()
@@ -75,16 +80,17 @@ def rmq_scan_cuda(h: Hierarchy, ls, rs, track_pos: bool) -> torch.Tensor:
 def _scan(h: Hierarchy, ls, rs, track_pos: bool) -> torch.Tensor:
     ls = torch.as_tensor(ls, device=h.base.device)
     rs = torch.as_tensor(rs, device=h.base.device)
+    quantized = h.quantized
     profiling.record_launch(
         "rmq_scan",
-        lowering="cuda" if h.base.is_cuda else "eager",
+        lowering="cuda" if h.base.is_cuda and not quantized else "eager",
         queries=int(ls.numel()),
         levels=h.plan.num_levels,
         track_pos=bool(track_pos),
         operand_bytes=profiling.operand_bytes(
             h.base, h.upper, h.upper_pos if track_pos else None, ls, rs),
     )
-    if h.base.is_cuda:
+    if h.base.is_cuda and not quantized:
         return rmq_scan_cuda(h, ls, rs, track_pos).reshape(ls.shape)
     return rmq_scan_plain(h, ls, rs, track_pos)
 

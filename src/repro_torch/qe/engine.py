@@ -26,9 +26,14 @@ results of older generations can never be served.  Attaching an index
 that is not a successor (same plan, strictly larger generation) clears
 the cache.
 
+Compact planes, as in the reference: a packed index routes as a classic
+one (each kernel unpacks the positions it reads); an index with bf16
+summaries has no long class (the hybrid's table would compare quantized
+values, so long spans take the exact mid walk) and :meth:`query_bulk`
+bypasses B7 for the routed path.
+
 Not ported yet, and refused with ``NotImplementedError``: ``tuning=``
-(ROADMAP A9), a distributed index (A10), and plans with packed positions
-or bfloat16 summaries (A3).
+(ROADMAP A9) and a distributed index (A10).
 """
 
 from __future__ import annotations
@@ -82,11 +87,6 @@ def _check_supported(index) -> None:
     if is_distributed(index):
         raise NotImplementedError(
             "a distributed index is not ported yet (ROADMAP A10)")
-    plan = index.plan
-    if plan.packed_pos or plan.summary_dtype != "float32":
-        raise NotImplementedError(
-            "plans with packed_pos or bfloat16 summaries are not ported "
-            "yet (ROADMAP A3)")
 
 
 class QueryEngine:
@@ -165,12 +165,16 @@ class QueryEngine:
                 long_cutoff = split.long_cutoff
         if self._long_cutoff is not None and source != "default":
             source += "+override"
+        # bf16 summaries: the hybrid's sparse-table top would compare
+        # quantized values (HybridRMQ refuses one), so long spans take
+        # the exact mid walk
+        long_ok = not index.hierarchy.quantized
         return {
             "backend": self.backend,
             "planner": "fused" if self.backend == "fused" else "routed",
             "long_cutoff": long_cutoff,
             "scan_chunks": scan_chunks,
-            "long_enabled": self._long_enabled and sparse_top,
+            "long_enabled": self._long_enabled and sparse_top and long_ok,
             "source": source,
         }
 
@@ -331,7 +335,9 @@ class QueryEngine:
             raise ValueError(_NO_POSITIONS)
         n = live_length(index)
         ls, rs = check_query_args(ls, rs, n)
-        if ls.numel() < self.bulk_crossover:
+        if ls.numel() < self.bulk_crossover or index.hierarchy.quantized:
+            # bf16 summaries: the bulk sweep compares quantized values,
+            # so they take the routed path, whose walks re-read level 0
             return self._execute(ls, rs, op)
         self.batches += 1
         self.queries_in += int(ls.numel())

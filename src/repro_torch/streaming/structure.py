@@ -55,9 +55,13 @@ class StreamingRMQ:
         with_positions: bool = False,
         backend: str = "auto",
         plan: Optional[HierarchyPlan] = None,
+        packed_pos: Optional[bool] = None,
+        summary_dtype: Optional[str] = None,
         device=None,
     ) -> "StreamingRMQ":
-        """Build over ``x``, reserving ``capacity`` slots for appends."""
+        """Build over ``x``, reserving ``capacity`` slots for appends.
+        ``packed_pos`` / ``summary_dtype`` pick the compact planes, which
+        update / append / retire keep equal to a fresh build."""
         dev = resolve_device(device)
         x = px.coerce_values(x, dev)
         n = int(x.shape[0])
@@ -66,7 +70,9 @@ class StreamingRMQ:
                 "pass capacity via make_plan(..., capacity=...) when "
                 "supplying an explicit plan")
         if plan is None:
-            plan = make_plan(n, c=c, t=t, capacity=capacity)
+            plan = make_plan(n, c=c, t=t, capacity=capacity,
+                             packed_pos=packed_pos,
+                             summary_dtype=summary_dtype)
         backend = px.resolve_backend(backend, dev)
         h = px.build_hierarchy_with_backend(
             x, plan, with_positions=with_positions, backend=backend)

@@ -12,9 +12,9 @@ Per batch:
    ``[0, capacity)`` are dropped (negative ones too: they never wrap);
 2. for each upper level the touched chunk ids are deduped
    (:func:`touched_chunk_ids`), each touched chunk is re-reduced from the
-   level below (:func:`repair_level_plain`: min and leftmost position;
-   level 1 synthesizes positions, ``PAD_POS`` past ``capacity``) and
-   written into its slot of ``upper`` / ``upper_pos``;
+   level below (:func:`repair_plain`: min and leftmost position; level
+   1 synthesizes positions, ``PAD_POS`` past ``capacity``) and written
+   into its slot of ``upper`` / ``upper_pos``;
 3. the chunk ids are divided by ``c`` and the walk ascends.
 
 The result equals a fresh build of the mutated array, bit for bit.  The
@@ -29,8 +29,16 @@ batch once at its static size, the level-1 launch writes each run of
 equal indices' last entry into level 0, and level k re-reduces the chunk
 of every entry whose chunk differs from its predecessor's.  The
 scatter of step 1 waits for nothing either; ``torch.unique`` in step 2
-waits for the card, so the plain update is not the card's path.
-Not ported: the packed and bf16 planes (ROADMAP A3).
+waits for the card, so the plain update is not the card's path for the
+classic layout.
+
+Compact layouts (:func:`repair_plain`), the card's path too: with
+packed positions a level's argmin is the chunk-local offset, written
+back into the words with :func:`repro_torch.core.bitpack.scatter_offsets`;
+with bf16 summaries the winner of a chunk above level 1 is decided
+exactly (:func:`exact_recompare`: the children tied at the quantized
+minimum re-read from level 0 through their positions).  Both at once
+read the children's positions through the packed chains.
 """
 
 from __future__ import annotations
@@ -39,12 +47,15 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import bitpack
 from repro_torch.core.constants import PAD_POS
-from repro_torch.core.hierarchy import Hierarchy, check_compact_build
+from repro_torch.core.hierarchy import (Hierarchy, pos_dtype_for,
+                                        quantized_planes)
 from repro_torch.core.plan import HierarchyPlan
 
 __all__ = [
     "append_hierarchy",
+    "exact_recompare",
     "key_dtype",
     "level_source",
     "propagate_updates",
@@ -116,8 +127,10 @@ def repair_level_plain(
     c: int,
     track: bool,
     pos_dtype: torch.dtype = torch.int32,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Min and leftmost position of chunks ``ids`` of a source level.
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], torch.Tensor]:
+    """Min, leftmost position and winning lane of chunks ``ids`` of a
+    source level; the lane is the chunk-local offset a packed plane
+    stores.
 
     ``src_p=None`` means level 0: entries past its end read +inf and
     their positions are the indices, ``PAD_POS`` past the end.
@@ -131,25 +144,81 @@ def repair_level_plain(
     am = torch.argmin(v, dim=1, keepdim=True)  # first occurrence: leftmost
     nv = v.gather(1, am)[:, 0]
     if not track:
-        return nv, None
+        return nv, None, am[:, 0]
     if src_p is None:
         p = torch.where(inside, gather, PAD_POS)
     else:
         p = src_p[safe]
-    return nv, p.gather(1, am)[:, 0].to(pos_dtype)
+    return nv, p.gather(1, am)[:, 0].to(pos_dtype), am[:, 0]
+
+
+def exact_recompare(v: torch.Tensor, p_abs: torch.Tensor,
+                    live: torch.Tensor, base: torch.Tensor):
+    """Row winners of quantized ``(B, c)`` windows, decided exactly.
+
+    ``v`` holds bf16 summaries, so its row argmin can pick a wrong entry.
+    Every ``live`` lane tied at the quantized row minimum (the NaNs where
+    that minimum is NaN) is re-read from level 0 through its absolute
+    position ``p_abs``; the least exact value wins, NaN least, the first
+    lane (the least position) on ties.  Returns ``(winner's summary,
+    winner's position, winner's lane)``: the summary is the winner's own
+    stored bits, as a rebuild would store them.
+    """
+    vq = torch.where(live, v, float("inf"))
+    mq = vq.amin(dim=1, keepdim=True)
+    tied = ((vq == mq) | (vq != vq)) & live
+    ex = torch.where(tied, base[p_abs.clamp(0, base.shape[0] - 1)],
+                     float("inf"))
+    m = ex.amin(dim=1, keepdim=True)
+    win = ((ex == m) | (ex != ex)) & tied
+    am = torch.argmax(win.to(torch.uint8), dim=1, keepdim=True)
+    return v.gather(1, am)[:, 0], p_abs.gather(1, am)[:, 0], am[:, 0]
+
+
+def _repair_exact(plan: HierarchyPlan, base, upper, upper_pos, level: int,
+                  ids: torch.Tensor, packed: bool, coord: torch.dtype):
+    """:func:`repair_level_plain` over bf16 summaries (``level >= 2``):
+    the winner is decided by :func:`exact_recompare`.  Padding lanes are
+    masked before a packed chain is followed: a padding entry's field is
+    0, and its chain could leave the word array."""
+    poff, padded = plan.level_slice(level - 1)
+    gather = ids[:, None] * plan.c + torch.arange(plan.c, device=ids.device)
+    live = gather < plan.level_lens[level - 1]
+    safe = torch.where(live, gather, 0)
+    v = upper[poff:poff + padded][safe]
+    if packed:
+        p_abs = bitpack.gather_absolute(upper_pos, plan, level - 1, safe,
+                                        coord)
+    else:
+        p_abs = upper_pos[poff:poff + padded][safe]
+    return exact_recompare(v, p_abs, live, base)
 
 
 def repair_plain(plan: HierarchyPlan, base, upper, upper_pos, level: int,
                  ids: torch.Tensor) -> None:
-    """Step 2 for one level on the plain path, written in place."""
-    src_v, src_p = level_source(plan, base, upper, upper_pos, level)
-    track = upper_pos is not None
-    nv, np_ = repair_level_plain(
-        src_v, src_p, ids, plan.c, track,
-        upper_pos.dtype if track else torch.int32)
+    """Step 2 for one level on the plain path, written in place, for
+    every plane layout: a packed plane takes the winning lane as its
+    chunk-local offset (:func:`repro_torch.core.bitpack.scatter_offsets`),
+    and bf16 summaries above level 1 are decided by
+    :func:`exact_recompare` (level 0 is exact whatever the summaries)."""
+    packed = upper_pos is not None and plan.packed_pos
+    coord = (upper_pos.dtype if upper_pos is not None and not packed
+             else pos_dtype_for(plan.capacity))
+    if level > 1 and quantized_planes(upper, base):
+        nv, np_, am = _repair_exact(plan, base, upper, upper_pos, level, ids,
+                                    packed, coord)
+    else:
+        src_v, src_p = level_source(plan, base, upper,
+                                    None if packed else upper_pos, level)
+        nv, np_, am = repair_level_plain(
+            src_v, src_p, ids, plan.c,
+            upper_pos is not None and not packed, coord)
     off = plan.offsets[level - 1]
-    upper[off + ids] = nv
-    if track:
+    upper[off + ids] = nv.to(upper.dtype)
+    if packed:
+        upper_pos.copy_(bitpack.scatter_offsets(
+            upper_pos, off + ids, am, bitpack.pos_bits(plan.c)))
+    elif upper_pos is not None:
         upper_pos[off + ids] = np_
 
 
@@ -162,12 +231,13 @@ def propagate_updates(
 ) -> None:
     """Re-reduce every chunk on the root-to-leaf paths of ``idxs``, in
     place on ``upper`` / ``upper_pos``; ``base`` holds the new values.
+    Every plane layout: classic, packed positions, bf16 summaries, both
+    (:func:`repair_plain`).
 
     Indices outside ``[0, capacity)`` were dropped by the base scatter;
     their chunk id becomes 0, whose re-reduction of unchanged data
     rewrites the same summary.
     """
-    check_compact_build(plan)
     idxs = idxs.to(device=base.device, dtype=torch.int64).reshape(-1)
     idxs = torch.where((idxs >= 0) & (idxs < plan.capacity), idxs, 0)
     ids = idxs // plan.c

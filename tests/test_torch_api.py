@@ -114,8 +114,12 @@ def test_build_refusals():
         RMQ.build(x.reshape(2, -1), device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         RMQ.build(x, c="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="A3"):
-        RMQ.build(x, plan=make_plan(3000, c=8, t=4, packed_pos=True),
+    # compact planes that could not answer exactly (A3): bf16 summaries
+    # need positions and float32 input, as in the reference
+    with pytest.raises(ValueError, match="requires with_positions=True"):
+        RMQ.build(x, summary_dtype="bfloat16", device="cpu")
+    with pytest.raises(ValueError, match="float32 inputs only"):
+        RMQ.build(x.astype(np.float64), summary_dtype="bfloat16",
                   with_positions=True, device="cpu")
 
 

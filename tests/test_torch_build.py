@@ -146,12 +146,23 @@ def test_launch_registry_records_every_level():
 
 
 @pytest.mark.parametrize("build", sorted(PORT_BUILDS))
-@pytest.mark.parametrize("knob", [dict(packed_pos=True),
-                                  dict(summary_dtype="bfloat16")])
-def test_compact_planes_are_refused(build, knob):
-    plan = make_plan(5000, c=8, t=4, **knob)
-    with pytest.raises(NotImplementedError, match="A3"):
-        PORT_BUILDS[build](torch.zeros(5000), plan, True)
+@pytest.mark.parametrize("case", ["value_only", "float64"])
+def test_compact_planes_are_refused(build, case):
+    """Every build refuses the bf16 summaries that could not answer
+    exactly (no positions to re-read level 0 through, or a float64
+    input), with the reference's error; the compact builds themselves
+    are held to the reference in tests/test_torch_compact.py."""
+    plan = make_plan(5000, c=8, t=4, summary_dtype="bfloat16")
+    x = torch.zeros(5000, dtype=torch.float64 if case == "float64"
+                    else torch.float32)
+    with_pos = case == "float64"
+    with pytest.raises(ValueError, match="bfloat16"):
+        PORT_BUILDS[build](x, plan, with_pos)
+    if case == "value_only":  # float64 needs x64 on the reference side
+        with pytest.raises(ValueError, match="bfloat16"):
+            jbuild(jnp.asarray(x.numpy()),
+                   jmake_plan(5000, c=8, t=4, summary_dtype="bfloat16"),
+                   with_positions=False)
 
 
 def test_position_dtype_switches_at_2_pow_31():

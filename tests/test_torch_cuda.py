@@ -1165,3 +1165,271 @@ def test_ssm_train_step_on_card(card, policy, per_layer, monkeypatch):
         torch.testing.assert_close(a["ssm"]["in_proj"]["w"],
                                    b["ssm"]["in_proj"]["w"], atol=1e-4,
                                    rtol=1e-4)
+
+
+# -- compact planes: packed positions, bf16 summaries, the streamed build --
+COMPACT = {
+    "packed": dict(packed_pos=True),
+    "bf16": dict(summary_dtype="bfloat16"),
+    "packed_bf16": dict(packed_pos=True, summary_dtype="bfloat16"),
+}
+COMPACT_GEOMETRIES = [
+    (1 << 16, 128, 64, None),     # default geometry, 3 levels
+    (70_000, 4, 64, 1 << 17),     # sub-warp chunks, many levels
+    (50_001, 32, 8, None),        # one chunk a warp
+    (200_000, 128, 1024, None),   # top too large to stage
+    (12_345, 16, 4, 20_000),      # ragged, capacity > n
+]
+
+
+def _plane_bits(t):
+    """A plane as integers: bf16 as int16, packed words as int32."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16)
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32)
+    return _int_view(t)
+
+
+def _planes_equal(h, hp) -> bool:
+    return all(
+        a.dtype == b.dtype and a.shape == b.shape
+        and torch.equal(_plane_bits(a), _plane_bits(b))
+        for a, b in ((h.base, hp.base), (h.upper, hp.upper),
+                     (h.upper_pos, hp.upper_pos)))
+
+
+def _lowered(x, c):
+    """A control input: one entry that is no chunk's minimum set below
+    every value, which moves summaries and positions on every level."""
+    y = x.copy()
+    j = int(np.argmax(x[:c]))
+    y[j] = x.min() - 1.0
+    return y
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(COMPACT))
+@pytest.mark.parametrize("n,c,t,cap", COMPACT_GEOMETRIES)
+def test_compact_builds_match_plain(card, n, c, t, cap, layout):
+    """B1 (one launch) and B3 (L - 1 launches) on a compact plan, through
+    ``finalize_compact``, equal the plain compact build as integer views:
+    packed words word for word, bf16 as int16; control: the plain build
+    of an input with one entry lowered differs."""
+    rng = np.random.default_rng(n + c + len(layout))
+    x = tied_input(rng, n)
+    plan = make_plan(n, c=c, t=t, capacity=cap, **COMPACT[layout])
+    xt = torch.from_numpy(x).to(card)
+    hp = build_hierarchy(xt, plan, with_positions=True)
+    f0, b0 = fused_ops.LAUNCHES.launches, build_ops.LAUNCHES.launches
+    hf = fused_ops.build_hierarchy_fused(xt, plan, True)
+    hb = build_ops.build_hierarchy_percall(xt, plan, True)
+    torch.cuda.synchronize()
+    assert fused_ops.LAUNCHES.launches - f0 == 1
+    assert build_ops.LAUNCHES.launches - b0 == plan.num_levels - 1
+    assert (hf.upper_pos.dtype == torch.uint32) == plan.packed_pos
+    assert _planes_equal(hf, hp) and _planes_equal(hb, hp)
+    control = build_hierarchy(torch.from_numpy(_lowered(x, c)).to(card),
+                              plan, with_positions=True)
+    assert not _planes_equal(hf, control)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,t,cap", COMPACT_GEOMETRIES)
+def test_packed_queries_match_classic(card, n, c, t, cap):
+    """B2, the B4 pair, B7 and B5 on a packed index launch as on a classic
+    one (the positions unpacked before each launch) and answer the
+    classic index's bits; control: the classic index of an input with one
+    entry lowered answers otherwise."""
+    from repro_torch.kernels.rmq_bulk import ops as bulk_ops
+    from repro_torch.kernels.rmq_short import ops as short_ops
+
+    rng = np.random.default_rng(3 * n + c)
+    x = tied_input(rng, n)
+    kw = dict(c=c, t=t, capacity=cap, with_positions=True, backend="fused")
+    hc = RMQ.build(x, **kw).hierarchy
+    hk = RMQ.build(x, packed_pos=True, **kw).hierarchy
+    assert hk.upper_pos.dtype == torch.uint32
+    ls, rs = (torch.from_numpy(a).to(card)
+              for a in query_batch(rng, n, c, m=3000))
+    sl, sr = ls, torch.minimum(rs, (ls // c) * c + 2 * c - 1)
+    counters = (qfused_ops.LAUNCHES, scan_ops.LAUNCHES, bulk_ops.LAUNCHES,
+                short_ops.LAUNCHES)
+
+    def answers(h):
+        v, p = qfused_ops.rmq_fused_batch(h, ls, rs, True)
+        out = [v, p, qfused_ops.rmq_fused_value_batch(h, ls, rs),
+               scan_ops.rmq_value_batch_cuda(h, ls, rs),
+               scan_ops.rmq_index_batch_cuda(h, ls, rs)]
+        out += list(bulk_ops.rmq_bulk_batch(h, ls, rs, True))
+        out += list(short_ops.rmq_short_batch(h, sl, sr, True))
+        return out
+
+    before = [k.launches for k in counters]
+    got = answers(hk)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [2, 2, 1, 1]
+    want = answers(hc)
+    for g, w in zip(got, want):
+        _same_bits(g, w)
+    hx = RMQ.build(_lowered(x, c), **kw).hierarchy
+    assert not all(torch.equal(_int_view(g), _int_view(w))
+                   for g, w in zip(got, answers(hx)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["bf16", "packed_bf16"])
+@pytest.mark.parametrize("n,c,t,cap", COMPACT_GEOMETRIES)
+def test_bf16_queries_take_the_exact_walk(card, n, c, t, cap, layout):
+    """On bf16 summaries the B2 and B4 routes answer through the exact
+    walk on the card with no launch, B7 refuses and B5 (level 0 alone)
+    launches; every answer is the classic index's bits.  Control: the same
+    walk over the bf16 plane read back as float32 (no level-0 re-compare)
+    answers otherwise."""
+    from repro_torch.kernels.rmq_bulk import ops as bulk_ops
+    from repro_torch.kernels.rmq_short import ops as short_ops
+
+    rng = np.random.default_rng(5 * n + c)
+    x = (rng.random(n) + 1.0).astype(np.float32)  # bf16 ties everywhere
+    kw = dict(c=c, t=t, capacity=cap, with_positions=True)
+    classic = RMQ.build(x, backend="fused", **kw)
+    r = RMQ.build(x, backend="fused", **COMPACT[layout], **kw)
+    h = r.hierarchy
+    assert h.upper.dtype == torch.bfloat16
+    ls, rs = (torch.from_numpy(a).to(card)
+              for a in query_batch(rng, n, c, m=3000))
+    f0, s0 = qfused_ops.LAUNCHES.launches, scan_ops.LAUNCHES.launches
+    got = [r.query(ls, rs), r.query_index(ls, rs),
+           *qfused_ops.rmq_fused_batch(h, ls, rs, True),
+           scan_ops.rmq_value_batch_cuda(h, ls, rs),
+           scan_ops.rmq_index_batch_cuda(h, ls, rs)]
+    torch.cuda.synchronize()
+    assert (qfused_ops.LAUNCHES.launches, scan_ops.LAUNCHES.launches) == (
+        f0, s0)
+    hc = classic.hierarchy
+    want = [classic.query(ls, rs), classic.query_index(ls, rs),
+            *qfused_ops.rmq_fused_batch(hc, ls, rs, True),
+            scan_ops.rmq_value_batch_cuda(hc, ls, rs),
+            scan_ops.rmq_index_batch_cuda(hc, ls, rs)]
+    for g, w in zip(got, want):
+        _same_bits(g, w)
+    with pytest.raises(ValueError, match="bf16"):
+        bulk_ops.rmq_bulk_batch(h, ls, rs, True)
+    sl, sr = ls, torch.minimum(rs, (ls // c) * c + 2 * c - 1)
+    k0 = short_ops.LAUNCHES.launches
+    sv, sp = short_ops.rmq_short_batch(h, sl, sr, True)
+    torch.cuda.synchronize()
+    assert short_ops.LAUNCHES.launches - k0 == 1
+    cv, cp = short_ops.rmq_short_batch(hc, sl, sr, True)
+    _same_bits(sv, cv)
+    _same_bits(sp, cp)
+    lossy = type(h)(base=h.base, upper=h.upper.float(),
+                    upper_pos=h.upper_pos, plan=h.plan)
+    v = rmq_walk_batch(lossy, ls, rs, track_pos=False)[0]
+    assert not torch.equal(_int_view(v), _int_view(want[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(COMPACT) + ["classic"])
+def test_compact_update_on_card_matches_rebuild(card, layout):
+    """An update and an append on a compact ``cuda`` index take the plain
+    update on the card (no B6 launch) and equal a rebuild of the mutated
+    array; a classic index launches B6 and equals it too."""
+    from repro_torch.kernels.hierarchy_update import ops as upd_ops
+
+    lay = COMPACT.get(layout, {})
+    rng = np.random.default_rng(17)
+    n, cap = 100_003, 1 << 17
+    x = tied_input(rng, n)
+    kw = dict(c=32, t=16, capacity=cap, with_positions=True)
+    r = RMQ.build(x, backend="cuda", **kw, **lay)
+    idxs = rng.integers(0, n, 2000)
+    vals = tied_input(rng, 2000)
+    tail = tied_input(rng, 500)
+    u0 = upd_ops.LAUNCHES.launches
+    r2 = r.update(idxs, vals).append(tail)
+    torch.cuda.synchronize()
+    launched = upd_ops.LAUNCHES.launches - u0
+    assert launched == (0 if lay else 2 * (r.plan.num_levels - 1))
+    live = x.copy()
+    for i, v in zip(idxs, vals):
+        live[i] = v
+    live = np.concatenate([live, tail])
+    want = RMQ.build(live, backend="eager", **kw, **lay).hierarchy
+    assert _planes_equal(r2.hierarchy, want)
+    assert not _planes_equal(r.hierarchy, want)  # control: the predecessor
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mutation", ["update", "append", "streaming"])
+@pytest.mark.parametrize("layout", sorted(COMPACT))
+def test_compact_mutations_under_a_ragged_fourth_level(card, layout,
+                                                       mutation):
+    """Mutations past index 512 on a four-level plan with a ragged third
+    level (capacity 576, c = 8: levels 576, 72, 9, 2), whose padding lanes
+    would chain past the packed word array unless masked: the successor
+    equals a rebuild of the mutated array and answers as brute force;
+    control: the predecessor differs from the rebuild."""
+    from repro_torch.streaming import StreamingRMQ
+
+    lay = COMPACT[layout]
+    rng = np.random.default_rng(576 + len(layout) + len(mutation))
+    n = 576 if mutation == "update" else 520
+    x = rng.integers(-4, 4, n).astype(np.float32)
+    kw = dict(c=8, t=1, capacity=576, with_positions=True)
+    r = (StreamingRMQ.from_array(x, backend="cuda", **kw, **lay)
+         if mutation == "streaming"
+         else RMQ.build(x, backend="cuda", **kw, **lay))
+    assert list(r.plan.level_lens) == [576, 72, 9, 2]
+    live = x.copy()
+    if mutation == "update":
+        idxs = rng.integers(512, 576, 12)
+        vals = rng.integers(-4, 4, 12).astype(np.float32)
+        for i, v in zip(idxs, vals):
+            live[i] = v
+        r2 = r.update(idxs, vals)
+    else:
+        tail = rng.integers(-4, 4, 56).astype(np.float32)
+        live = np.concatenate([live, tail])
+        r2 = r.append(tail)
+    want = RMQ.build(live, backend="eager", **kw, **lay).hierarchy
+    assert _planes_equal(r2.hierarchy, want)
+    assert not _planes_equal(r.hierarchy, want)
+    ls = rng.integers(0, 576, 200)
+    rs = np.minimum(ls + rng.integers(0, 576, 200), 575)
+    ls, rs = np.minimum(ls, rs), np.maximum(ls, rs)
+    _, want_p = brute_force(live, ls, rs)
+    got = r2.query_index(ls, rs)
+    assert np.array_equal(got.cpu().numpy(), want_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["classic", "packed", "packed_bf16"])
+@pytest.mark.parametrize("n,seg,cap", [(1_000_003, 1 << 16, None),
+                                       (300_001, 1 << 12, 400_000)])
+def test_out_of_core_build_matches_plain(card, n, seg, cap, layout):
+    """``build_out_of_core`` from a host callable: one B1 launch a slab,
+    the hierarchy equal to the plain build of the whole array on the card
+    as integer views; control: the plain build of an input with one entry
+    lowered differs.  Sampled spans through the eager walk against
+    brute force."""
+    lay = COMPACT.get(layout, {})
+    rng = np.random.default_rng(n)
+    x = tied_input(rng, n)
+    f0 = fused_ops.LAUNCHES.launches
+    r = RMQ.build_out_of_core(lambda a, b: x[a:b], n, c=128, t=64,
+                              with_positions=True, capacity=cap,
+                              segment_size=seg, **lay)
+    torch.cuda.synchronize()
+    assert fused_ops.LAUNCHES.launches - f0 == -(-r.plan.capacity // seg)
+    assert r.backend == "eager" and r.device.type == "cuda"
+    xt = torch.from_numpy(x).to(card)
+    hp = build_hierarchy(xt, r.plan, with_positions=True)
+    assert _planes_equal(r.hierarchy, hp)
+    control = build_hierarchy(torch.from_numpy(_lowered(x, 128)).to(card),
+                              r.plan, with_positions=True)
+    assert not _planes_equal(r.hierarchy, control)
+    ls, rs = query_batch(rng, n, 128, m=300)
+    bv, bp = brute_force(x, ls, rs)
+    np.testing.assert_array_equal(r.query(ls, rs).cpu().numpy(), bv)
+    np.testing.assert_array_equal(r.query_index(ls, rs).cpu().numpy(), bp)

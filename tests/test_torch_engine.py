@@ -253,11 +253,15 @@ class TestEngineParity:
         _, _, rmq, _ = _pair(1000, 16, 4)
         with pytest.raises(NotImplementedError, match="A9"):
             QueryEngine(rmq, tuning=object())
-        packed = dataclasses.replace(rmq, hierarchy=dataclasses.replace(
-            rmq.hierarchy, plan=dataclasses.replace(rmq.plan,
-                                                    packed_pos=True)))
-        with pytest.raises(NotImplementedError, match="A3"):
-            QueryEngine(packed)
+        # compact planes are served (A3): a packed index's engine answers
+        # as the classic index's does
+        packed = RMQ.build(rmq.hierarchy.base[:rmq.n], c=16, t=4,
+                           with_positions=True, packed_pos=True,
+                           device="cpu")
+        ls, rs = _mixed_queries(np.random.default_rng(3), 1000, 16, 60)
+        np.testing.assert_array_equal(
+            QueryEngine(packed).query_index(ls, rs).numpy(),
+            rmq.query_index(ls, rs).numpy())
 
         class Sharded:
             distributed = True

@@ -10,7 +10,9 @@ against a numpy oracle (``np.argmin`` takes the first NaN, then the first
 least entry), on every ``EDGE_GEOMETRIES`` plan for NaN and subnormal
 input: the plain build (value-only and with positions), the plain walk,
 the plain update (the deduped path and the sorted-run path of B6) and
-append, the short-span reference, the hybrid top and the baselines.  The
+append, the short-span reference, the hybrid top and the baselines, and
+the compact planes (packed positions, bf16 summaries: the exact walk
+answers each span's leftmost NaN as the classic walk does).  The
 JAX package has no consistent answer on NaN (ROADMAP C7) and flushes
 subnormals on the CPU (C2), so nothing here is compared with it.  The card
 tests (``tests/test_torch_cuda.py``) hold every kernel to these plain
@@ -27,7 +29,13 @@ from _torch_cases import (
     edge_spans,
     quiet_nans,
 )
-from repro_torch.core import RMQ, build_hierarchy, make_plan, rmq_walk_batch
+from repro_torch.core import (
+    RMQ,
+    bitpack,
+    build_hierarchy,
+    make_plan,
+    rmq_walk_batch,
+)
 from repro_torch.core.baselines import FullScan, SparseTable
 from repro_torch.core.constants import PAD_POS
 from repro_torch.core.hybrid import HybridRMQ
@@ -228,3 +236,67 @@ def test_span_answers_its_leftmost_nan(backend, with_pos):
     _same_bits(r.query(ls, rs), wv, backend)
     if with_pos:
         np.testing.assert_array_equal(r.query_index(ls, rs).numpy(), wp)
+
+
+COMPACT = {
+    "packed": dict(packed_pos=True),
+    "bf16": dict(summary_dtype="bfloat16"),
+    "packed_bf16": dict(packed_pos=True, summary_dtype="bfloat16"),
+}
+
+
+def _check_compact(h, x_live, plan, what=""):
+    """The compact planes are the oracle's planes packed / cast."""
+    base = np.full(plan.capacity, np.inf, x_live.dtype)
+    base[:x_live.size] = x_live
+    upper, upos = oracle_upper(base, plan)
+    _same_bits(h.base, base, what + " base")
+    want = torch.from_numpy(upper)
+    if plan.summary_dtype == "bfloat16":
+        assert h.upper.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            h.upper.view(torch.int16).numpy(),
+            want.to(torch.bfloat16).view(torch.int16).numpy(),
+            err_msg=what + " upper")
+    else:
+        _same_bits(h.upper, want, what + " upper")
+    assert (h.upper_pos.dtype == torch.uint32) == plan.packed_pos
+    np.testing.assert_array_equal(
+        bitpack.resolve_positions(h.upper_pos, plan).numpy(), upos,
+        err_msg=what + " upper_pos")
+
+
+@pytest.mark.parametrize("layout", sorted(COMPACT))
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("n,c,t,cap", EDGE_GEOMETRIES)
+def test_compact_planes_follow_the_rule(n, c, t, cap, kind, layout):
+    """float32 compact indexes: the planes are the oracle's packed / cast;
+    the walk (the exact walk over bf16 summaries, value queries too)
+    answers each span's leftmost NaN, else its leftmost least entry, bits
+    and position, as the classic walk does; an update writing NaNs over
+    numbers and numbers over NaNs keeps the planes the oracle's."""
+    rng = np.random.default_rng(9 * n + c)
+    x = edge_input(kind, rng, n, c, np.float32)
+    plan = make_plan(n, c=c, t=t, capacity=cap, **COMPACT[layout])
+    h = build_hierarchy(torch.from_numpy(x), plan, with_positions=True)
+    _check_compact(h, x, plan, "build")
+    ls, rs = edge_spans(rng, n, c, 256)
+    wv, wp = oracle_spans(x, ls, rs)
+    lt, rt = torch.from_numpy(ls), torch.from_numpy(rs)
+    v, p = rmq_walk_batch(h, lt, rt, track_pos=True)
+    np.testing.assert_array_equal(p.numpy(), wp)
+    _same_bits(v, wv, "values with positions")
+    _same_bits(rmq_walk_batch(h, lt, rt, track_pos=False)[0], wv,
+               "value queries")
+    idxs = rng.integers(0, plan.capacity, 300)
+    vals = (rng.random(300) + 0.25).astype(np.float32)
+    vals[:50] = quiet_nans(rng, 50, np.float32)
+    if kind == "nan":
+        idxs[50:90] = np.flatnonzero(np.isnan(x))[:40]
+    live = np.full(plan.capacity, np.inf, np.float32)
+    live[:n] = x
+    for i, val in zip(idxs, vals):
+        live[i] = val
+    got = upd_ops.update_hierarchy_cuda(h, torch.from_numpy(idxs),
+                                        torch.from_numpy(vals))
+    _check_compact(got, live, plan, "update")

@@ -283,7 +283,7 @@ class TestUpdateKernelUnits:
         ids = rng.integers(0, m, b).astype(np.int32)
         want = jkernel.update_level(jnp.asarray(x), jnp.asarray(ids), c=c,
                                     interpret=True)
-        got, _ = upd_ops.repair_level_plain(
+        got, _, _ = upd_ops.repair_level_plain(
             torch.from_numpy(x), torch.zeros(c * m, dtype=torch.int32),
             torch.from_numpy(ids), c, track=False)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -297,7 +297,7 @@ class TestUpdateKernelUnits:
         wv, wp = jkernel.update_level_with_positions(
             jnp.asarray(x), jnp.asarray(p), jnp.asarray(ids), c=c,
             interpret=True)
-        gv, gp = upd_ops.repair_level_plain(
+        gv, gp, _ = upd_ops.repair_level_plain(
             torch.from_numpy(x), torch.from_numpy(p), torch.from_numpy(ids),
             c, track=True)
         np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
@@ -313,7 +313,7 @@ class TestUpdateKernelUnits:
         wv, wp = jkernel.update_level0_with_positions(
             jnp.asarray(padded), jnp.asarray(ids), c=c, cap=cap,
             pos_dtype=jnp.int32, interpret=True)
-        gv, gp = upd_ops.repair_level_plain(
+        gv, gp, _ = upd_ops.repair_level_plain(
             torch.from_numpy(x), None, torch.from_numpy(ids), c, track=True)
         np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
         np.testing.assert_array_equal(gp.numpy(), np.asarray(wp))
