@@ -163,6 +163,29 @@ outside the repository.  Phases:
    the update's, and the out-of-core build's time, launches and peak
    memory.
 
+14. the autotuner (run after phase 13): ``Autotuner(device=card)`` at n =
+   2^24 over the nine ``DEFAULT_GEOMETRIES``, backends ``cuda`` (the
+   routed engine: ``rmq_short``, ``rmq_scan``, the hybrid top) and
+   ``fused`` (``rmq_fused``), m = 4096, 3 repeats, 3 crossover points
+   (``rmq_bulk`` in the bulk crossover), saved into a temporary directory
+   and loaded back; a winner for every span mix, each rebuilt on the card
+   and answering its mix's spans through an engine with the cache, equal
+   to the default geometry (c = 128, t = 64) as integer views.  Then
+   ``RMQ.build(x, c="auto", with_positions=True)`` at geometry A's data
+   against the committed ``results/tuning_cache_torch.json``: with the
+   card's key there, the plan is bucket 30's ``mixed`` winner, the engine
+   with the cache adopts its backend (``source`` "cache"), the launches
+   are the winner's (one ``hierarchy_fused`` for a fused build, L - 1
+   ``hierarchy_build`` for a per-level one; one ``rmq_fused`` per bucket
+   for a fused engine), and the 2^24 spans (the facade) and the first
+   2^20 (the engine) answer as phase 3's, integer views; without the key,
+   the miss path (c = 128, t = 64, no split, ``source`` "default").
+   Control: a cache whose bucket-30 ``mixed`` entry names another
+   geometry must move the plan off the committed winner (so it fails
+   that gate).  Times, on the host clock to the end of device work, in
+   turns with the default geometry: the build and an engine batch over
+   2^20 mixed spans.
+
 Each phase sets every launch counter to 0 just before it drives its
 path and reads them just after.  The output ends with one
 ``{"kernels": [...]}`` line (per kernel: its launches on its phase's
@@ -1794,6 +1817,229 @@ def compact_phase(torch, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the autotuner (A9) and c="auto" at geometry A
+# ---------------------------------------------------------------------------
+TUNE_N = 1 << 24          # the on-card search's size
+TUNE_M = 4096             # spans a measured batch
+
+
+def engine_launches(engine, fused: bool):
+    """The launches an engine's value + index pair over one batch makes:
+    one ``rmq_fused`` a bucket (fused), else one ``rmq_short`` a short
+    bucket and one ``rmq_scan`` a mid one (the long class is the hybrid
+    top, no kernel)."""
+    from repro_torch.qe import FUSED, MID, SHORT
+
+    cls = {k: v // 2 for k, v in engine.stats()["class_counts"].items()}
+    per = engine.planner.max_bucket
+
+    def buckets(k):
+        return -(-k // per)
+
+    if fused:
+        return {"rmq_fused": 2 * buckets(cls[FUSED])}
+    return {"rmq_short": 2 * buckets(cls[SHORT]),
+            "rmq_scan": 2 * buckets(cls[MID])}
+
+
+def build_and_facade_launches(r):
+    """A build's launches and the facade's value + index pair over one
+    batch: fused 1 + 2, per-level (cuda) L - 1 + 2."""
+    if r.backend == "fused":
+        return {"hierarchy_fused": 1, "rmq_fused": 2}
+    return {"hierarchy_build": r.plan.num_levels - 1, "rmq_scan": 2}
+
+
+def tuned_search(torch, seed):
+    """The search at n = 2^24 on the card; every winner held to the
+    default geometry's answers on its own workload."""
+    from repro_torch.core import RMQ
+    from repro_torch.qe import QueryEngine
+    from repro_torch.tune import (
+        DEFAULT_GEOMETRIES,
+        SPAN_MIXES,
+        Autotuner,
+        TuningCache,
+        current_platform,
+        make_input_array,
+        make_span_queries,
+        n_bucket,
+    )
+
+    card = torch.device("cuda")
+    platform = current_platform(card)
+    lines = []
+    tuner = Autotuner(geometries=DEFAULT_GEOMETRIES,
+                      backends=("cuda", "fused"), m=TUNE_M, repeats=3,
+                      crossover_points=3, seed=seed, log=lines.append,
+                      device=card)
+    t0 = time.perf_counter()
+    cache, report = tuner.search([TUNE_N])
+    t_search = time.perf_counter() - t0
+    for line in lines:   # every measurement, crossover and winner
+        print(f"I search: {line}")
+    require(report["platform"] == platform,
+            f"I: the search keyed {report['platform']}, not {platform}")
+    ran = len(DEFAULT_GEOMETRIES) - len(report["skipped"])
+    want = ran * len(tuner.backends) * len(SPAN_MIXES)
+    require(len(report["measurements"]) == want,
+            f"I: {len(report['measurements'])} measurements, not {want}")
+    require(all(m["ns_per_query"] > 0 for m in report["measurements"]),
+            "I: a measurement is not positive")
+    entries = {(e["n_bucket"], e["span_mix"]): e
+               for e in cache.as_json()["entries"]}
+    require(set(entries) == {(n_bucket(TUNE_N), mix) for mix in SPAN_MIXES},
+            f"I: winners {sorted(entries)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "tuning_cache.json")
+        cache.save(path)
+        require(TuningCache.load(path).as_json() == cache.as_json(),
+                "I: the cache does not round-trip through save / load")
+
+    x = torch.from_numpy(make_input_array(TUNE_N)).to(card)
+    default = RMQ.build(x, with_positions=True, device=card)
+    winners = {}
+    for mix in SPAN_MIXES:
+        w = cache.lookup(platform, TUNE_N, mix)
+        ls, rs = make_span_queries(TUNE_N, TUNE_M,
+                                   tuner.reference_c(TUNE_N), mix,
+                                   seed=seed + 1)
+        r = RMQ.build(x, c=w.c, t=w.t, with_positions=True,
+                      backend=w.backend, device=card)
+        e = QueryEngine(r, cache_size=0, tuning=cache, span_mix=mix)
+        require(e.backend == w.backend and e.tuned["source"] == "cache",
+                f"I {mix}: the engine did not adopt {w.backend}")
+        got = [e.query(ls, rs), e.query_index(ls, rs)]
+        want_ = [default.query(ls, rs), default.query_index(ls, rs)]
+        require(same_bits(torch, list(zip(got, want_))),
+                f"I {mix}: the winner ({w.c}, {w.t}, {w.backend}) answers "
+                "differently from c = 128, t = 64")
+        winners[mix] = dict(c=w.c, t=w.t, backend=w.backend,
+                            long_cutoff=w.long_cutoff,
+                            bulk_crossover=w.bulk_crossover,
+                            ns_per_query=w.ns_per_query)
+    print(f"I search at n = 2^24: {t_search} s, {len(lines)} log lines, "
+          f"skipped {report['skipped']}; winners {json.dumps(winners)}, "
+          "each equal to c = 128, t = 64 on its workload (integer views)")
+    return {"search_s": t_search, "winners": winners}
+
+
+def plan_gate(rmq, winner) -> bool:
+    """Is ``rmq``'s plan the committed winner's (or, with no winner for
+    this card, the default geometry's)?"""
+    plan = rmq.plan
+    if winner is None:
+        return (plan.c, plan.t, plan.level_split) == (128, 64, None)
+    return ((plan.c, plan.t) == (winner.c, winner.t)
+            and plan.level_split == winner.level_split())
+
+
+def autotune_phase(torch, seed, want_v, want_p):
+    """Phase 14: the on-card search, then c="auto" at A against the
+    committed cache, with its control."""
+    from repro_torch.core import RMQ
+    from repro_torch.qe import QueryEngine
+    from repro_torch.tune import (
+        DEFAULT_CACHE_PATH,
+        TunedConfig,
+        TuningCache,
+        current_platform,
+        default_cache,
+    )
+
+    out = tuned_search(torch, seed)
+    card = torch.device("cuda")
+    platform = current_platform(card)
+    store = default_cache()
+    require(store.source is not None
+            and os.path.samefile(store.source, DEFAULT_CACHE_PATH),
+            f"I: the default cache is {store.source}, not the committed "
+            f"{DEFAULT_CACHE_PATH}")
+    committed = {(e["platform"], e["n_bucket"], e["span_mix"])
+                 for e in store.as_json()["entries"]}
+    winner = (store.lookup(platform, 1 << 30, "mixed")
+              if (platform, 30, "mixed") in committed else None)
+    print(f"I: committed cache {DEFAULT_CACHE_PATH}, {len(store)} entries; "
+          f"bucket 30 'mixed' for {platform!r}: "
+          f"{winner.as_dict() if winner else 'absent (the miss path)'}")
+
+    n, m, m_eng = 1 << 30, 1 << 24, 1 << 20
+    x, ls, rs, setup = geometry(torch, n, m, seed)
+    count = zero_counts()
+    rmq = RMQ.build(x, c="auto", with_positions=True)
+    v, p = rmq.query(ls, rs), rmq.query_index(ls, rs)
+    got = read(torch, count)
+    expect("I c='auto' build + facade", got,
+           **build_and_facade_launches(rmq))
+    require(plan_gate(rmq, winner),
+            f"I: c='auto' built ({rmq.plan.c}, {rmq.plan.t}, "
+            f"{rmq.plan.level_split}), not the committed winner")
+    require(rmq.backend == (winner.backend if winner else "cuda"),
+            f"I: c='auto' chose backend {rmq.backend}")
+    require(same_bits(torch, [(v, want_v), (p, want_p)]),
+            "I: c='auto' at A answers differently from phase 3")
+    el, er = ls[:m_eng].cpu().numpy(), rs[:m_eng].cpu().numpy()
+    engine = QueryEngine(rmq, cache_size=0, tuning=store)
+    require(engine.backend == rmq.backend
+            and engine.tuned["source"] == ("cache" if winner else "default"),
+            f"I: the engine resolved {engine.tuned}")
+    count = zero_counts()
+    ev, ep = engine.query(el, er), engine.query_index(el, er)
+    got_e = read(torch, count)
+    expect("I c='auto' engine", got_e,
+           **engine_launches(engine, engine.backend == "fused"))
+    require(same_bits(torch, [(ev, want_v[:m_eng]), (ep, want_p[:m_eng])]),
+            "I: the tuned engine answers differently from phase 3")
+    print(f"I c='auto' at A (data made in {setup:.3f} s): plan c="
+          f"{rmq.plan.c} t={rmq.plan.t} split {rmq.plan.level_split}, "
+          f"backend {rmq.backend}; launches {got} (build + facade over "
+          f"2^24), engine over 2^20 {got_e}; tuned {engine.tuned}; answers "
+          "equal to phase 3's (integer views)")
+
+    # -- control: another geometry under the card's key must fail the gate
+    base = winner or TunedConfig(c=128, t=64, backend="cuda")
+    other = (32, 64) if (base.c, base.t) != (32, 64) else (128, 8)
+    control_cache = TuningCache()
+    control_cache.put(platform, n, "mixed", TunedConfig(
+        c=other[0], t=other[1], backend=base.backend, planner=base.planner))
+    control = RMQ.build(x, c="auto", with_positions=True,
+                        tuning=control_cache)
+    require((control.plan.c, control.plan.t) == other,
+            f"I control: the plan ignored the cache ({control.plan.c}, "
+            f"{control.plan.t})")
+    require(not plan_gate(control, winner),
+            "I control: a cache naming another geometry passed the gate")
+    require(same_bits(torch, [(control.query(ls, rs), want_v)]),
+            "I control: another geometry answers differently")
+    print(f"I control: a cache naming {other} gives plan ({control.plan.c}, "
+          f"{control.plan.t}), which fails the gate as it must; its answers "
+          "equal phase 3's")
+    del control
+
+    # -- times, in turns with the default geometry --------------------------
+    default = RMQ.build(x, with_positions=True)
+    dengine = QueryEngine(default, cache_size=0)
+    times = {"tuned build": [], "default build": [],
+             "tuned engine 2^20": [], "default engine 2^20": []}
+    for _ in range(2):
+        times["tuned build"].append(wall(torch, lambda: RMQ.build(
+            x, c="auto", with_positions=True))[1])
+        times["default build"].append(wall(torch, lambda: RMQ.build(
+            x, with_positions=True))[1])
+        times["tuned engine 2^20"].append(
+            wall(torch, lambda: engine.query(el, er))[1])
+        times["default engine 2^20"].append(
+            wall(torch, lambda: dengine.query(el, er))[1])
+    print(f"I times (s, host clock to the end of device work, in turns; "
+          f"tuned = {rmq.backend} at c={rmq.plan.c} t={rmq.plan.t}, default "
+          f"= cuda at c=128 t=64; {card_line()}): {json.dumps(times)}")
+    out.update(winner=winner.as_dict() if winner else None,
+               plan=[rmq.plan.c, rmq.plan.t], backend=rmq.backend,
+               times_s=times)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 11: serving llama3.2-3b (F)
 # ---------------------------------------------------------------------------
 F_BATCH, F_PROMPT, F_NEW = 4, 2048, 64
@@ -2719,6 +2965,7 @@ def run(torch, seed: int):
                    ("hierarchy_fused", zh), ("hierarchy_build", zh)):
         errors[key] = max(errors[key], e)
     nan_phase(torch, "A", x, plan, ls, rs, seed)
+    a_answers = (wv, wp)   # phase 14 holds c="auto" at A to them
     del h, hp, x, ls, rs, rf, rc, wv, wp, up, eng
     torch.cuda.empty_cache()
 
@@ -2774,6 +3021,13 @@ def run(torch, seed: int):
     torch.cuda.empty_cache()
     compact = compact_phase(torch, seed)
     print(f"H summary: {json.dumps(compact)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 14: the autotuner, c="auto" at A -----------------------------
+    tuned = autotune_phase(torch, seed, *a_answers)
+    print(f"I summary: {json.dumps(tuned)}")
+    del a_answers
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -3,6 +3,7 @@
 from repro_torch.configs.base import (
     ARCH_IDS,
     ModelConfig,
+    RMQConfig,
     ServeConfig,
     TrainConfig,
     get_config,
@@ -13,6 +14,7 @@ from repro_torch.configs.base import (
 __all__ = [
     "ARCH_IDS",
     "ModelConfig",
+    "RMQConfig",
     "ServeConfig",
     "TrainConfig",
     "get_config",

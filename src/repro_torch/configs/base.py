@@ -1,8 +1,7 @@
 """Config dataclasses: model architecture, training and serving.
 
 The port's own copy of ``repro.configs.base`` (pure data; the port imports
-nothing of the reference package).  The standalone-RMQ config waits for
-the slice that uses it.  All configs are frozen
+nothing of the reference package).  All configs are frozen
 dataclasses, hashable and serializable to/from dicts.  One file per assigned
 architecture lives next to this module (``repro_torch/configs/<id>.py``)
 exposing ``config()`` (exact assigned geometry) and ``smoke_config()``
@@ -16,8 +15,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
-__all__ = ["ModelConfig", "ServeConfig", "TrainConfig", "registry",
-           "get_config", "get_smoke_config", "ARCH_IDS"]
+__all__ = ["ModelConfig", "RMQConfig", "ServeConfig", "TrainConfig",
+           "registry", "get_config", "get_smoke_config", "ARCH_IDS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +187,18 @@ class ServeConfig:
     eviction_window: int = 1024      # protected recent window
     rmq_chunk: int = 128
     rmq_threshold: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class RMQConfig:
+    """Standalone RMQ product surface config (paper §5.3 tuning);
+    ``backend="auto"`` is the device's (``cuda`` on a card, ``eager``
+    on the CPU)."""
+    c: int = 128
+    t: int = 64
+    query_block: int = 256
+    with_positions: bool = False
+    backend: str = "auto"
 
 
 # ---------------------------------------------------------------------------

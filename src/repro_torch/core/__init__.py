@@ -3,6 +3,9 @@
     from repro_torch.core import RMQ
 
     rmq = RMQ.build(x, with_positions=True)   # on the card
+    rmq = RMQ.build(x, c="auto")              # geometry from the card's
+                                              # tuning cache (c=128, t=64
+                                              # on a miss)
     vals = rmq.query(ls, rs)                  # batched RMQ_value
     pos = rmq.query_index(ls, rs)             # batched RMQ_index (leftmost)
 
@@ -23,7 +26,13 @@ from repro_torch.core.hierarchy import (
     pos_dtype_for,
 )
 from repro_torch.core.plan import HierarchyPlan, LevelSplit, make_plan
-from repro_torch.core.protocol import live_length
+from repro_torch.core.protocol import (
+    MutableRMQIndex,
+    RMQIndex,
+    is_distributed,
+    live_length,
+    supports_mutation,
+)
 from repro_torch.core.query import (
     check_query_args,
     rmq_index,
@@ -42,6 +51,10 @@ from repro_torch.core.theory import (
 
 __all__ = [
     "RMQ",
+    "RMQIndex",
+    "MutableRMQIndex",
+    "is_distributed",
+    "supports_mutation",
     "Hierarchy",
     "HierarchyPlan",
     "LevelSplit",

@@ -16,6 +16,10 @@ level 0 (:mod:`repro_torch.core.bitpack`, :mod:`repro_torch.core.query`).
 memmap, a tensor), so the input never has to exist as one array off
 the card, and serves capacities past 2^31 through the ``eager`` walk.
 
+``c="auto"`` takes the geometry (and, with ``backend="auto"``, the
+query backend) from the tuning cache measured for the build's device
+(:mod:`repro_torch.tune`); a miss is the default build, bit for bit.
+
 ``update`` / ``append`` return a successor index with ``generation + 1``
 (the predecessor keeps its own buffers and answers as before);
 ``engine()`` puts the span-routed :class:`repro_torch.qe.QueryEngine`
@@ -25,7 +29,7 @@ on top.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -62,30 +66,59 @@ class RMQ:
     @staticmethod
     def build(
         x,
-        c: int = 128,
+        c: Union[int, str] = 128,
         t: int = 64,
         with_positions: bool = False,
         backend: str = "auto",
         plan: Optional[HierarchyPlan] = None,
         capacity: Optional[int] = None,
+        tuning=None,
+        span_mix: str = "mixed",
         packed_pos: Optional[bool] = None,
         summary_dtype: Optional[str] = None,
         device=None,
     ) -> "RMQ":
         """Build over ``x``; ``capacity > len(x)`` reserves an +inf tail.
-        ``packed_pos`` / ``summary_dtype`` pick the compact planes
-        (``None``: the classic layout); an explicit ``plan`` carries its
-        own."""
+
+        ``c="auto"`` (or a ``tuning`` cache) takes the geometry from the
+        tuning cache (default :func:`repro_torch.tune.default_cache`),
+        keyed by the build device's platform, the size bucket and
+        ``span_mix``, and carries the winner's ``LevelSplit`` on the
+        plan; with ``backend="auto"`` the tuned query backend is adopted
+        too.  A miss builds ``c=128, t=64`` on the device's backend, bit
+        for bit as without the cache.  ``packed_pos`` / ``summary_dtype``
+        pick the compact planes (``None``: the cache's, else the classic
+        layout); an explicit ``plan`` carries its own."""
         dev = resolve_device(device)
         x = px.coerce_values(x, dev)
         if plan is not None and capacity is not None:
             raise ValueError(
                 "pass capacity via make_plan(..., capacity=...) when "
                 "supplying an explicit plan")
+        tuned = None
+        if plan is None and (c == "auto" or tuning is not None):
+            from repro_torch.tune import cache as _tc
+
+            store = tuning if tuning is not None else _tc.default_cache()
+            tuned = store.lookup(_tc.current_platform(dev),
+                                 int(x.shape[0]), span_mix)
         if plan is None:
-            plan = make_plan(int(x.shape[0]), c=c, t=t, capacity=capacity,
-                             packed_pos=packed_pos,
-                             summary_dtype=summary_dtype)
+            if tuned is not None:
+                plan = make_plan(
+                    int(x.shape[0]), c=tuned.c, t=tuned.t,
+                    capacity=capacity, level_split=tuned.level_split(),
+                    packed_pos=(tuned.packed_pos if packed_pos is None
+                                else packed_pos),
+                    summary_dtype=(tuned.summary_dtype
+                                   if summary_dtype is None
+                                   else summary_dtype))
+            else:
+                plan = make_plan(int(x.shape[0]),
+                                 c=128 if c == "auto" else c, t=t,
+                                 capacity=capacity, packed_pos=packed_pos,
+                                 summary_dtype=summary_dtype)
+        if backend == "auto" and tuned is not None:
+            backend = tuned.backend
         backend = px.resolve_backend(backend, dev)
         h = px.build_hierarchy_with_backend(
             x, plan, with_positions=with_positions, backend=backend)

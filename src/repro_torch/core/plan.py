@@ -13,9 +13,9 @@ The layout is fully determined by ``(n, c, t)`` plus a reserved
   change the plan.
 
 Plain Python metadata, hashable; no tensor appears here.  The port's copy
-of ``repro.core.plan`` keeps every geometry property and the byte
-accounting; the tuned path (``tuned=True`` / ``c="auto"``) waits for the
-autotuner port (ROADMAP A9).
+of ``repro.core.plan`` keeps every geometry property, the byte accounting
+and the tuned path (``tuned=True`` / ``c="auto"``: the geometry from the
+tuning cache, :mod:`repro_torch.tune`).
 """
 
 from __future__ import annotations
@@ -45,8 +45,9 @@ class LevelSplit:
                   keeps the planner's analytic default.
     fused:        execute through the single-launch fused query path.
 
-    Carried on the plan for layout parity with the reference; the query
-    engine that reads it is a later slice (ROADMAP A6).
+    A tuned build carries its winner's split on the plan; the query
+    engine reads it when no tuning cache is given
+    (:class:`repro_torch.qe.QueryEngine`).
     """
 
     scan_chunks: int = 2
@@ -192,6 +193,9 @@ def make_plan(
     t: int = 64,
     capacity: Optional[int] = None,
     tuned: bool = False,
+    span_mix: str = "mixed",
+    tuning=None,
+    platform: Optional[str] = None,
     level_split: Optional[LevelSplit] = None,
     packed_pos: Optional[bool] = None,
     summary_dtype: Optional[str] = None,
@@ -203,15 +207,33 @@ def make_plan(
     level (a pure scan).  ``capacity`` (default ``n``) reserves an
     +inf-padded tail and the geometry is derived from it.
 
-    ``tuned=True`` / ``c="auto"`` (the tuning-cache geometry) raise
-    ``NotImplementedError`` until the autotuner is ported (ROADMAP A9).
+    ``tuned=True`` (or ``c="auto"``) takes the geometry from the tuning
+    cache (``tuning``, default :func:`repro_torch.tune.default_cache`),
+    keyed by ``platform`` (default :func:`repro_torch.tune.
+    current_platform`, the card's key), the size bucket and ``span_mix``.
+    A hit adopts the winner's ``c``, ``t`` and :class:`LevelSplit`, and
+    its ``packed_pos`` / ``summary_dtype`` unless given here.  A miss
+    keeps the numeric ``c`` / ``t`` passed (``c="auto"``: 128) and
+    attaches no split.
     """
     if n <= 0:
         raise ValueError(f"n must be positive, got {n}")
     if tuned or c == "auto":
-        raise NotImplementedError(
-            "tuned plans (tuned=True / c='auto') need the autotuner, which "
-            "is not ported yet (ROADMAP A9); pass numeric c and t")
+        from repro_torch.tune import cache as _tc
+
+        store = tuning if tuning is not None else _tc.default_cache()
+        plat = platform or _tc.current_platform()
+        cfg = store.lookup(plat, n, span_mix)
+        if cfg is not None:
+            c, t = cfg.c, cfg.t
+            if level_split is None:
+                level_split = cfg.level_split()
+            if packed_pos is None:
+                packed_pos = cfg.packed_pos
+            if summary_dtype is None:
+                summary_dtype = cfg.summary_dtype
+        elif c == "auto":
+            c = 128  # a miss: the default geometry
     if packed_pos is None:
         packed_pos = False
     if summary_dtype is None:

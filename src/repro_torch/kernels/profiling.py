@@ -40,6 +40,7 @@ __all__ = [
     "LaunchRecord",
     "LaunchRegistry",
     "count_launches",
+    "current_registry",
     "launch_registry",
     "operand_bytes",
     "record_config",
@@ -78,6 +79,9 @@ class LaunchRecord:
 
     name: str
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def as_dict(self) -> dict:
+        return {"name": self.name, **self.meta}
 
 
 class LaunchRegistry:
@@ -120,6 +124,28 @@ class LaunchRegistry:
                 b = rec.meta.get("operand_bytes")
                 if b is not None:
                     out[rec.name] = out.get(rec.name, 0) + int(b)
+        return out
+
+    def as_dict(self) -> dict:
+        """``counts`` and ``launches``, plus ``configs`` and ``timings_s``
+        (calls, total, mean, max a site) where any were recorded: the
+        reference's shape, which a benchmark files beside its result."""
+        with self._lock:
+            records = [r.as_dict() for r in self.records]
+            timings = {k: list(v) for k, v in self.timings.items()}
+            configs = [r.as_dict() for r in self.configs]
+        counts: Dict[str, int] = {}
+        for r in records:
+            counts[r["name"]] = counts.get(r["name"], 0) + 1
+        out: dict = {"counts": counts, "launches": records}
+        if configs:
+            out["configs"] = configs
+        if timings:
+            out["timings_s"] = {
+                k: {"calls": len(v), "total": sum(v),
+                    "mean": sum(v) / len(v), "max": max(v)}
+                for k, v in timings.items()
+            }
         return out
 
 
@@ -165,6 +191,11 @@ def launch_registry(timing: bool = False) -> Iterator[LaunchRegistry]:
         yield reg
     finally:
         _registry = prev
+
+
+def current_registry() -> Optional[LaunchRegistry]:
+    """The active :func:`launch_registry`'s registry, else ``None``."""
+    return _registry
 
 
 def timed_dispatch(name: str, fn, *args, **kwargs):

@@ -1,12 +1,21 @@
-"""Observability of the port: request tracing and metrics.
+"""Observability of the port: request tracing, metrics, launch registry.
 
 ``trace.py`` and ``metrics.py`` are copies of the reference's
 ``repro.obs`` modules (pure Python, no framework import), so the engine's
 spans and counters read the same in both packages.  The launch registry
-lives beside the kernels (:mod:`repro_torch.kernels.profiling`).
-Exporters past the dict / Prometheus text ones wait for ROADMAP A7.
+lives beside the kernels (:mod:`repro_torch.kernels.profiling`) and is
+re-exported here, as in the reference.  Exporters past the dict /
+Prometheus text ones, and the registry's cost estimates, wait for
+ROADMAP A7.
 """
 
+from repro_torch.kernels.profiling import (
+    LaunchRecord,
+    LaunchRegistry,
+    count_launches,
+    launch_registry,
+    record_launch,
+)
 from repro_torch.obs.metrics import (
     LATENCY_BUCKETS,
     SIZE_BUCKETS,
@@ -22,10 +31,15 @@ __all__ = [
     "Gauge",
     "Histogram",
     "LATENCY_BUCKETS",
+    "LaunchRecord",
+    "LaunchRegistry",
     "Metrics",
     "SIZE_BUCKETS",
     "Span",
     "Tracer",
+    "count_launches",
+    "launch_registry",
+    "record_launch",
     "set_tracer",
     "use_tracer",
 ]

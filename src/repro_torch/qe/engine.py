@@ -32,8 +32,14 @@ summaries has no long class (the hybrid's table would compare quantized
 values, so long spans take the exact mid walk) and :meth:`query_bulk`
 bypasses B7 for the routed path.
 
-Not ported yet, and refused with ``NotImplementedError``: ``tuning=``
-(ROADMAP A9) and a distributed index (A10).
+Config precedence, resolved at every attach: explicit constructor
+kwargs > the ``tuning`` cache (a :class:`repro_torch.tune.TuningCache`,
+looked up by the index's device, live length and ``span_mix``) >
+``plan.level_split`` (baked in by a tuned build) > analytic defaults;
+``engine.tuned["source"]`` says which (``"cache"``, ``"plan"``,
+``"default"``, with ``"+override"`` where an explicit ``long_cutoff``
+won).  A distributed index (ROADMAP A10) is refused with
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -103,14 +109,14 @@ class QueryEngine:
         backend: Optional[str] = None,
         metrics: Optional[Metrics] = None,
         tuning=None,
+        span_mix: str = "mixed",
         bulk_crossover: Optional[int] = None,
     ):
-        if tuning is not None:
-            raise NotImplementedError(
-                "tuning= needs the autotuner, which is not ported yet "
-                "(ROADMAP A9)")
-        # Config precedence: explicit ctor kwargs > plan.level_split
-        # (baked at build) > analytic defaults, resolved per attach.
+        # Config precedence, resolved per attach: explicit ctor kwargs >
+        # ``tuning`` cache > plan.level_split (baked at build) > analytic
+        # defaults.
+        self._tuning = tuning
+        self._span_mix = span_mix
         self._explicit_backend = backend
         self._long_enabled = long_enabled
         self._long_cutoff = long_cutoff
@@ -142,9 +148,24 @@ class QueryEngine:
         self.attach(index)
 
     # -- config resolution ------------------------------------------------
+    def _tuned_lookup(self, index):
+        """The tuning-cache entry for this index, or ``None``."""
+        if self._tuning is None or is_distributed(index):
+            return None
+        from repro_torch.tune.cache import current_platform
+
+        return self._tuning.lookup(current_platform(index.device),
+                                   live_length(index), self._span_mix)
+
     def _resolve_backend(self, index) -> str:
+        """Query lowering by the precedence ladder (hierarchies are
+        bit-identical across backends, so a tuned backend may answer
+        over any build)."""
         if self._explicit_backend is not None:
             return runtime_backend(self._explicit_backend)
+        cfg = self._tuned_lookup(index)
+        if cfg is not None:
+            return runtime_backend(cfg.backend)
         split = getattr(index.plan, "level_split", None)
         if split is not None and split.fused:
             return "fused"
@@ -152,6 +173,7 @@ class QueryEngine:
 
     def _resolve_config(self, index) -> dict:
         """Planner knobs and their provenance."""
+        cfg = self._tuned_lookup(index)
         split = getattr(index.plan, "level_split", None)
         source = "default"
         long_cutoff = self._long_cutoff
@@ -163,6 +185,12 @@ class QueryEngine:
             sparse_top = split.sparse_top
             if long_cutoff is None:
                 long_cutoff = split.long_cutoff
+        if cfg is not None:
+            source = "cache"
+            scan_chunks = cfg.scan_chunks
+            sparse_top = cfg.sparse_top
+            if self._long_cutoff is None:
+                long_cutoff = cfg.long_cutoff
         if self._long_cutoff is not None and source != "default":
             source += "+override"
         # bf16 summaries: the hybrid's sparse-table top would compare
@@ -180,16 +208,21 @@ class QueryEngine:
 
     def _resolve_bulk_crossover(self, index) -> int:
         """Batch size from which :meth:`query_bulk` leaves the fused path:
-        the explicit kwarg, else the reference's analytic model (about
-        log2(c) passes over the ``capacity / c`` chunk grid, at least
-        1024)."""
+        the explicit kwarg, else the tuned cache's measured crossover,
+        else the reference's analytic model (about log2(c) passes over
+        the ``capacity / c`` chunk grid, at least 1024)."""
         if self._bulk_crossover is not None:
             return self._bulk_crossover
+        cfg = self._tuned_lookup(index)
+        if cfg is not None and cfg.bulk_crossover:
+            return int(cfg.bulk_crossover)
         plan = index.plan
         rows = max(index.capacity // plan.c, 1)
         return max(1024, rows * max(plan.c.bit_length() - 1, 1))
 
     def _configure_executors(self, backend: str) -> None:
+        """(Re)build the executor table for ``backend``: at construction
+        and when an attach adopts another tuned backend."""
         self.executors = {
             SHORT: ShortSpanExecutor(backend),
             MID: MidSpanExecutor(backend),

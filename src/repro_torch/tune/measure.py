@@ -1,4 +1,4 @@
-"""The paper's workloads (§5.1), numpy only, drawn from a seed.
+"""The paper's workloads (§5.1), drawn from a seed, and the timing discipline.
 
 A copy of ``repro.tune.measure``'s generators, so the port and its
 ``chip_smoke.py`` draw the same inputs as the reference's benchmarks:
@@ -10,15 +10,54 @@ A copy of ``repro.tune.measure``'s generators, so the port and its
 * left borders uniform in [0, n - s];
 * :func:`make_span_queries` pins spans inside one engine class (short /
   mid / long).
+
+Timing discipline (:func:`time_fn`, the reference's): one untimed
+warm-up call, then the median of ``repeats`` host-clock runs, each ending
+in ``torch.cuda.synchronize()`` when the output lives on a card.  The
+autotuner times whole engine batches, host work (dedup, planning,
+packing) included, so the host clock to the end of device work is the
+right clock; CUDA events would time the device alone.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import time
+from typing import Callable, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["make_input_array", "make_queries", "make_span_queries"]
+__all__ = ["make_input_array", "make_queries", "make_span_queries",
+           "time_fn"]
+
+
+def _cuda_devices(out):
+    """The CUDA devices of the tensors in ``out`` (nested in tuples,
+    lists and dicts)."""
+    if isinstance(out, torch.Tensor):
+        return {out.device} if out.is_cuda else set()
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (tuple, list)):
+        return set().union(*map(_cuda_devices, out)) if out else set()
+    return set()
+
+
+def _wait(out) -> None:
+    for dev in _cuda_devices(out):
+        torch.cuda.synchronize(dev)
+
+
+def time_fn(fn: Callable, repeats: int = 5) -> float:
+    """Median host-clock seconds of ``fn()`` over ``repeats`` runs after
+    one untimed warm-up, each to the end of its device work."""
+    _wait(fn())
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        _wait(fn())
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
 
 
 def make_input_array(n: int, seed: int = 0) -> np.ndarray:

@@ -1433,3 +1433,105 @@ def test_out_of_core_build_matches_plain(card, n, seg, cap, layout):
     bv, bp = brute_force(x, ls, rs)
     np.testing.assert_array_equal(r.query(ls, rs).cpu().numpy(), bv)
     np.testing.assert_array_equal(r.query_index(ls, rs).cpu().numpy(), bp)
+
+
+# ---------------------------------------------------------------------------
+# the tuned path (A9): c="auto", QueryEngine(tuning=), the autotuner
+# ---------------------------------------------------------------------------
+def _card_cache(card, n, **kw):
+    from repro_torch.tune import TunedConfig, TuningCache, current_platform
+
+    cache = TuningCache()
+    cache.put(current_platform(card), n, "mixed", TunedConfig(**kw))
+    return cache
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["cuda", "fused"])
+@pytest.mark.parametrize("n,c,t", [((1 << 20) + 7, 32, 8),
+                                   (1 << 20, 128, 64)])
+def test_tuned_build_and_engine_match_plain(card, backend, n, c, t):
+    """A cache hit on the card's key: the build adopts the winner's
+    geometry and backend (one B1 launch fused, L - 1 B3 launches cuda),
+    the engine with the cache adopts its backend; the hierarchy equals
+    the plain build and the engine's answers the plain walk, as integer
+    views.  Control: the same cache keyed for another card misses."""
+    from repro_torch.qe import QueryEngine
+
+    planner = "fused" if backend == "fused" else "routed"
+    cache = _card_cache(card, n, c=c, t=t, backend=backend,
+                        planner=planner)
+    rng = np.random.default_rng(n + c)
+    x = torch.from_numpy(tied_input(rng, n)).to(card)
+    f0, b0 = fused_ops.LAUNCHES.launches, build_ops.LAUNCHES.launches
+    r = RMQ.build(x, c="auto", tuning=cache, with_positions=True)
+    torch.cuda.synchronize()
+    assert (r.plan.c, r.plan.t, r.backend) == (c, t, backend)
+    assert r.plan.level_split.fused == (backend == "fused")
+    launched = (fused_ops.LAUNCHES.launches - f0,
+                build_ops.LAUNCHES.launches - b0)
+    assert launched == ((1, 0) if backend == "fused"
+                        else (0, r.plan.num_levels - 1))
+    hp = build_hierarchy(x, r.plan, with_positions=True)
+    _same_bits(r.hierarchy.upper, hp.upper)
+    _same_bits(r.hierarchy.upper_pos, hp.upper_pos)
+    engine = QueryEngine(r, cache_size=0, tuning=cache)
+    assert engine.backend == backend and engine.tuned["source"] == "cache"
+    ls, rs = query_batch(rng, n, c, m=4096)
+    wv, wp = rmq_walk_batch(hp, torch.from_numpy(ls).to(card),
+                            torch.from_numpy(rs).to(card), track_pos=True)
+    _same_bits(engine.query(ls, rs), wv)
+    _same_bits(engine.query_index(ls, rs), wp)
+    other = _keyed_for(cache, "cuda:another card")
+    miss = RMQ.build(x, c="auto", tuning=other, with_positions=True)
+    assert (miss.plan.c, miss.plan.t, miss.plan.level_split) == (
+        128, 64, None)
+
+
+def _keyed_for(cache, platform):
+    """``cache``'s entries under another platform key."""
+    from repro_torch.tune import TuningCache
+
+    doc = cache.as_json()
+    for e in doc["entries"]:
+        e["platform"] = platform
+    return TuningCache.from_json(doc)
+
+
+@pytest.mark.gpu
+def test_tuned_miss_is_the_default_build(card):
+    from repro_torch.tune import TuningCache
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(zero_heavy(rng, 300_001)).to(card)
+    default = RMQ.build(x, with_positions=True)
+    tuned = RMQ.build(x, c="auto", tuning=TuningCache(),
+                      with_positions=True)
+    assert tuned.plan == default.plan and tuned.backend == "cuda"
+    _same_bits(tuned.hierarchy.upper, default.hierarchy.upper)
+    _same_bits(tuned.hierarchy.upper_pos, default.hierarchy.upper_pos)
+
+
+@pytest.mark.gpu
+def test_autotuner_tiny_search_on_the_card(card, tmp_path):
+    from repro_torch.tune import (
+        TINY_GEOMETRIES,
+        Autotuner,
+        TuningCache,
+        current_platform,
+    )
+
+    tuner = Autotuner(geometries=TINY_GEOMETRIES, m=256, repeats=1,
+                      crossover_points=2)
+    assert tuner.device.type == "cuda"
+    assert tuner.backends == ("cuda", "fused")
+    cache, report = tuner.search([1 << 14])
+    assert report["platform"] == current_platform(card)
+    assert report["platform"].startswith("cuda:")
+    assert len(report["measurements"]) == 3 * 2 * 4
+    assert all(m["ns_per_query"] > 0 for m in report["measurements"])
+    path = str(tmp_path / "cache.json")
+    cache.save(path)
+    loaded = TuningCache.load(path)
+    for mix in ("short", "mid", "long", "mixed"):
+        assert loaded.lookup(report["platform"], 1 << 14, mix) is not None

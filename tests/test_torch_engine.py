@@ -251,8 +251,11 @@ class TestEngineParity:
 
     def test_refusals_name_the_roadmap(self):
         _, _, rmq, _ = _pair(1000, 16, 4)
-        with pytest.raises(NotImplementedError, match="A9"):
-            QueryEngine(rmq, tuning=object())
+        # tuning is served (A9): an empty cache leaves the defaults
+        from repro_torch.tune import TuningCache
+
+        assert QueryEngine(rmq, tuning=TuningCache()).tuned["source"] == \
+            "default"
         # compact planes are served (A3): a packed index's engine answers
         # as the classic index's does
         packed = RMQ.build(rmq.hierarchy.base[:rmq.n], c=16, t=4,

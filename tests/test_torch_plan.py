@@ -4,6 +4,7 @@ import dataclasses
 
 import jax  # noqa: F401  (both frameworks at the top; JAX stays on the CPU)
 import pytest
+import torch
 
 from _torch_cases import GEOMETRIES
 from repro.core.plan import LevelSplit as JLevelSplit
@@ -65,8 +66,22 @@ def test_the_c2_plan_has_ten_upper_levels():
 
 
 @pytest.mark.parametrize("kwargs", [dict(tuned=True), dict(c="auto")])
-def test_tuned_plans_wait_for_the_autotuner(kwargs):
-    with pytest.raises(NotImplementedError, match="A9"):
+def test_tuned_plans_wait_for_the_autotuner(kwargs, monkeypatch):
+    """The autotuner is ported (A9): a cache miss keeps the default
+    geometry, as in the reference; without a ``platform`` the key is the
+    card's, which raises where there is none (``tests/test_torch_tune.py``
+    holds the hits)."""
+    from repro.tune import TuningCache as JTuningCache
+    from repro_torch.tune import TuningCache
+
+    plan = make_plan(1000, tuning=TuningCache(), platform="cpu", **kwargs)
+    jplan = jmake_plan(1000, tuning=JTuningCache(), platform="cpu",
+                       **kwargs)
+    assert plan == make_plan(1000)
+    assert (plan.c, plan.t, plan.level_lens, plan.level_split) == (
+        jplan.c, jplan.t, jplan.level_lens, jplan.level_split)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         make_plan(1000, **kwargs)
 
 
