@@ -186,6 +186,36 @@ outside the repository.  Phases:
    turns with the default geometry: the build and an engine batch over
    2^20 mixed spans.
 
+15. the serving tier (J; run after phase 14, on geometry A's data made
+   again for both): J1 ``QueryService.register_many`` of 8 float32
+   arrays of 2^24 (c = 128, t = 64, positions): one ``hierarchy_fused``
+   launch with a row axis, every row equal to a solo B1 build as integer
+   views (control: two rows swapped must fail), the batched build and the
+   8 solo builds timed in turns beside the 8 rows' bytes bound; J2
+   ``QueryService`` at A with a fused and a routed (``cuda``) tenant, 64
+   requests of 64 of phase 3's spans each, value and index interleaved:
+   the fused flush is one ``rmq_fused`` launch, every answer equal to
+   phase 3's, and a request with out-of-range bounds fails its group
+   alone; J3 ``ServingTier`` at A with an injected clock: an oversized
+   submission of 2^22 spans (each op) answered by ``rmq_bulk`` against the
+   front while an update of 2^16 indices is staged (equal to phase 3's
+   B2, the update still staged), then a backlog of 4096 mixed spans whose
+   flush makes ``hierarchy_update``'s three launches and one
+   ``rmq_fused``, equal to B2 over ``RMQ.update``'s successor (control:
+   the pre-swap front's answers must fail that gate); J4 the tier on its
+   own thread at n = 2^24: four clients with 8 outstanding 256-span mixed
+   requests each for 5 s, one reading under a side stream, a mutator
+   staging 1024 updated indices every 20 ms; every 16th ticket equal to a
+   numpy replay of the mutation log at its generation (``BlockOracle``),
+   no failed ticket, no flusher error; spans a second, p50 / p99 latency,
+   flushes by reason, deadline misses and ``rmq_fused`` launches a flush
+   printed; J5 ``AsyncServingTier``: two tenants (SLOs 2 and 20 ms)
+   driven by ``pump`` for 1 s, every answer checked; J6 (run inside phase
+   11, on its model) ``ServeEngine(serving_tier=ServingTier())`` at F's
+   full width with 8 new tokens: tokens and every round's victims equal
+   to the direct path's, the ``kv-eviction`` tenant swapping once a round
+   after the first.  The J launches are added to the kernels' counts.
+
 Each phase sets every launch counter to 0 just before it drives its
 path and reads them just after.  The output ends with one
 ``{"kernels": [...]}`` line (per kernel: its launches on its phase's
@@ -1934,9 +1964,10 @@ def plan_gate(rmq, winner) -> bool:
             and plan.level_split == winner.level_split())
 
 
-def autotune_phase(torch, seed, want_v, want_p):
-    """Phase 14: the on-card search, then c="auto" at A against the
-    committed cache, with its control."""
+def autotune_phase(torch, seed, x, ls, rs, setup, want_v, want_p):
+    """Phase 14: the on-card search, then c="auto" at A (``x``, ``ls``,
+    ``rs``: geometry A's data, made again) against the committed cache,
+    with its control."""
     from repro_torch.core import RMQ
     from repro_torch.qe import QueryEngine
     from repro_torch.tune import (
@@ -1963,8 +1994,7 @@ def autotune_phase(torch, seed, want_v, want_p):
           f"bucket 30 'mixed' for {platform!r}: "
           f"{winner.as_dict() if winner else 'absent (the miss path)'}")
 
-    n, m, m_eng = 1 << 30, 1 << 24, 1 << 20
-    x, ls, rs, setup = geometry(torch, n, m, seed)
+    n, m_eng = x.numel(), 1 << 20
     count = zero_counts()
     rmq = RMQ.build(x, c="auto", with_positions=True)
     v, p = rmq.query(ls, rs), rmq.query_index(ls, rs)
@@ -2037,6 +2067,825 @@ def autotune_phase(torch, seed, want_v, want_p):
                plan=[rmq.plan.c, rmq.plan.t], backend=rmq.backend,
                times_s=times)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the serving tier (J)
+# ---------------------------------------------------------------------------
+J_ROWS, J_N = 8, 1 << 24      # J1: register_many; J4 / J5: tenant size
+J_REQUESTS, J_SPANS = 64, 64  # J2 / J3: 4096 spans a flush
+J_UPDATE = 1 << 16            # J3: staged update at A
+J_BULK = 1 << 22              # J3: an oversized submission
+J4_SECONDS, J4_CLIENTS, J4_SPANS, J4_WINDOW = 5.0, 4, 256, 4
+J4_UPDATE, J4_UPDATE_EVERY = 1024, 0.02
+J4_TRACED_SECONDS = 2.0      # J4's second stretch, under the tracer
+J5_SECONDS = 1.0
+J2_TRACED = 5                # J2: fused flushes traced (host, device)
+
+
+class BlockOracle:
+    """Leftmost range minima of a numpy array under point updates, by
+    three levels of 128 (entries, chunk minima, superchunk minima): the
+    replay oracle of J4 / J5, independent of the port.  ``query`` answers
+    a batch at once (values and leftmost positions)."""
+
+    B = 128
+
+    def __init__(self, x):
+        import numpy as np
+
+        b = self.B
+        if x.shape[0] % (b * b):
+            raise ValueError("BlockOracle needs n to be a multiple of 128^2")
+        self.np = np
+        self.a = np.array(x, dtype=np.float32)
+        self.cm = self.a.reshape(-1, b).min(1)
+        self.sm = self.cm.reshape(-1, b).min(1)
+
+    def update(self, idxs, vals) -> None:
+        """``a[idxs] = vals``, the last of equal indices winning."""
+        np, b = self.np, self.B
+        idxs = np.asarray(idxs, np.int64)
+        _, first = np.unique(idxs[::-1], return_index=True)
+        keep = idxs.shape[0] - 1 - first
+        self.a[idxs[keep]] = np.asarray(vals, np.float32)[keep]
+        ch = np.unique(idxs // b)
+        self.cm[ch] = self.a.reshape(-1, b)[ch].min(1)
+        sc = np.unique(ch // b)
+        self.sm[sc] = self.cm.reshape(-1, b)[sc].min(1)
+
+    def _part(self, plane, start, lo, hi):
+        """Entries ``start + [0, width)`` of ``plane`` that lie in [lo, hi]
+        per row: (values with +inf outside, indexes)."""
+        np = self.np
+        width = self.B if plane is not self.sm else self.sm.shape[0]
+        idx = start[:, None] + np.arange(width)[None, :]
+        live = (idx >= lo[:, None]) & (idx <= hi[:, None])
+        vals = np.where(live, plane[np.clip(idx, 0, plane.shape[0] - 1)],
+                        np.float32(np.inf))
+        return vals, idx
+
+    def query(self, ls, rs):
+        np, b = self.np, self.B
+        ls = np.asarray(ls, np.int64)
+        rs = np.asarray(rs, np.int64)
+        cl, cr = ls // b, rs // b
+        # level 0: l's chunk up to r, and r's chunk from l (once)
+        left = self._part(self.a, cl * b, ls, np.minimum(rs, cl * b + b - 1))
+        right = self._part(self.a, cr * b, np.where(cr > cl, cr * b, rs + 1),
+                           rs)
+        # level 1: whole chunks (cl, cr) within the superchunks of their
+        # ends; level 2: whole superchunks between those
+        ql, qr = cl + 1, cr - 1
+        sl, sr = ql // b, qr // b
+        mid_l = self._part(self.cm, sl * b, ql, np.minimum(qr, sl * b + b - 1))
+        mid_r = self._part(self.cm, sr * b, np.where(sr > sl, sr * b, qr + 1),
+                           qr)
+        top = self._part(self.sm, np.zeros_like(sl), sl + 1, sr - 1)
+        parts = [left, mid_l, top, mid_r, right]   # left to right
+        val = np.min(np.stack([p[0].min(1) for p in parts]), axis=0)
+        pos = np.full(ls.shape, -1, np.int64)
+        for level, (vals, idx) in zip((0, 1, 2, 1, 0), parts):
+            hit = (vals == val[:, None]) & (pos < 0)[:, None]
+            rows = np.nonzero(hit.any(1))[0]
+            if rows.shape[0] == 0:
+                continue
+            first = idx[rows, hit[rows].argmax(1)]
+            # a superchunk to its leftmost chunk holding the minimum, a
+            # chunk to its leftmost entry
+            for lv in range(level, 0, -1):
+                child = self.cm if lv == 2 else self.a
+                sub = first[:, None] * b + np.arange(b)[None, :]
+                first = sub[np.arange(rows.shape[0]),
+                            (child[sub] == val[rows, None]).argmax(1)]
+            pos[rows] = first
+        # the leftmost minimal entry's own bits (-0.0 and +0.0 compare
+        # equal, so the minimum alone does not say which)
+        return self.a[pos], pos
+
+
+def span_split(spans):
+    """``{name: [count, mean ms, total s]}`` of a tracer's spans."""
+    tot = {}
+    for sp in spans:
+        t = tot.setdefault(sp.name, [0, 0.0])
+        t[0] += 1
+        t[1] += sp.duration
+    return {name: [c, d / c * 1e3, d] for name, (c, d) in tot.items()}
+
+
+def device_split(torch, fn, rounds: int):
+    """``{kernel or copy: [count, device ms]}`` a call of ``fn``, from a
+    torch.profiler trace of ``rounds`` calls after one untraced call;
+    None where the profiler fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(rounds):
+                fn()
+            torch.cuda.synchronize()
+        rows = kernel_rows(prof.key_averages())
+    except Exception as exc:
+        print(f"torch.profiler failed: {exc!r}")
+        return None
+    return {name[:60]: [cnt / rounds, ms / rounds]
+            for name, ms, cnt in rows}
+
+
+def host_profile(fn, rounds: int, top: int = 14):
+    """``{function: [calls, own ms, cumulative ms]}`` a call of ``fn``
+    for the ``top`` functions by own host time, from cProfile over
+    ``rounds`` calls."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(rounds):
+        fn()
+    prof.disable()
+    rows = sorted(pstats.Stats(prof).stats.items(),
+                  key=lambda kv: -kv[1][2])[:top]
+    return {f"{os.path.basename(f)}:{line}({name})":
+            [nc / rounds, tt / rounds * 1e3, ct / rounds * 1e3]
+            for (f, line, name), (_, nc, tt, ct, _) in rows}
+
+
+class TimedLock:
+    """A lock that keeps the seconds each acquire waited and each hold
+    lasted, by the acquiring thread's role (its name up to a dash): how
+    J4 reads the serving tier's service lock."""
+
+    def __init__(self):
+        import threading
+
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self.waits, self.holds = {}, {}
+
+    @staticmethod
+    def _role():
+        import threading
+
+        return threading.current_thread().name.split("-")[0]
+
+    def acquire(self, blocking=True, timeout=-1):
+        t0 = time.perf_counter()
+        ok = self._lock.acquire(blocking, timeout)
+        if ok:
+            self._local.at = time.perf_counter()
+            self.waits.setdefault(self._role(), []).append(
+                self._local.at - t0)
+        return ok
+
+    def release(self):
+        self.holds.setdefault(self._role(), []).append(
+            time.perf_counter() - self._local.at)
+        self._lock.release()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self.release()
+
+    def summary(self):
+        """``{role: {...}}``: acquires, wait p50 / p99 / mean / total and
+        hold mean / total (ms; totals in s)."""
+        import numpy as np
+
+        out = {}
+        for role, w in self.waits.items():
+            w = np.array(w) * 1e3
+            h = np.array(self.holds.get(role, [0.0])) * 1e3
+            out[role] = {"acquires": int(w.shape[0]),
+                         "wait_p50_ms": float(np.percentile(w, 50)),
+                         "wait_p99_ms": float(np.percentile(w, 99)),
+                         "wait_mean_ms": float(w.mean()),
+                         "wait_total_s": float(w.sum()) / 1e3,
+                         "hold_mean_ms": float(h.mean()),
+                         "hold_total_s": float(h.sum()) / 1e3}
+        return out
+
+
+def register_many_phase(torch, seed):
+    """J1: 8 arrays of 2^24 through ``register_many``: one B1 launch, each
+    row equal to a solo B1 build and to the plain build of that row; the
+    batched build and the solo builds timed in turns, on the host clock
+    (CUDA events around the calls) and on the device (torch.profiler)."""
+    from repro_torch.core import build_hierarchy, build_many, make_plan
+    from repro_torch.kernels.hierarchy_fused.ops import build_hierarchy_fused
+    from repro_torch.qe import QueryService
+    from repro_torch.tune.measure import make_input_array
+
+    arrays = {f"row{i}": make_input_array(J_N, seed + 100 + i)
+              for i in range(J_ROWS)}
+    svc = QueryService()
+    count = zero_counts()
+    engines = svc.register_many(arrays, c=128, t=64, with_positions=True)
+    launches = read(torch, count)
+    expect("J1 register_many", launches, hierarchy_fused=1)
+    plan = make_plan(J_N, c=128, t=64)
+    xs = torch.stack([torch.from_numpy(a).cuda() for a in arrays.values()])
+    solos = [build_hierarchy_fused(xs[i], plan, True) for i in range(J_ROWS)]
+    plains = [build_hierarchy(xs[i], plan, True) for i in range(J_ROWS)]
+
+    def rows_equal(hs):
+        return all(same_bits(torch, [
+            (getattr(engines[f"row{i}"].index.hierarchy, p),
+             getattr(h, p)) for p in ("base", "upper", "upper_pos")])
+            for i, h in enumerate(hs))
+
+    require(rows_equal(solos),
+            "J1: a row of register_many differs from its solo B1 build")
+    require(rows_equal(plains),
+            "J1: a row of register_many differs from the plain build")
+    for hs in (solos, plains):
+        require(not rows_equal([hs[1], hs[0]] + hs[2:]),
+                "J1 control: two rows swapped passed the gate")
+    fns = {"batched": lambda: build_many(xs, plan, True),
+           "solo x8": lambda: [build_hierarchy_fused(xs[i], plan, True)
+                               for i in range(J_ROWS)]}
+    times = time_turns(torch, fns, iters=10)
+    # device time of the B1 kernels a call (the host clock above also
+    # holds the solo side's eight host launches)
+    device = {name: kernel_launch_ms(torch, fn, "fused_") for name, fn
+              in fns.items()}
+    device["solo x8"] = (None if device["solo x8"] is None
+                         else device["solo x8"] * J_ROWS)
+    bound = bound_ms(J_ROWS * (plan.capacity * 4 + plan.upper_size * 8),
+                     J_ROWS * plan.capacity)
+    print(f"J1 register_many: {J_ROWS} x {J_N} float32, c=128 t=64, "
+          f"positions; launches {launches}; every row equal to its solo B1 "
+          f"build and to the plain build (integer views); control (rows 0 "
+          f"and 1 swapped) fails both gates as it must")
+    print(f"J1 times (ms a call, CUDA events, in turns; {card_line()}): "
+          f"{json.dumps(times)}; B1 device ms a call (torch.profiler) "
+          f"{json.dumps(device)}; bound of the {J_ROWS} rows {bound}")
+    del svc, engines, xs, solos, plains
+    return {"launches": launches, "ms": mean(times["batched"]),
+            "solo_ms": mean(times["solo x8"]),
+            "device_ms": device["batched"],
+            "solo_device_ms": device["solo x8"], "bound": bound}
+
+
+def service_phase(torch, x, ls, rs, want_v, want_p):
+    """J2: ``QueryService`` at A: a fused and a routed tenant, 64 requests
+    of 64 of phase 3's spans each, value and index interleaved."""
+    from repro_torch.core import RMQ
+    from repro_torch.qe import QueryService
+
+    n = x.numel()
+    svc = QueryService(auto_flush=False)
+    svc.register("fused", RMQ.build(x, with_positions=True,
+                                    backend="fused"), cache_size=0)
+    svc.register("routed", RMQ.build(x, with_positions=True,
+                                     backend="cuda"), cache_size=0)
+    m = J_REQUESTS * J_SPANS
+    lh, rh = ls[:2 * m].cpu().numpy(), rs[:2 * m].cpu().numpy()
+    tickets = []
+    for i in range(J_REQUESTS):
+        op = "index" if i % 2 else "value"
+        for name, base in (("fused", 0), ("routed", m)):
+            s = base + i * J_SPANS
+            tickets.append((svc.submit(name, lh[s:s + J_SPANS],
+                                       rh[s:s + J_SPANS], op), s, op))
+    count = zero_counts()
+    t0 = time.perf_counter()
+    svc.flush(names=("fused",))
+    got_f = read(torch, count)
+    t_fused = time.perf_counter() - t0
+    expect("J2 fused flush", got_f, rmq_fused=1)
+    count = zero_counts()
+    t0 = time.perf_counter()
+    svc.flush(names=("routed",))
+    got_r = read(torch, count)
+    t_routed = time.perf_counter() - t0
+    require(got_r["rmq_fused"] == 0 and got_r["hierarchy_fused"] == 0
+            and got_r["rmq_short"] + got_r["rmq_scan"] > 0,
+            f"J2 routed flush: launches {got_r}")
+    pairs = [(svc.take(tk), (want_p if op == "index" else want_v)
+              [s:s + J_SPANS]) for tk, s, op in tickets]
+    require(same_bits(torch, pairs),
+            "J2: the service answers differently from phase 3")
+    # where a fused flush's time goes: the same 64 requests flushed
+    # again, under the tracer (host spans) and under torch.profiler
+    # (device time by kernel and copy), each flush's answers gated
+    from repro_torch.obs.trace import Tracer, use_tracer
+
+    fused_reqs = [(s, op) for _, s, op in tickets if s < m]
+    flushed = []
+
+    def fused_flush():
+        tks = [(svc.submit("fused", lh[s:s + J_SPANS], rh[s:s + J_SPANS],
+                           op), s, op) for s, op in fused_reqs]
+        svc.flush(names=("fused",))
+        flushed.extend((svc.take(tk), (want_p if op == "index" else want_v)
+                        [s:s + J_SPANS]) for tk, s, op in tks)
+
+    tracer = Tracer()
+    with use_tracer(tracer):
+        for _ in range(J2_TRACED):
+            fused_flush()
+    host = span_split(tracer.spans())
+    device = device_split(torch, fused_flush, J2_TRACED)
+    calls = host_profile(fused_flush, J2_TRACED)
+    require(same_bits(torch, flushed),
+            "J2: a traced fused flush answers differently from phase 3")
+    del flushed
+    # a request with out-of-range bounds fails its group only.  The
+    # engine checks bound values in debug mode alone (a read-back), and a
+    # kernel must never see such bounds, so this flush runs in it
+    bad_r = rh[:8].copy()
+    bad_r[3] = n
+    t_ok = svc.submit("routed", lh[:8], rh[:8], "value")
+    t_bad = svc.submit("routed", lh[:8], bad_r, "index")
+    os.environ["REPRO_RMQ_DEBUG"] = "1"
+    try:
+        svc.flush()
+        failed = ""
+    except RuntimeError as exc:
+        failed = str(exc)
+    finally:
+        del os.environ["REPRO_RMQ_DEBUG"]
+    require("claimable" in failed and f"tickets [{t_bad}]" in failed,
+            f"J2: the bad group did not fail alone: {failed!r}")
+    require(same_bits(torch, [(svc.take(t_ok), want_v[:8])]),
+            "J2: the healthy group's answers were lost")
+    try:
+        svc.take(t_bad)
+        require(False, "J2: the failed group's ticket has an answer")
+    except KeyError:
+        pass
+    stats = {k: v for k, v in svc.stats().items() if k != "engines"}
+    print(f"J2 QueryService at A ({card_line()}): {J_REQUESTS} requests "
+          f"of {J_SPANS} spans a tenant; fused flush launches {got_f} in "
+          f"{t_fused} s, "
+          f"routed {got_r} in {t_routed} s (host clock); answers equal to "
+          f"phase 3's (integer views); an out-of-range request failed its "
+          f"group alone (debug mode), the value group claimable; stats "
+          f"{stats}")
+    print(f"J2 a fused flush of {m} spans, {J2_TRACED} traced: host spans "
+          f"[count, mean ms, total s] {json.dumps(host)}; device [count, "
+          f"ms] a flush (torch.profiler) {json.dumps(device)}; host "
+          f"functions [calls, own ms, cumulative ms] a flush (cProfile) "
+          f"{json.dumps(calls)} ({card_line()})")
+    del svc
+    launches = {k: got_f[k] + got_r[k] for k in got_f}
+    return {"launches": launches, "fused_flush_s": t_fused,
+            "routed_flush_s": t_routed, "traced_host": host,
+            "traced_device": device, "host_calls": calls}
+
+
+def tier_manual_phase(torch, x, ls, rs, want_v, want_p, seed):
+    """J3: ``ServingTier`` at A with an injected clock: an oversized
+    submission (B7) against the front while an update is staged, then a
+    mixed backlog of 4096 spans flushed after the swap (B6's three, then
+    one B2)."""
+    import numpy as np
+
+    from repro_torch.core import RMQ
+    from repro_torch.kernels.rmq_fused.ops import rmq_fused_batch
+    from repro_torch.serving import ServingTier
+
+    n = x.numel()
+    now = [0.0]
+    events = []
+    tier = ServingTier(clock=lambda: now[0], on_flush=events.append)
+    front = RMQ.build(x, with_positions=True, backend="fused")
+    levels = front.plan.num_levels
+    tier.register_tenant("a", front, slo_ms=5.0, max_batch=4096,
+                         max_queue=8192, cache_size=0,
+                         bulk_crossover=min(1 << 20, J_BULK))
+    rng = np.random.default_rng(seed + 30)
+    idxs = torch.from_numpy(rng.integers(0, n, J_UPDATE)).cuda()
+    # negative: every span holding an updated entry changes its answer
+    vals = -torch.from_numpy(rng.random(J_UPDATE, dtype=np.float32)).cuda()
+    tier.update("a", idxs, vals)
+
+    # -- the oversized submission: B7 on the current front ---------------
+    count = zero_counts()
+    t0 = time.perf_counter()
+    tv = tier.submit("a", ls[:J_BULK], rs[:J_BULK], "value")
+    tp = tier.submit("a", ls[:J_BULK], rs[:J_BULK], "index")
+    bv, bp = tv.result(0), tp.result(0)
+    torch.cuda.synchronize()
+    t_bulk = time.perf_counter() - t0
+    got_b = read(torch, count)
+    buckets = -(-J_BULK // (1 << 20))
+    expect("J3 oversized", got_b, rmq_bulk=2 * buckets)
+    snap = tier.stats()["tenants"]["a"]["snapshot"]
+    require(tv.generation == tp.generation == 0 and snap["staged"] == 1
+            and snap["swaps"] == 0,
+            f"J3 oversized: generation {tv.generation}, slot {snap}")
+    require(same_bits(torch, [(bv, want_v[:J_BULK]),
+                              (bp, want_p[:J_BULK])]),
+            "J3: B7 answers the oversized submission differently from B2")
+
+    # -- the backlog, flushed after the swap -------------------------------
+    m = J_REQUESTS * J_SPANS
+    lh, rh = ls[:m].cpu().numpy(), rs[:m].cpu().numpy()
+    reqs = []
+    for i in range(J_REQUESTS):
+        op = "index" if i % 2 else "value"
+        s = i * J_SPANS
+        reqs.append((tier.submit("a", lh[s:s + J_SPANS], rh[s:s + J_SPANS],
+                                 op), s, op))
+    # 4096 queued spans = max_batch: due by size at once
+    count = zero_counts()
+    t0 = time.perf_counter()
+    tier.step()
+    torch.cuda.synchronize()
+    t_flush = time.perf_counter() - t0
+    got_f = read(torch, count)
+    expect("J3 flush", got_f, hierarchy_update=levels - 1, rmq_fused=1)
+    succ = front.update(idxs, vals)
+    sv, sp = rmq_fused_batch(succ.hierarchy, ls[:m], rs[:m], True)
+    answers = [(tk.result(0), (sp if op == "index" else sv)[s:s + J_SPANS])
+               for tk, s, op in reqs]
+    require(all(tk.generation == 1 for tk, _, _ in reqs)
+            and [(e.generation, e.reason, e.requests, e.applied_mutations)
+                 for e in events] == [(1, "size", J_REQUESTS, 1)],
+            f"J3: generations {[tk.generation for tk, _, _ in reqs][:4]}, "
+            f"events {events}")
+    require(same_bits(torch, answers),
+            "J3: the flush answers differently from B2 over the successor")
+    stale = [(got, (want_p if op == "index" else want_v)[s:s + J_SPANS])
+             for (got, _), (_, s, op) in zip(answers, reqs)]
+    require(not same_bits(torch, stale),
+            "J3 control: answers against the pre-swap front passed the gate")
+    moved = sum(int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                for g, w in stale)
+    t = tier.stats()["tenants"]["a"]
+    print(f"J3 ServingTier at A (injected clock; {card_line()}): {J_BULK} "
+          f"spans oversized x 2 ops -> launches {got_b} in {t_bulk} s, "
+          f"generation 0, the "
+          f"update still staged, equal to B2 (phase 3); then {J_REQUESTS} "
+          f"requests of {J_SPANS} + a staged update of {J_UPDATE} -> "
+          f"launches {got_f} in {t_flush} s (host clock), generation 1, "
+          f"equal to B2 over RMQ.update's successor; control: {moved} of "
+          f"{m} answers differ from the pre-swap front's, which fails the "
+          f"gate as it must; tenant counters: bulk_routed "
+          f"{t['bulk_routed']}, flushes {t['flushes']}, swaps "
+          f"{t['snapshot_swaps']}")
+    del tier, front, succ, sv, sp, answers, stale, bv, bp
+    launches = {k: got_b[k] + got_f[k] for k in got_b}
+    return {"launches": launches, "bulk_s": t_bulk, "flush_s": t_flush}
+
+
+def _check_tickets(torch, oracle_x, log, checked):
+    """Every checked ticket against the oracle replayed, forward once in
+    generation order, to the ticket's generation: mismatching spans."""
+    import numpy as np
+
+    oracle = BlockOracle(oracle_x)
+    applied, bad = 0, 0
+    for gen, ls, rs, op, res in sorted(checked, key=lambda c: c[0]):
+        while applied < gen:
+            oracle.update(*log[applied])
+            applied += 1
+        v, p = oracle.query(ls, rs)
+        want = p.astype(np.int32) if op == "index" else v
+        bad += int((res.view(np.int32) != want.view(np.int32)).sum())
+    return bad
+
+
+def _tier_thread_run(torch, base, seed, seconds, traced):
+    """One stretch of J4: the tier on its own thread for ``seconds``,
+    four clients and a mutator; every gate checked.  ``traced`` runs it
+    under the tracer with the tier's service lock timed (TimedLock).
+    Returns its launches, its readings and the split where traced."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core import RMQ
+    from repro_torch.obs.trace import Tracer, use_tracer
+    from repro_torch.serving import Backpressure, ServingTier
+    from repro_torch.tune.measure import make_queries
+
+    read_flushes = [0]
+
+    def on_flush(ev):
+        read_flushes[0] += ev.requests > 0
+
+    tier = ServingTier(idle_tick=0.001, on_flush=on_flush)
+    tier.register_tenant("a", RMQ.build(base, with_positions=True,
+                                        backend="fused"),
+                         slo_ms=5.0, max_batch=4096, max_queue=1 << 15,
+                         cache_size=0)
+    lock_timer = TimedLock() if traced else None
+    if traced:
+        tier._service_lock = lock_timer
+    pools = [make_queries(J_N, 64 * J4_SPANS, "mixed", seed=seed + 40 + i)
+             for i in range(J4_CLIENTS)]
+    log, checked, failures, latencies = [], [], [], []
+    spans = [0] * J4_CLIENTS
+    rejected = [0]
+    lock = threading.Lock()
+    stop = threading.Event()
+    deadline = [0.0]
+
+    def client(i, side):
+        stream = torch.cuda.Stream() if side else None
+        ctx = (torch.cuda.stream(stream) if side
+               else contextlib.nullcontext())
+        pls, prs = pools[i]
+        pending, k = [], 0
+        try:
+            with ctx:
+                while time.monotonic() < deadline[0] or pending:
+                    if time.monotonic() < deadline[0] and len(
+                            pending) < J4_WINDOW:
+                        j = k % 64
+                        ls = pls[j * J4_SPANS:(j + 1) * J4_SPANS]
+                        rs = prs[j * J4_SPANS:(j + 1) * J4_SPANS]
+                        op = "index" if k % 2 else "value"
+                        try:
+                            tk = tier.submit("a", ls, rs, op)
+                        except Backpressure as bp:
+                            with lock:
+                                rejected[0] += 1
+                            time.sleep(bp.retry_after)
+                            continue
+                        pending.append((k, tk, ls, rs, op))
+                        k += 1
+                        continue
+                    kk, tk, ls, rs, op = pending.pop(0)
+                    res = tk.result(60.0)
+                    if side:
+                        res = res.clone()   # read on the side stream
+                    spans[i] += ls.shape[0]
+                    latencies.append(tk.completed_at - tk.submitted_at)
+                    # every 16th ticket, value and index in turn
+                    if kk % 32 in (0, 17):
+                        with lock:
+                            checked.append((tk.generation, ls, rs, op,
+                                            res.cpu().numpy()))
+        except Exception as exc:  # reported below; the gate fails
+            with lock:
+                failures.append(repr(exc))
+
+    def mutator():
+        mrng = np.random.default_rng(seed + 50)
+        while not stop.is_set():
+            idxs = mrng.integers(0, J_N, J4_UPDATE)
+            vals = mrng.random(J4_UPDATE, dtype=np.float32)
+            log.append((idxs, vals))
+            tier.update("a", torch.from_numpy(idxs).cuda(),
+                        torch.from_numpy(vals).cuda())
+            stop.wait(J4_UPDATE_EVERY)
+
+    threads = [threading.Thread(target=client, args=(i, i == 0),
+                                name=f"client-{i}")
+               for i in range(J4_CLIENTS)]
+    mut = threading.Thread(target=mutator, name="mutator")
+    tracer = Tracer(capacity=1 << 20)
+    count = zero_counts()
+    with (use_tracer(tracer) if traced else contextlib.nullcontext()):
+        tier.start()
+        t0 = time.monotonic()
+        deadline[0] = t0 + seconds
+        mut.start()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(seconds + 120)
+        elapsed = time.monotonic() - t0
+        stop.set()
+        mut.join()
+        tier.stop()
+    launches = read(torch, count)
+    require(not failures and not any(th.is_alive() for th in threads),
+            f"J4: failed tickets {failures[:3]}")
+    t0 = time.perf_counter()
+    bad = _check_tickets(torch, base.cpu().numpy(), log, checked)
+    t_check = time.perf_counter() - t0
+    s = tier.stats()
+    t = s["tenants"]["a"]
+    require(s["flusher_errors"] == 0 and t["failed_requests"] == 0,
+            f"J4: flusher errors {s['flusher_errors']}, failed "
+            f"{t['failed_requests']}")
+    require(bad == 0, f"J4: {bad} checked spans differ from the oracle")
+    # each flush drains at most 4 x 4 x 256 = 4096 spans: one B2 launch
+    # each that reads
+    require(launches["rmq_fused"] == read_flushes[0],
+            f"J4: {launches['rmq_fused']} rmq_fused launches for "
+            f"{read_flushes[0]} flushes that read")
+    total = sum(spans)
+    flushes = {r: t[f"flushes_{r}"] for r in ("deadline", "size",
+                                                "mutation", "forced")}
+    lat = np.array(latencies) * 1e3
+    out = {
+        "seconds": seconds,
+        "spans_per_s": total / elapsed,
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "histogram_p50_ms": t["latency_s"]["p50"] * 1e3,
+        "histogram_p99_ms": t["latency_s"]["p99"] * 1e3,
+        "flushes": flushes,
+        "read_flushes": read_flushes[0],
+        "deadline_misses": t["deadline_misses"],
+        "rmq_fused_per_flush": launches["rmq_fused"] / max(t["flushes"], 1),
+        "rmq_fused_per_read_flush": (launches["rmq_fused"]
+                                     / max(read_flushes[0], 1)),
+        "swaps": t["snapshot_swaps"],
+        "mutations": len(log),
+        "tickets": t["submits"],
+        "rejected": rejected[0],
+        "checked_tickets": {op: sum(c[3] == op for c in checked)
+                            for op in ("value", "index")},
+        "check_s": t_check,
+    }
+    if traced:
+        out["spans"] = span_split(tracer.spans())
+        out["spans_dropped"] = tracer.dropped
+        out["service_lock"] = lock_timer.summary()
+    del tier
+    return launches, out
+
+
+def tier_thread_phase(torch, x, seed):
+    """J4: the tier on its own thread: four clients, one reading under a
+    side stream, and a mutator, for five seconds; then a shorter stretch
+    under the tracer, with the tier's service lock timed, for where the
+    time goes."""
+    base = x[:J_N].clone()
+    launches, out = _tier_thread_run(torch, base, seed, J4_SECONDS, False)
+    launches_t, traced = _tier_thread_run(torch, base, seed + 1,
+                                          J4_TRACED_SECONDS, True)
+    for k, v in launches_t.items():
+        launches[k] += v
+    for name, o in (("", out), (" traced", traced)):
+        print(f"J4 tier thread{name} at n={J_N} ({J4_CLIENTS} clients x "
+              f"{J4_WINDOW} outstanding {J4_SPANS}-span requests for "
+              f"{o['seconds']} s, client 0 under a side stream; "
+              f"{J4_UPDATE} updated indices every {J4_UPDATE_EVERY * 1e3} "
+              f"ms; {card_line()}): {json.dumps(o)}; every 16th ticket "
+              f"equal to the replayed oracle at its generation, no ticket "
+              f"failed, flusher_errors 0")
+    del base
+    return {"launches": launches, **out, "traced": traced}
+
+
+def tier_async_phase(torch, x):
+    """J5: ``AsyncServingTier``: two tenants (SLOs 2 and 20 ms) driven by
+    ``pump`` for one second, every answer checked."""
+    import asyncio
+
+    import numpy as np
+
+    from repro_torch.core import RMQ
+    from repro_torch.serving import AsyncServingTier, ServingTier
+
+    data = {"trading": x[:J_N], "analytics": x[J_N:2 * J_N]}
+    tier = ServingTier(idle_tick=0.002)
+    for name, slo in (("trading", 2.0), ("analytics", 20.0)):
+        tier.register_tenant(name, RMQ.build(data[name], with_positions=True,
+                                             backend="fused"), slo_ms=slo)
+    aio = AsyncServingTier(tier)
+    answers = []
+    waits = {name: [] for name in data}
+
+    async def client(name, seed, spans):
+        rng = np.random.default_rng(seed)
+        end = time.monotonic() + J5_SECONDS
+        k = 0
+        while time.monotonic() < end:
+            ls = rng.integers(0, J_N - spans, 64)
+            rs = ls + rng.integers(0, spans, 64)
+            op = "index" if k % 2 else "value"
+            tk = aio.submit(name, ls, rs, op=op)
+            res = await aio.wait(tk)
+            answers.append((name, ls, rs, op, res.cpu().numpy()))
+            waits[name].append(tk.completed_at - tk.submitted_at)
+            k += 1
+
+    async def main():
+        stop = asyncio.Event()
+        pump = asyncio.create_task(aio.pump(stop))
+        await asyncio.gather(client("trading", 60, 1 << 10),
+                             client("analytics", 61, J_N // 4))
+        stop.set()
+        await pump
+
+    count = zero_counts()
+    asyncio.run(main())
+    launches = read(torch, count)
+    bad = 0
+    for name in data:
+        oracle = BlockOracle(data[name].cpu().numpy())
+        for tenant, ls, rs, op, res in answers:
+            if tenant != name:
+                continue
+            v, p = oracle.query(ls, rs)
+            want = p.astype(np.int32) if op == "index" else v
+            bad += int((res.view(np.int32) != want.view(np.int32)).sum())
+    require(bad == 0, f"J5: {bad} answers differ from the oracle")
+    s = tier.stats()
+    out = {name: {"requests": s["tenants"][name]["submits"],
+                  "p50_ms": float(np.percentile(waits[name], 50)) * 1e3,
+                  "p99_ms": float(np.percentile(waits[name], 99)) * 1e3,
+                  "flushes": s["tenants"][name]["flushes"],
+                  "deadline_misses": s["tenants"][name]["deadline_misses"]}
+           for name in data}
+    print(f"J5 AsyncServingTier ({J5_SECONDS} s of pump, 64-span requests; "
+          f"{card_line()}): {json.dumps(out)}; launches {launches}; all "
+          f"{len(answers)} answers equal to the oracle")
+    del tier, aio
+    return {"launches": launches, **out}
+
+
+def tier_phase(torch, seed, x, ls, rs, want_v, want_p):
+    """Phase 15 (J): the serving tier at geometry A's data; returns its
+    summary and its launches by kernel."""
+    launches = {}
+    summary = {}
+    for name, fn in (
+            ("J1", lambda: register_many_phase(torch, seed)),
+            ("J2", lambda: service_phase(torch, x, ls, rs, want_v, want_p)),
+            ("J3", lambda: tier_manual_phase(torch, x, ls, rs, want_v,
+                                             want_p, seed)),
+            ("J4", lambda: tier_thread_phase(torch, x, seed)),
+            ("J5", lambda: tier_async_phase(torch, x))):
+        t0 = time.perf_counter()
+        out = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k, v in out.pop("launches").items():
+            launches[k] = launches.get(k, 0) + v
+        out["phase_s"] = time.perf_counter() - t0
+        summary[name] = out
+    return summary, launches
+
+
+J6_NEW = 8  # new tokens of J6's generate
+
+
+def tier_eviction_phase(torch, cfg, params, sc, prompts):
+    """J6: ``ServeEngine(serving_tier=ServingTier())`` at F's full width
+    against the direct path's run of the same seed and length: tokens and
+    every round's victims equal; the kv-eviction tenant swaps once a round
+    after the first."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.eviction import RMQEvictionManager
+    from repro_torch.serving import ServingTier
+
+    rounds = {"direct": [], "tier": []}
+    mode = ["direct"]
+    orig = RMQEvictionManager.plan_evictions_streaming
+
+    def plan(self, index, scores, live):
+        index, victims = orig(self, index, scores, live)
+        rounds[mode[0]].append((live, victims.clone()))
+        return index, victims
+
+    RMQEvictionManager.plan_evictions_streaming = plan
+    try:
+        out_d, t_d = wall(torch, lambda: ServeEngine(
+            cfg, params, sc).generate(prompts, J6_NEW))
+        mode[0] = "tier"
+        tier = ServingTier()
+        count = zero_counts()
+        out_t, t_t = wall(torch, lambda: ServeEngine(
+            cfg, params, sc, serving_tier=tier).generate(prompts, J6_NEW))
+        launches = read(torch, count)
+    finally:
+        RMQEvictionManager.plan_evictions_streaming = orig
+    require(torch.equal(out_t["tokens"], out_d["tokens"])
+            and (out_t["final_pos"], out_t["evicted"])
+            == (out_d["final_pos"], out_d["evicted"]),
+            f"J6: the tier's generate differs from the direct path's "
+            f"({out_t['final_pos']}, {out_t['evicted']}) vs "
+            f"({out_d['final_pos']}, {out_d['evicted']})")
+    d, t = rounds["direct"], rounds["tier"]
+    require(len(t) == len(d) > 1 and all(
+        lt == ld and torch.equal(vt, vd)
+        for (lt, vt), (ld, vd) in zip(t, d)),
+        f"J6: {len(t)} tier rounds against {len(d)} direct; victims differ")
+    tenant = tier.stats()["tenants"]["kv-eviction"]
+    require(tenant["snapshot_swaps"] == len(t) - 1
+            and tenant["flushes"] == len(t)
+            and tenant["failed_requests"] == 0,
+            f"J6: tenant {tenant['flushes']} flushes, "
+            f"{tenant['snapshot_swaps']} swaps for {len(t)} rounds")
+    require(launches["flash_attention"] == cfg.num_layers
+            and launches["hierarchy_update"] > 0,
+            f"J6: launches {launches}")
+    print(f"J6 eviction as the kv-eviction tenant (F's full width, "
+          f"{J6_NEW} new tokens; {card_line()}): tokens, final_pos "
+          f"{out_t['final_pos']}, evicted {out_t['evicted']} and the "
+          f"victims of all {len(t)} rounds equal to the direct path's; "
+          f"tenant flushes {tenant['flushes']}, swaps "
+          f"{tenant['snapshot_swaps']}, p99 "
+          f"{tenant['latency_s']['p99'] * 1e3} ms; generate {t_t} s "
+          f"against {t_d} s direct (host clock); launches {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2453,9 +3302,13 @@ def serving_phase(torch, seed):
     require(rel < 5e-2 and agree > 0.8,
             f"F: the model with B8 strays from the plain attention "
             f"(logits {rel}, greedy agreement {agree})")
-    del params, engine, logits_k, logits_p, full_k, full_p
+    del engine, logits_k, logits_p, full_k, full_p
     torch.cuda.empty_cache()
-    return launches
+    # -- J6: the same eviction through the serving tier's tenant ----------
+    tier_launches = tier_eviction_phase(torch, cfg, params, sc, prompts)
+    del params
+    torch.cuda.empty_cache()
+    return launches, tier_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3024,10 +3877,20 @@ def run(torch, seed: int):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- phase 14: the autotuner, c="auto" at A -----------------------------
-    tuned = autotune_phase(torch, seed, *a_answers)
+    # -- phases 14 and 15 at geometry A's data, made again once --------------
+    xa, lsa, rsa, setup = geometry(torch, 1 << 30, 1 << 24, seed)
+    tuned = autotune_phase(torch, seed, xa, lsa, rsa, setup, *a_answers)
     print(f"I summary: {json.dumps(tuned)}")
-    del a_answers
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tier_summary, tier_launches = tier_phase(torch, seed, xa, lsa, rsa,
+                                             *a_answers)
+    print(f"J summary ({time.perf_counter() - t0} s; {card_line()}): "
+          f"{json.dumps(tier_summary)}")
+    for key, v in tier_launches.items():
+        main_launches[key] = main_launches.get(key, 0) + v
+    del xa, lsa, rsa, a_answers
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3053,8 +3916,10 @@ def run(torch, seed: int):
     plain["flash_attention"] = t_fa["plain_ms"]
     bounds["flash_attention"] = t_fa["bound"]
     library["flash_attention"] = t_fa["library_ms"]
-    served = serving_phase(torch, seed)
+    served, tier_evict = serving_phase(torch, seed)
     main_launches["flash_attention"] = served["flash_attention"]
+    for key, v in tier_evict.items():
+        main_launches[key] = main_launches.get(key, 0) + v
 
     # -- phase 12: training mamba2-1.3b ------------------------------------
     gc.collect()

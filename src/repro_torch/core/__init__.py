@@ -14,6 +14,8 @@
                     summary_dtype="bfloat16")
     # slabs from a callable, past 2^31 through the eager walk
     rmq = RMQ.build_out_of_core(make_slab, n, with_positions=True)
+    # many equal-length arrays, one B1 launch on the card
+    batched = build_many(xs, make_plan(n), with_positions=True)
 """
 
 from repro_torch.core import bitpack
@@ -22,6 +24,7 @@ from repro_torch.core.constants import PAD_POS, POS_INF_I32
 from repro_torch.core.hierarchy import (
     Hierarchy,
     build_hierarchy,
+    build_many,
     finalize_compact,
     pos_dtype_for,
 )
@@ -64,6 +67,7 @@ __all__ = [
     "aux_entries_bound_ceil",
     "bitpack",
     "build_hierarchy",
+    "build_many",
     "check_query_args",
     "expected_scanned_entries",
     "finalize_compact",

@@ -44,6 +44,7 @@ from repro_torch.core.plan import HierarchyPlan
 __all__ = [
     "Hierarchy",
     "build_hierarchy",
+    "build_many",
     "build_upper_planes",
     "check_build_input",
     "check_compact_build",
@@ -108,12 +109,12 @@ class Hierarchy:
 
 
 def pad_to(x: torch.Tensor, length: int, fill) -> torch.Tensor:
-    """``x`` extended to ``length`` with ``fill`` (``x`` itself if long
-    enough already)."""
-    pad = length - x.shape[0]
+    """``x`` extended along its last axis to ``length`` with ``fill``
+    (``x`` itself if long enough already)."""
+    pad = length - x.shape[-1]
     if pad == 0:
         return x
-    return torch.cat([x, x.new_full((pad,), fill)])
+    return torch.cat([x, x.new_full(x.shape[:-1] + (pad,), fill)], dim=-1)
 
 
 def check_compact_build(plan: HierarchyPlan, with_positions: bool,
@@ -265,3 +266,31 @@ def build_hierarchy(
     if plan.summary_dtype == "bfloat16":
         upper = upper.to(torch.bfloat16)
     return Hierarchy(base=base, upper=upper, upper_pos=upper_pos, plan=plan)
+
+
+def build_many(
+    xs, plan: HierarchyPlan, with_positions: bool = False
+) -> Hierarchy:
+    """Batched construction: ``(B, n)`` inputs -> one batched Hierarchy.
+
+    Every plane of the result carries a leading batch axis (``base`` is
+    ``(B, capacity)``, ``upper`` is ``(B, upper_size)``), and row ``i`` is
+    bit-identical to ``build_hierarchy(xs[i], plan, with_positions)``.
+    On a CUDA tensor all ``B`` rows come out of ONE ``hierarchy_fused``
+    launch, as the reference's vmapped build is one launch; on the CPU
+    the plain build runs row by row
+    (:func:`repro_torch.kernels.hierarchy_fused.ops.build_hierarchy_fused`
+    given the rows).
+    ``QueryService.register_many`` indexes many equal-length arrays
+    through it.
+    """
+    xs = torch.as_tensor(xs)
+    if xs.ndim != 2:
+        raise ValueError(
+            f"inputs must be rank-2 (B, n), got {tuple(xs.shape)}")
+    if xs.shape[0] == 0:
+        raise ValueError("build_many needs at least one row")
+    check_build_input(xs[0], plan, with_positions)
+    from repro_torch.kernels.hierarchy_fused import ops as fused_ops
+
+    return fused_ops.build_hierarchy_fused(xs, plan, with_positions)

@@ -32,7 +32,7 @@ from typing import Optional, Protocol, runtime_checkable
 import numpy as np
 import torch
 
-from repro_torch.core.hierarchy import Hierarchy, build_hierarchy
+from repro_torch.core.hierarchy import Hierarchy, build_hierarchy, build_many
 from repro_torch.core.plan import HierarchyPlan
 from repro_torch.core.query import _debug_checks_enabled, _is_integer
 from repro_torch.obs import trace
@@ -42,6 +42,7 @@ __all__ = [
     "MutableRMQIndex",
     "RMQIndex",
     "build_hierarchy_with_backend",
+    "build_many",
     "capacity_limit_message",
     "check_capacity_limit",
     "coerce_values",

@@ -33,6 +33,15 @@
 // one block a tile with the part-by-part reduce of rmq_common.cuh.  Both
 // follow its tie rule: the bits of the chunk's leftmost minimal entry,
 // value-only or not.
+//
+// Rows (build_many): the grid's y dimension is a row of a (rows, capacity)
+// batch, each row its own build.  A block moves its planes and its `done`
+// counter to its row's (the row strides are arguments), so each row's last
+// block folds that row; the persistent grid splits the resident blocks
+// among the rows.  The batch is its own instance of each kernel (ROWS), so
+// a single build runs the single-build code, its pointers in the
+// parameter bank, and the batch's float32 run kernel trades a block an SM
+// for the registers its row pointers take.
 #include "build_hopper.cuh"
 
 namespace rmq {
@@ -45,6 +54,8 @@ struct FusedGeo {
   int32_t levels;
   int32_t tile1;      // level-1 entries per tile (a multiple of c)
   int32_t stream_l2;  // 1: level 2 comes out of the streaming phase
+  int64_t base_stride;   // entries between two rows of base
+  int64_t upper_stride;  // entries between two rows of upper / upper_pos
   int64_t level_lens[kMaxLevels];
   int64_t offsets[kMaxLevels];  // level k (k >= 1) at offsets[k-1]
 };
@@ -125,12 +136,28 @@ __device__ __forceinline__ void tile_level2(const T* tv, const int32_t* tp,
   }
 }
 
-template <typename T, bool TRACK>
+// Blocks an SM of the run kernel: the single build's budget; a batch's
+// row pointers live in registers (a single build reads them from the
+// parameter bank), so its float32 instances take the float64 budget.
+template <typename T, bool ROWS>
+__host__ __device__ constexpr int fused_min_blocks() {
+  return ROWS ? 3 : hopper::build_min_blocks<T>();
+}
+
+template <typename T, bool TRACK, bool ROWS>
 __global__ void __launch_bounds__(hopper::kBuildThreads,
-                                  hopper::build_min_blocks<T>())
+                                  fused_min_blocks<T, ROWS>())
     fused_runs_kernel(const T* __restrict__ base, FusedGeo g, T* upper,
                       int32_t* upper_pos, unsigned int* done) {
   using hopper::kRun;
+  if constexpr (ROWS) {
+    // This block's row: its planes and its fold counter.
+    const int64_t row = blockIdx.y;
+    base += row * g.base_stride;
+    upper += row * g.upper_stride;
+    if (TRACK) upper_pos += row * g.upper_stride;
+    done += row;
+  }
   constexpr int V = hopper::run_width<T>();
   constexpr int c = kWarp * V;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -201,10 +228,18 @@ __global__ void __launch_bounds__(hopper::kBuildThreads,
                               g.stream_l2 ? 3 : 2);
 }
 
-template <typename T, bool TRACK>
+template <typename T, bool TRACK, bool ROWS>
 __global__ void __launch_bounds__(256)
     fused_parts_kernel(const T* __restrict__ base, FusedGeo g, T* upper,
                        int32_t* upper_pos, unsigned int* done) {
+  if constexpr (ROWS) {
+    // This block's row: its planes and its fold counter.
+    const int64_t row = blockIdx.y;
+    base += row * g.base_stride;
+    upper += row * g.upper_stride;
+    if (TRACK) upper_pos += row * g.upper_stride;
+    done += row;
+  }
   extern __shared__ __align__(16) unsigned char smem[];
   T* tile_v = reinterpret_cast<T*>(smem);
   int32_t* tile_p = reinterpret_cast<int32_t*>(
@@ -266,8 +301,8 @@ __global__ void __launch_bounds__(256)
                                g.stream_l2 ? 3 : 2);
 }
 
-template <typename T, bool TRACK, bool RUNS>
-cudaError_t run_fused(const T* base, const FusedGeo& g, T* upper,
+template <typename T, bool TRACK, bool RUNS, bool ROWS>
+cudaError_t run_fused(const T* base, const FusedGeo& g, int rows, T* upper,
                       int32_t* upper_pos, unsigned int* done,
                       cudaStream_t stream) {
   const size_t tile_bytes =
@@ -275,8 +310,8 @@ cudaError_t run_fused(const T* base, const FusedGeo& g, T* upper,
                   : 0;
   const size_t smem = RUNS ? 2 * tile_bytes : tile_bytes;
   void (*kernel)(const T*, FusedGeo, T*, int32_t*, unsigned int*) =
-      fused_parts_kernel<T, TRACK>;
-  if constexpr (RUNS) kernel = fused_runs_kernel<T, TRACK>;
+      fused_parts_kernel<T, TRACK, ROWS>;
+  if constexpr (RUNS) kernel = fused_runs_kernel<T, TRACK, ROWS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -284,63 +319,91 @@ cudaError_t run_fused(const T* base, const FusedGeo& g, T* upper,
   const long long ntiles = (g.level_lens[1] + g.tile1 - 1) / g.tile1;
   unsigned grid = 0;
   if (RUNS) {
-    // Persistent: as many blocks as fit on the card, each walking tiles.
-    err = resident_grid(kernel, hopper::kBuildThreads, smem, ntiles, &grid);
+    // Persistent: as many blocks as fit on the card, shared among the
+    // rows (at least one a row), each walking its row's tiles.
+    unsigned resident = 0;
+    err = resident_grid(kernel, hopper::kBuildThreads, smem, INT64_MAX,
+                        &resident);
     if (err != cudaSuccess) return err;
+    const long long share = resident / rows > 0 ? resident / rows : 1;
+    grid = static_cast<unsigned>(ntiles < share ? ntiles : share);
   } else {
     // One block per tile: blocks that finish make room for new ones, whose
     // loads hide the tile barriers of the others.
     const long long max_grid = 0x7fffffffLL;
     grid = static_cast<unsigned>(ntiles < max_grid ? ntiles : max_grid);
   }
-  kernel<<<grid, hopper::kBuildThreads, smem, stream>>>(base, g, upper,
-                                                        upper_pos, done);
+  const dim3 blocks(grid, static_cast<unsigned>(rows));
+  kernel<<<blocks, hopper::kBuildThreads, smem, stream>>>(base, g, upper,
+                                                          upper_pos, done);
   return cudaGetLastError();
+}
+
+template <typename T, bool ROWS>
+cudaError_t launch_runs(int track, bool runs, const T* b, const FusedGeo& g,
+                        int rows, T* u, int32_t* up, unsigned int* d,
+                        cudaStream_t stream) {
+  if (runs)
+    return track ? run_fused<T, true, true, ROWS>(b, g, rows, u, up, d, stream)
+                 : run_fused<T, false, true, ROWS>(b, g, rows, u, up, d,
+                                                   stream);
+  return track ? run_fused<T, true, false, ROWS>(b, g, rows, u, up, d, stream)
+               : run_fused<T, false, false, ROWS>(b, g, rows, u, up, d,
+                                                  stream);
 }
 
 template <typename T>
 cudaError_t launch_fused_build(int track, const void* base,
-                               const FusedGeo& g, void* upper,
+                               const FusedGeo& g, int rows, void* upper,
                                void* upper_pos, void* done,
                                cudaStream_t stream) {
   const T* b = static_cast<const T*>(base);
   T* u = static_cast<T*>(upper);
   int32_t* up = static_cast<int32_t*>(upper_pos);
   unsigned int* d = static_cast<unsigned int*>(done);
+  // Every row's planes must start as aligned as row 0's.
+  constexpr int V = hopper::run_width<T>();
   const bool runs =
       hopper::run_layout<T>(g.c, g.capacity, base) &&
       reinterpret_cast<uintptr_t>(upper) % 16 == 0 &&
+      (rows == 1 || (g.base_stride % V == 0 && g.upper_stride % V == 0)) &&
       g.tile1 % (hopper::kRun * (hopper::kBuildThreads / kWarp)) == 0;
-  if (runs)
-    return track ? run_fused<T, true, true>(b, g, u, up, d, stream)
-                 : run_fused<T, false, true>(b, g, u, up, d, stream);
-  return track ? run_fused<T, true, false>(b, g, u, up, d, stream)
-               : run_fused<T, false, false>(b, g, u, up, d, stream);
+  if (rows > 1) return launch_runs<T, true>(track, runs, b, g, rows, u, up,
+                                            d, stream);
+  return launch_runs<T, false>(track, runs, b, g, rows, u, up, d, stream);
 }
 
 }  // namespace rmq
 
 // dtype: 0 float32, 1 float64.  level_lens has `levels` entries, offsets
-// `levels - 1`; `done` is one zeroed 32-bit word on the device.
+// `levels - 1`; `done` is `rows` zeroed 32-bit words on the device.  Row r
+// reads base + r * base_stride and writes upper (upper_pos) + r *
+// upper_stride.
 extern "C" int rmq_fused_build(int dtype, int track, const void* base,
                                long long capacity, int c, int levels,
                                const long long* level_lens,
                                const long long* offsets, int tile1,
                                int stream_l2, void* upper, void* upper_pos,
-                               void* done, void* stream) {
-  if (levels < 2 || levels > rmq::kMaxLevels) return static_cast<int>(cudaErrorInvalidValue);
+                               void* done, int rows, long long base_stride,
+                               long long upper_stride, void* stream) {
+  if (levels < 2 || levels > rmq::kMaxLevels || rows < 1 || rows > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   rmq::FusedGeo g{};
   g.capacity = capacity;
   g.c = c;
   g.levels = levels;
   g.tile1 = tile1;
   g.stream_l2 = stream_l2 && levels >= 3;
+  g.base_stride = base_stride;
+  g.upper_stride = upper_stride;
   for (int k = 0; k < levels; ++k) g.level_lens[k] = level_lens[k];
   for (int k = 0; k + 1 < levels; ++k) g.offsets[k] = offsets[k];
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return rmq::launch_fused_build<float>(track, base, g, upper, upper_pos, done, s);
+    return rmq::launch_fused_build<float>(track, base, g, rows, upper,
+                                          upper_pos, done, s);
   if (dtype == 1)
-    return rmq::launch_fused_build<double>(track, base, g, upper, upper_pos, done, s);
+    return rmq::launch_fused_build<double>(track, base, g, rows, upper,
+                                           upper_pos, done, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -27,6 +27,7 @@ hierarchy is the same.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -74,9 +75,11 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_void_p,
     ),
 }
+_MAX_ROWS = 65535  # the launch grid's y dimension
 
 fused_build_plain = build_upper_planes
 
@@ -84,20 +87,35 @@ fused_build_plain = build_upper_planes
 def fused_build_cuda(
     base: torch.Tensor, plan: HierarchyPlan, with_positions: bool
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """``(upper, upper_pos)`` of a capacity-length ``base``, one launch."""
+    """``(upper, upper_pos)`` of a capacity-length ``base``, one launch.
+
+    A ``(rows, capacity)`` ``base`` is a batch of builds in the same one
+    launch (the grid's second dimension): the planes come back with the
+    same leading row axis, row ``i`` equal to the build of ``base[i]``.
+    """
     _build.require_cuda("hierarchy_fused", base)
     if plan.num_levels > _MAX_LEVELS:
         raise ValueError(f"hierarchy_fused: at most {_MAX_LEVELS} levels")
+    if base.ndim not in (1, 2) or base.shape[-1] != plan.capacity:
+        raise ValueError(
+            f"hierarchy_fused: base must be ({plan.capacity},) or (rows, "
+            f"{plan.capacity}), got {tuple(base.shape)}")
+    rows = base.shape[0] if base.ndim == 2 else 1
+    if not 1 <= rows <= _MAX_ROWS:
+        raise ValueError(
+            f"hierarchy_fused: 1 to {_MAX_ROWS} rows a launch, got {rows}")
     if with_positions:
         check_capacity_limit(kernel_index_extent(plan))
+    base = base.contiguous()
     dev = base.device
-    upper = base.new_full((plan.upper_size,), float("inf"))
+    lead = tuple(base.shape[:-1])
+    upper = base.new_full(lead + (plan.upper_size,), float("inf"))
     upper_pos = (
-        torch.full((plan.upper_size,), PAD_POS, dtype=torch.int32,
+        torch.full(lead + (plan.upper_size,), PAD_POS, dtype=torch.int32,
                    device=dev)
         if with_positions else None
     )
-    done = torch.zeros(1, dtype=torch.int32, device=dev)
+    done = torch.zeros(rows, dtype=torch.int32, device=dev)
     tile1 = max(plan.c, _MIN_TILE1)
     tile_bytes = tile1 * (base.element_size() + (4 if with_positions else 0))
     level_lens = (ctypes.c_longlong * plan.num_levels)(*plan.level_lens)
@@ -111,7 +129,7 @@ def fused_build_cuda(
             ctypes.cast(offsets, ctypes.c_void_p),
             tile1, int(tile_bytes <= _TILE_SMEM_LIMIT),
             _build.ptr(upper), _build.ptr(upper_pos), _build.ptr(done),
-            _build.stream_of(dev))
+            rows, plan.capacity, plan.upper_size, _build.stream_of(dev))
     _build.check(lib, rc, "hierarchy_fused")
     LAUNCHES.hit()
     return upper, upper_pos
@@ -120,33 +138,69 @@ def fused_build_cuda(
 def build_hierarchy_fused(
     x: torch.Tensor, plan: HierarchyPlan, with_positions: bool = False
 ) -> Hierarchy:
-    """Single-launch build (paper §4.1, all levels in one pass)."""
-    check_build_input(x, plan, with_positions)
+    """Single-launch build (paper §4.1, all levels in one pass).
+
+    A ``(rows, n)`` ``x`` is a batch of builds (what
+    :func:`repro_torch.core.hierarchy.build_many` passes): every plane
+    comes back with a leading row axis, row ``i`` bit-identical to the
+    build of ``x[i]``.  On a CUDA tensor the rows share ONE launch (the
+    kernel's row axis); on a CPU tensor :func:`fused_build_plain` runs
+    row by row.  Either way it records one launch.  A compact plan's rows
+    go through :func:`finalize_compact` one by one.
+    """
+    check_build_input(x[0] if x.ndim == 2 else x, plan, with_positions)
     if x.is_cuda and with_positions and plan.num_levels > 1:
         check_capacity_limit(kernel_index_extent(plan))
     base = pad_to(x, plan.capacity, float("inf"))
+    lead = tuple(base.shape[:-1])
     if plan.num_levels == 1:
-        upper = base.new_full((0,), float("inf"))
+        upper = base.new_full(lead + (0,), float("inf"))
         upper_pos = (
-            torch.zeros(0, dtype=pos_dtype_for(plan.capacity),
+            torch.zeros(lead + (0,), dtype=pos_dtype_for(plan.capacity),
                         device=base.device)
             if with_positions else None
         )
-        return finalize_compact(Hierarchy(
+        return _finalize(Hierarchy(
             base=base, upper=upper, upper_pos=upper_pos, plan=plan))
     profiling.record_launch(
         "hierarchy_fused",
         lowering="cuda" if base.is_cuda else "eager",
         levels=plan.num_levels,
         with_positions=bool(with_positions),
+        rows=lead[0] if lead else 1,
         operand_bytes=profiling.operand_bytes(base),
     )
     if base.is_cuda:
         upper, upper_pos = fused_build_cuda(base, plan, with_positions)
+    elif lead:
+        planes = [fused_build_plain(row, plan, with_positions)
+                  for row in base]
+        upper = _stack_rows([u for u, _ in planes])
+        upper_pos = _stack_rows([p for _, p in planes])
     else:
         upper, upper_pos = fused_build_plain(base, plan, with_positions)
-    return finalize_compact(
+    return _finalize(
         Hierarchy(base=base, upper=upper, upper_pos=upper_pos, plan=plan))
+
+
+def _stack_rows(planes) -> Optional[torch.Tensor]:
+    return None if planes[0] is None else torch.stack(planes)
+
+
+def _finalize(h: Hierarchy) -> Hierarchy:
+    """:func:`finalize_compact`, row by row where ``h`` has a row axis
+    and a compact plan (a classic plan leaves the planes as they are)."""
+    plan = h.plan
+    if h.base.ndim == 1 or not (plan.packed_pos
+                                or plan.summary_dtype == "bfloat16"):
+        return finalize_compact(h)
+    done = [finalize_compact(Hierarchy(
+        base=h.base[i], upper=h.upper[i],
+        upper_pos=None if h.upper_pos is None else h.upper_pos[i],
+        plan=plan)) for i in range(h.base.shape[0])]
+    return dataclasses.replace(
+        h, upper=_stack_rows([r.upper for r in done]),
+        upper_pos=_stack_rows([r.upper_pos for r in done]))
 
 
 # -- the out-of-core build ---------------------------------------------------

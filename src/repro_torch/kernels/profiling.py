@@ -20,11 +20,15 @@ Two counts exist side by side, for two different questions:
 Unlike the reference (which records while tracing, once per jit
 specialization), PyTorch runs eagerly: every call records.
 
-Two more tables ride on an active :func:`launch_registry`:
+Three more tables ride on an active :func:`launch_registry`:
 :func:`record_config` files configuration decisions (the engine's
-``engine_tuned_config``) without touching any launch count, and
+``engine_tuned_config``) without touching any launch count,
 ``launch_registry(timing=True)`` makes :func:`timed_dispatch` time each
-dispatch site to completion (``torch.cuda.synchronize`` on the card).
+dispatch site to completion (``torch.cuda.synchronize`` on the card), and
+:meth:`LaunchRegistry.attach_cost` files a cost estimate (FLOPs, bytes)
+per name, from anything with the reference's ``cost_analysis()``, a
+mapping of scalars, or a finished ``torch.utils.flop_counter.
+FlopCounterMode`` (its total becomes ``flops``).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import contextlib
 import dataclasses
 import threading
 import time
+from collections.abc import Mapping
 from typing import Any, Dict, Iterator, List, Optional
 
 __all__ = [
@@ -56,14 +61,19 @@ def operand_bytes(*tensors) -> int:
 
 
 class KernelCounter:
-    """Launches of one hand-written kernel, counted where it launches."""
+    """Launches of one hand-written kernel, counted where it launches.
+
+    Locked: the serving tier launches from its flusher thread and from
+    the threads of oversized submissions at once."""
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        self._lock = threading.Lock()
 
     def hit(self) -> None:
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
 
     def reset(self) -> None:
         self.launches = 0
@@ -92,6 +102,7 @@ class LaunchRegistry:
         self.timing = bool(timing)
         self.records: List[LaunchRecord] = []
         self.timings: Dict[str, List[float]] = {}
+        self.costs: Dict[str, Dict[str, float]] = {}
         self.configs: List[LaunchRecord] = []
 
     def add(self, name: str, meta: Dict[str, Any]) -> None:
@@ -106,6 +117,35 @@ class LaunchRegistry:
     def add_timing(self, name: str, seconds: float) -> None:
         with self._lock:
             self.timings.setdefault(name, []).append(float(seconds))
+
+    def attach_cost(self, name: str, source: Any) -> Dict[str, float]:
+        """File a FLOP / byte estimate for ``name``; returns it.
+
+        ``source`` is anything exposing ``cost_analysis()`` (the
+        reference's compiled callables; a one-element list of dicts is
+        unwrapped as the reference's ``cost_analysis_dict`` does), a
+        finished ``torch.utils.flop_counter.FlopCounterMode`` (its
+        ``get_total_flops()`` becomes ``flops``), or a mapping.  Only the
+        scalar entries are kept, as floats.
+        """
+        if hasattr(source, "cost_analysis"):
+            raw = source.cost_analysis() or {}
+            if isinstance(raw, (list, tuple)):
+                raw = raw[0] if raw else {}
+        elif hasattr(source, "get_total_flops"):
+            raw = {"flops": source.get_total_flops()}
+        elif isinstance(source, Mapping):
+            raw = source
+        else:
+            raise TypeError(
+                "attach_cost takes an object with cost_analysis(), a "
+                "FlopCounterMode or a mapping of scalars, got "
+                f"{type(source).__name__}")
+        cost = {k: float(v) for k, v in dict(raw).items()
+                if isinstance(v, (int, float))}
+        with self._lock:
+            self.costs[name] = cost
+        return cost
 
     @property
     def counts(self) -> Dict[str, int]:
@@ -127,12 +167,14 @@ class LaunchRegistry:
         return out
 
     def as_dict(self) -> dict:
-        """``counts`` and ``launches``, plus ``configs`` and ``timings_s``
-        (calls, total, mean, max a site) where any were recorded: the
-        reference's shape, which a benchmark files beside its result."""
+        """``counts`` and ``launches``, plus ``configs``, ``timings_s``
+        (calls, total, mean, max a site) and ``cost_estimates`` where any
+        were recorded: the reference's shape, which a benchmark files
+        beside its result."""
         with self._lock:
             records = [r.as_dict() for r in self.records]
             timings = {k: list(v) for k, v in self.timings.items()}
+            costs = {k: dict(v) for k, v in self.costs.items()}
             configs = [r.as_dict() for r in self.configs]
         counts: Dict[str, int] = {}
         for r in records:
@@ -146,6 +188,8 @@ class LaunchRegistry:
                     "mean": sum(v) / len(v), "max": max(v)}
                 for k, v in timings.items()
             }
+        if costs:
+            out["cost_estimates"] = costs
         return out
 
 

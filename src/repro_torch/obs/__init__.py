@@ -4,9 +4,9 @@
 ``repro.obs`` modules (pure Python, no framework import), so the engine's
 spans and counters read the same in both packages.  The launch registry
 lives beside the kernels (:mod:`repro_torch.kernels.profiling`) and is
-re-exported here, as in the reference.  Exporters past the dict /
-Prometheus text ones, and the registry's cost estimates, wait for
-ROADMAP A7.
+re-exported here, as in the reference; it files launches, configs,
+timings and cost estimates (``LaunchRegistry.attach_cost``, fed by
+``torch.utils.flop_counter.FlopCounterMode`` on the torch side).
 """
 
 from repro_torch.kernels.profiling import (

@@ -11,13 +11,22 @@
 * :class:`ResultCache` (a copy of ``repro.qe.cache``): an LRU keyed by
   ``(op, generation, l, r)``;
 * :class:`QueryEngine` ties them together for one index
-  (``RMQ.engine()``).
+  (``RMQ.engine()``);
+* :class:`QueryService` (:mod:`repro_torch.qe.service`): a multi-index
+  registry with a micro-batching admission queue, one engine execution
+  per flushed (index, op) group (one mixed execution on a fused engine),
+  and ``register_many`` through one batched build.
 
-Not ported yet: ``QueryService`` (ROADMAP A6/A8) and the distributed
-executor (A10).
+The distributed executor's names are exported; the executor itself
+refuses until the port has a distributed index (ROADMAP A10).
 """
 
 from repro_torch.qe.cache import ResultCache
+from repro_torch.qe.distributed import (
+    CROSSING,
+    SEG_LOCAL,
+    DistributedExecutor,
+)
 from repro_torch.qe.engine import QueryEngine
 from repro_torch.qe.executors import BulkExecutor, FusedExecutor
 from repro_torch.qe.planner import (
@@ -28,16 +37,21 @@ from repro_torch.qe.planner import (
     Bucket,
     QueryPlanner,
 )
+from repro_torch.qe.service import QueryService
 
 __all__ = [
     "Bucket",
     "BulkExecutor",
+    "CROSSING",
+    "DistributedExecutor",
     "FUSED",
     "FusedExecutor",
     "LONG",
     "MID",
+    "SEG_LOCAL",
     "SHORT",
     "QueryEngine",
     "QueryPlanner",
+    "QueryService",
     "ResultCache",
 ]

@@ -4,9 +4,10 @@ The port of ``repro.serve.engine``: greedy decoding over a fixed batch,
 with RMQ-backed eviction when the per-sequence importance scores outgrow
 the budget.  Prefill runs the B8 flash kernel on the card; decode is plain
 PyTorch (the reference's decode attention is einsums); eviction runs on
-the port's ``StreamingRMQ`` and engine (B3 / B6 / B5 / B4 on the card).
-Routing eviction through a serving tier (``serving_tier=``) waits for
-ROADMAP A8.
+the port's ``StreamingRMQ`` and engine (B3 / B6 / B5 / B4 on the card),
+or, with ``serving_tier=``, as the ``kv-eviction`` tenant of a
+:class:`repro_torch.serving.ServingTier` (its window batches coalesce
+under the tenant's SLO with whatever else the tier serves).
 """
 
 from __future__ import annotations
@@ -31,10 +32,6 @@ class ServeEngine:
         serving_tier: Optional[Any] = None,
     ):
         check_supported(cfg, serving=True)
-        if serving_tier is not None:
-            raise NotImplementedError(
-                "serving_tier= needs repro_torch.serving, which is not "
-                "ported yet (ROADMAP A8)")
         self.cfg = cfg
         self.params = params
         self.sc = sc
@@ -50,6 +47,9 @@ class ServeEngine:
             if sc.eviction_enabled
             else None
         )
+        # eviction scans become a tenant of the serving tier
+        if self.eviction is not None and serving_tier is not None:
+            self.eviction.attach_serving(serving_tier)
 
     def generate(self, prompt_tokens: torch.Tensor,
                  max_new_tokens: int) -> Dict[str, Any]:

@@ -22,8 +22,13 @@ The reference's default backend is ``"jax"``, its plain path.  The
 port's default is ``"auto"``: on the card the index is built by
 ``hierarchy_build`` (B3), synced by ``hierarchy_update`` (B6) and
 queried through ``rmq_short`` (B5) and ``rmq_scan`` (B4) by span class;
-``backend="eager"`` is the plain path.  Routing eviction through the
-serving tier (``attach_serving``) waits for ROADMAP A8.
+``backend="eager"`` is the plain path.
+
+With :meth:`RMQEvictionManager.attach_serving` the manager becomes a
+tenant of a :class:`repro_torch.serving.ServingTier` instead of owning a
+private engine: each round stages the synced index as a snapshot
+replacement and submits the window batch under the tenant's latency SLO,
+so eviction scans coalesce with everything else the tier serves.
 """
 
 from __future__ import annotations
@@ -38,9 +43,6 @@ from repro_torch.core.api import RMQ
 from repro_torch.streaming import StreamingRMQ
 
 __all__ = ["RMQEvictionManager"]
-
-_TIER_REFUSAL = ("routing eviction through the serving tier needs "
-                 "repro_torch.serving, which is not ported yet (ROADMAP A8)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,7 +120,39 @@ class RMQEvictionManager:
 
     def attach_serving(self, tier, tenant: str = "kv-eviction", *,
                        slo_ms: float = 2.0) -> None:
-        raise NotImplementedError(_TIER_REFUSAL)
+        """Route streaming eviction queries through a serving-tier tenant.
+
+        The tenant registers lazily on the first round (the tier needs an
+        index to register); every later round stages the freshly synced
+        index as a snapshot replacement and submits the window batch with
+        the given SLO.  The tier binding is runtime state parked on the
+        instance dict, like the engine.
+        """
+        object.__setattr__(self, "_tier", tier)
+        object.__setattr__(self, "_tenant", tenant)
+        object.__setattr__(self, "_tenant_slo_ms", float(slo_ms))
+
+    def _victims_via_tier(self, index: StreamingRMQ, ls, rs):
+        """One serving-tier round: stage the synced index, submit windows.
+
+        The staged replacement swaps in at the flush that answers this
+        round's batch (mutations apply before reads in a flush), so the
+        windows are answered against exactly this round's scores.
+        """
+        from repro_torch.qe.executors import INDEX
+
+        tier = self.__dict__["_tier"]
+        tenant = self.__dict__["_tenant"]
+        try:
+            tier.tenant_config(tenant)
+        except KeyError:
+            # scores change every round: no cross-round cache hits
+            tier.register_tenant(
+                tenant, index, slo_ms=self.__dict__["_tenant_slo_ms"],
+                cache_size=0)
+        else:
+            tier.replace_index(tenant, index)
+        return tier.query(tenant, ls, rs, op=INDEX, timeout=60.0)
 
     def _engine_for(self, index: StreamingRMQ):
         """One persistent query engine per manager, re-attached each round.
@@ -156,7 +190,10 @@ class RMQEvictionManager:
                          device=index.device),
             slot_scores.to(index.device))
         ls, rs = self._windows(evictable, evict_count)
-        victims = self._engine_for(index).query_index(ls, rs)
+        if self.__dict__.get("_tier") is not None:
+            victims = self._victims_via_tier(index, ls, rs)
+        else:
+            victims = self._engine_for(index).query_index(ls, rs)
         return index, self._sorted(victims)
 
     def apply_evictions(

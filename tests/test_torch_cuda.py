@@ -1535,3 +1535,157 @@ def test_autotuner_tiny_search_on_the_card(card, tmp_path):
     loaded = TuningCache.load(path)
     for mix in ("short", "mid", "long", "mixed"):
         assert loaded.lookup(report["platform"], 1 << 14, mix) is not None
+
+
+# ---------------------------------------------------------------------------
+# build_many (B1 with a row axis) and the serving tier on the card
+# ---------------------------------------------------------------------------
+MANY_GEOMETRIES = [  # (n, c, t, capacity)
+    (1 << 16, 128, 64, None),      # float32 run layout
+    (1 << 16, 64, 16, None),       # float64 run layout (float32: parts)
+    (70_001, 128, 8, 1 << 17),     # ragged n, capacity > n, four levels
+    (50_000, 32, 8, None),         # the part-by-part layout
+    (20_000, 4, 64, None),         # sub-warp chunks, many levels
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,t,cap", MANY_GEOMETRIES)
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("dtype,with_pos", [
+    (np.float32, True), (np.float32, False), (np.float64, True)])
+def test_build_many_rows_equal_solo_builds(card, n, c, t, cap, rows, dtype,
+                                           with_pos):
+    """One B1 launch builds every row; each row equals a solo B1 build
+    and the plain build of that row, as integer views."""
+    from repro_torch.core import build_many
+
+    rng = np.random.default_rng(n + rows)
+    xs = torch.from_numpy(np.stack([
+        zero_heavy(rng, n, dtype) if i % 2 else tied_input(rng, n, dtype)
+        for i in range(rows)])).to(card)
+    plan = make_plan(n, c=c, t=t, capacity=cap)
+    before = fused_ops.LAUNCHES.launches
+    batched = build_many(xs, plan, with_positions=with_pos)
+    torch.cuda.synchronize()
+    assert fused_ops.LAUNCHES.launches - before == 1
+    assert batched.upper.shape == (rows, plan.upper_size)
+    for i in range(rows):
+        solo = fused_ops.build_hierarchy_fused(xs[i], plan, with_pos)
+        plain = build_hierarchy(xs[i], plan, with_positions=with_pos)
+        for want in (solo, plain):
+            _same_bits(batched.base[i], want.base)
+            _same_bits(batched.upper[i], want.upper)
+            if with_pos:
+                _same_bits(batched.upper_pos[i], want.upper_pos)
+
+
+@pytest.mark.gpu
+def test_register_many_is_one_build_launch(card):
+    from repro_torch.qe import QueryService
+
+    rng = np.random.default_rng(5)
+    n = 1 << 18
+    arrays = {f"r{i}": tied_input(rng, n) for i in range(4)}
+    svc = QueryService()
+    before = fused_ops.LAUNCHES.launches
+    engines = svc.register_many(arrays, c=128, t=64, with_positions=True)
+    assert fused_ops.LAUNCHES.launches - before == 1
+    ls, rs = query_batch(rng, n, 128, m=512)
+    for name, x in arrays.items():
+        assert engines[name].index.device.type == "cuda"
+        solo = RMQ.build(x, with_positions=True, backend="fused")
+        _same_bits(svc.query(name, ls, rs), solo.query(ls, rs))
+        _same_bits(svc.query_index(name, ls, rs), solo.query_index(ls, rs))
+
+
+def _fused_tenant(card, n, seed):
+    x = tied_input(np.random.default_rng(seed), n)
+    return x, RMQ.build(x, with_positions=True, backend="fused")
+
+
+@pytest.mark.gpu
+def test_drained_flush_is_one_rmq_fused_launch(card):
+    """A drained flush of a mixed backlog of max_batch spans on a fused
+    tenant launches B2 exactly once; a staged update adds B6's launches
+    once, at the swap; the answers equal B2 over the successor."""
+    from repro_torch.kernels.hierarchy_update import ops as upd_ops
+    from repro_torch.serving import ServingTier
+
+    n = 1 << 20
+    x, r = _fused_tenant(card, n, 6)
+    clock = [0.0]
+    tier = ServingTier(clock=lambda: clock[0])
+    tier.register_tenant("a", r, slo_ms=5.0, cache_size=0)
+    rng = np.random.default_rng(7)
+    reqs = []
+    for i in range(32):   # 32 x 128 spans = max_batch
+        ls, rs = query_batch(rng, n, 128, m=51)
+        reqs.append((tier.submit("a", ls, rs, "index" if i % 2 else
+                                 "value"), ls, rs, i % 2))
+    idxs = rng.integers(0, n, 1 << 12).astype(np.int32)
+    vals = tied_input(rng, 1 << 12)
+    tier.update("a", idxs, vals)
+    b0, u0 = qfused_ops.LAUNCHES.launches, upd_ops.LAUNCHES.launches
+    clock[0] += 0.01
+    tier.step()
+    torch.cuda.synchronize()
+    assert qfused_ops.LAUNCHES.launches - b0 == 1
+    assert upd_ops.LAUNCHES.launches - u0 == r.plan.num_levels - 1
+    succ = r.update(idxs, vals)
+    for tk, ls, rs, is_index in reqs:
+        assert tk.generation == 1
+        want = (succ.query_index(ls, rs) if is_index
+                else succ.query(ls, rs))
+        _same_bits(tk.result(0), want)
+
+
+@pytest.mark.gpu
+def test_ticket_read_under_a_side_stream(card):
+    """A client thread reads its answers under its own side stream while
+    the flusher thread (and, for an oversized submission, another thread
+    behind a sleep kernel) computed them on the default stream: the
+    answers are complete and equal, as integer views."""
+    from repro_torch.serving import ServingTier
+
+    n = 1 << 20
+    x, r = _fused_tenant(card, n, 8)
+    rng = np.random.default_rng(9)
+    batches = [query_batch(rng, n, 128, m=256) for _ in range(16)]
+    big = query_batch(rng, n, 128, m=1 << 14)
+    tier = ServingTier(idle_tick=0.001)
+    tier.register_tenant("a", r, slo_ms=2.0, max_batch=4096,
+                         max_queue=1 << 15, cache_size=0, bulk_crossover=1)
+    got, errors = [], []
+
+    def client(tk_big):
+        try:
+            s = torch.cuda.Stream()
+            with torch.cuda.stream(s):
+                for j, (ls, rs) in enumerate(batches):
+                    tk = tier.submit("a", ls, rs,
+                                     "index" if j % 2 else "value")
+                    got.append((j, tk.result(30.0).clone()))
+                got.append((-1, tk_big.result(30.0).clone()))
+            s.synchronize()
+        except Exception as e:  # surfaced below
+            errors.append(e)
+
+    import threading
+
+    with tier:
+        # oversized: B7 inline on this thread's default stream, queued
+        # behind a sleep kernel; the client reads it on its side stream
+        torch.cuda._sleep(50_000_000)
+        tk_big = tier.submit("a", *big)
+        th = threading.Thread(target=client, args=(tk_big,))
+        th.start()
+        th.join(60.0)
+    assert not errors, errors
+    assert len(got) == len(batches) + 1
+    for j, res in got:
+        ls, rs = big if j < 0 else batches[j]
+        want = (r.query_index(ls, rs) if j > 0 and j % 2
+                else r.query(ls, rs))
+        _same_bits(res, want)
+    assert tier.stats()["flusher_errors"] == 0

@@ -3,6 +3,7 @@ CPU; the counterpart of ``tests/test_examples.py``, which stays with the
 reference.  Each example runs on the card by default and here takes
 ``device="cpu"``.  RMQ answers are exact (tolerance 0)."""
 
+import asyncio
 import math
 import sys
 from pathlib import Path
@@ -21,14 +22,22 @@ def examples():
     sys.path.insert(0, str(EXAMPLES))
     try:
         import chaining
+        import query_engine
         import torch_chaining
+        import torch_query_engine
         import torch_quickstart
+        import torch_serve_lm
+        import torch_serving_async
         import torch_streaming
         import torch_train_lm
     finally:
         sys.path.remove(str(EXAMPLES))
-    return dict(chaining=chaining, torch_chaining=torch_chaining,
+    return dict(chaining=chaining, query_engine=query_engine,
+                torch_chaining=torch_chaining,
+                torch_query_engine=torch_query_engine,
                 torch_quickstart=torch_quickstart,
+                torch_serve_lm=torch_serve_lm,
+                torch_serving_async=torch_serving_async,
                 torch_streaming=torch_streaming,
                 torch_train_lm=torch_train_lm)
 
@@ -83,3 +92,47 @@ def test_train_lm_small(examples, tmp_path):
     # random tokens: the loss starts near ln(vocab)
     assert abs(first - math.log(cfg.vocab_size)) < 1.0
     assert latest_step(str(tmp_path)) == 100
+
+
+def test_query_engine_walkthrough(examples):
+    ex = examples["torch_query_engine"]
+    ref = examples["query_engine"]
+    # the same workload generator as the reference's example
+    for n in (1 << 16, 1 << 18):
+        got = ex.mixed_workload(np.random.default_rng(3), n, 128, 999)
+        want = ref.mixed_workload(np.random.default_rng(3), n, 128, 999)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    out = ex.run(1 << 16, device="cpu", log=lambda msg: None)
+    assert out["register_many_launches"] == {"hierarchy_fused": 1}
+    assert out["mixed_launches"] == {"rmq_fused": 1}
+    assert out["generation"] == 1 and out["coalesced_batches"] >= 1
+    assert out["dedup_saved"] >= 299 and out["cache_hits"] > 0
+    assert all(out["class_counts"][k] > 0 for k in ("short", "mid", "long"))
+
+
+def test_serving_async_two_tenants(examples):
+    ex = examples["torch_serving_async"]
+    out = asyncio.run(ex.run(n=4096, rounds=10, device="cpu"))
+    assert out["trading_checked"] == 40
+    assert out["analytics_requests"] == 10
+    s = out["stats"]
+    assert s["flusher_errors"] == 0
+    assert s["tenants"]["analytics"]["snapshot_swaps"] > 0
+    assert s["tenants"]["trading"]["snapshot_swaps"] == 0
+    assert s["tenants"]["trading"]["failed_requests"] == 0
+
+
+def test_serve_lm_three_modes(examples):
+    ex = examples["torch_serve_lm"]
+    outs = ex.run(ex.tiny_lm(), batch=2, prompt_len=16, max_new=40,
+                  budget=32, device="cpu", log=lambda msg: None)
+    assert outs["off"]["evicted"] == 0
+    assert outs["engine"]["evicted"] == outs["serving-tier"]["evicted"] > 0
+    t = outs["tenant"]
+    # one swap a round after the first (each round submits once); the
+    # running flusher may take a round's staged index in a mutation
+    # flush of its own, so flushes can exceed rounds
+    assert t["snapshot_swaps"] == t["submits"] - 1
+    assert t["flushes"] >= t["submits"]
+    assert t["rejected_queue_full"] == t["failed_requests"] == 0

@@ -80,6 +80,12 @@ SLICE_MODULES = [
     "repro_torch.tune.cache",
     "repro_torch.tune.measure",
     "repro_torch.tune.search",
+    "repro_torch.qe.service",
+    "repro_torch.qe.distributed",
+    "repro_torch.serving.snapshot",
+    "repro_torch.serving.tier",
+    "repro_torch.serving.aio",
+    "repro_torch.serving.metrics",
 ]
 
 
@@ -97,17 +103,18 @@ def test_every_module_imports_without_nvcc_or_a_card():
 def test_examples_are_guarded():
     names = {p.name for p in PORT_FILES}
     for ex in ("torch_quickstart.py", "torch_streaming.py",
-               "torch_chaining.py", "torch_train_lm.py"):
+               "torch_chaining.py", "torch_train_lm.py",
+               "torch_query_engine.py", "torch_serving_async.py",
+               "torch_serve_lm.py"):
         assert ex in names
 
 
 # names of the reference's packages that the port leaves to later items
-NOT_YET = {
-    "repro.core": {"build_many"},           # ROADMAP A8
-}
+NOT_YET = {}
 
 
-@pytest.mark.parametrize("pkg", ["core", "obs", "configs", "tune"])
+@pytest.mark.parametrize("pkg", ["core", "obs", "configs", "tune", "qe",
+                                 "serving"])
 def test_the_reference_public_names_exist(pkg):
     ref = importlib.import_module(f"repro.{pkg}")
     port = importlib.import_module(f"repro_torch.{pkg}")
@@ -150,6 +157,43 @@ def test_registry_as_dict_is_the_reference():
         "name": "rmq_fused", "levels": 3, "operand_bytes": 100}
     assert prof.LaunchRegistry().as_dict() == {"counts": {},
                                                "launches": []}
+
+
+class _Compiled:
+    """A stand-in for a compiled callable: ``cost_analysis()`` as older
+    JAX returns it (a one-element list), with a non-scalar entry."""
+
+    def cost_analysis(self):
+        return [{"flops": 1024, "bytes accessed": 96.0,
+                 "utilization operand 0 {}": "n/a"}]
+
+
+def test_attach_cost_takes_the_three_sources():
+    import torch.utils.flop_counter as fc
+
+    from repro.kernels import profiling as jprof
+    from repro_torch.kernels import profiling as prof
+
+    reg, jreg = prof.LaunchRegistry(), jprof.LaunchRegistry()
+    assert reg.attach_cost("compiled", _Compiled()) == jreg.attach_cost(
+        "compiled", _Compiled()) == {"flops": 1024.0,
+                                     "bytes accessed": 96.0}
+    assert reg.as_dict() == jreg.as_dict()
+    assert reg.as_dict()["cost_estimates"] == {
+        "compiled": {"flops": 1024.0, "bytes accessed": 96.0}}
+    # a mapping of scalars
+    assert reg.attach_cost("mapping", {"flops": 7, "note": "x"}) == {
+        "flops": 7.0}
+    # a finished FlopCounterMode over one plain matmul: 2 * m * k * n
+    a, b = torch.rand(8, 16), torch.rand(16, 4)
+    with fc.FlopCounterMode(display=False) as counter:
+        torch.matmul(a, b)
+    assert reg.attach_cost("matmul", counter) == {"flops": 2.0 * 8 * 16 * 4}
+    d = reg.as_dict()
+    assert set(d) == {"counts", "launches", "cost_estimates"}
+    assert set(d["cost_estimates"]) == {"compiled", "mapping", "matmul"}
+    with pytest.raises(TypeError, match="cost_analysis"):
+        reg.attach_cost("bad", 3.0)
 
 
 def test_registry_timings_shape_is_the_reference():

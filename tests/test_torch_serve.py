@@ -5,7 +5,9 @@ Mirrors ``tests/test_serve.py`` (``TestEvictionManager``,
 equal to the reference's on the same scores (argmin is exact, tolerance
 0), and ``ServeEngine.generate`` with eviction on ``llama3.2-smoke``
 (parameters carried across) must give the reference's tokens,
-``final_pos`` and ``evicted`` with the same victims in every round.
+``final_pos`` and ``evicted`` with the same victims in every round, with
+eviction on a private engine and as a serving-tier tenant
+(``serving_tier=``, ``attach_serving``).
 """
 
 import dataclasses
@@ -160,14 +162,68 @@ def test_streaming_index_reuses_across_rounds():
         np.testing.assert_array_equal(_victims(victims), np.asarray(want))
 
 
-def test_serving_tier_is_refused(models):
+def test_attach_serving_victims_equal_reference_and_direct_path():
+    """Eviction as a serving-tier tenant: every round's victims equal the
+    reference's tenant and the port's own direct (private engine) path;
+    the tenant registers on the first round and swaps once a round after
+    it."""
+    from repro.serving import ServingTier as RefTier
+    from repro_torch.serving import ServingTier
+
+    kw = dict(budget=30, protected_window=4, c=8, t=4)
+    mgr, direct, ref = (RMQEvictionManager(**kw), RMQEvictionManager(**kw),
+                        RefManager(**kw))
+    tier, rtier = ServingTier(), RefTier()
+    mgr.attach_serving(tier)
+    ref.attach_serving(rtier)
+    cap = 64
+    index = mgr.make_index(cap, device="cpu")
+    dindex = direct.make_index(cap, device="cpu")
+    rindex = ref.make_index(cap)
+    rng = np.random.default_rng(4)
+    lives = (34, 38, 33, 40)
+    for live in lives:
+        s = rng.random(cap).astype(np.float32)
+        s[rng.integers(0, live, live // 4)] = 0.25   # ties: leftmost wins
+        s[live:] = np.inf
+        index, victims = mgr.plan_evictions_streaming(
+            index, torch.from_numpy(s), live)
+        dindex, dv = direct.plan_evictions_streaming(
+            dindex, torch.from_numpy(s), live)
+        rindex, want = ref.plan_evictions_streaming(rindex, jnp.asarray(s),
+                                                    live)
+        assert victims.dtype == torch.int32
+        np.testing.assert_array_equal(_victims(victims), np.asarray(want))
+        np.testing.assert_array_equal(_victims(victims), _victims(dv))
+    t = tier.stats()["tenants"]["kv-eviction"]
+    rt = rtier.stats()["tenants"]["kv-eviction"]
+    for key in ("snapshot_swaps", "flushes", "flushes_forced", "submits",
+                "submitted_queries", "mutations_applied"):
+        assert t[key] == rt[key], key
+    assert t["snapshot_swaps"] == len(lives) - 1
+    assert tier.tenant_config("kv-eviction").slo_ms == 2.0
+
+
+def test_serving_tier_thread_driver_matches_direct_path(models):
+    """``tier.start()``: the flusher thread answers every round; tokens
+    and victims equal the direct path's."""
+    from repro_torch.serving import ServingTier
+
     _, _, cfg, params = models
-    sc = ServeConfig(seq_len=64, batch=2, kv_cache_dtype="float32",
-                     eviction_enabled=True, eviction_budget=32)
-    with pytest.raises(NotImplementedError, match="A8"):
-        engine_mod.ServeEngine(cfg, params, sc, serving_tier=object())
-    with pytest.raises(NotImplementedError, match="A8"):
-        RMQEvictionManager(budget=4).attach_serving(object())
+    prompts = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 24)))
+    want = engine_mod.ServeEngine(cfg, params, ServeConfig(**SERVE)).generate(
+        prompts, 40)
+    tier = ServingTier()
+    with tier:
+        got = engine_mod.ServeEngine(cfg, params, ServeConfig(**SERVE),
+                                     serving_tier=tier).generate(prompts, 40)
+    assert torch.equal(got["tokens"], want["tokens"])
+    assert (got["final_pos"], got["evicted"]) == (want["final_pos"],
+                                                  want["evicted"])
+    s = tier.stats()
+    assert s["flusher_errors"] == 0
+    assert s["tenants"]["kv-eviction"]["failed_requests"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -230,6 +286,41 @@ def test_generate_with_eviction_matches_reference(models, monkeypatch):
         index, v = mgr.plan_evictions_streaming(index, torch.from_numpy(rs),
                                                 rlive)
         np.testing.assert_array_equal(_victims(v), rv)
+
+
+def test_generate_through_the_serving_tier_matches_reference(models,
+                                                            monkeypatch):
+    """``ServeEngine(serving_tier=ServingTier())`` against the reference's
+    ``serving_tier`` run: the same tokens, ``final_pos``, ``evicted`` and
+    victims every round; the ``kv-eviction`` tenant swaps once a round
+    after the first, in both packages."""
+    from repro.serving import ServingTier as RefTier
+    from repro_torch.serving import ServingTier
+
+    rcfg, rparams, cfg, params = models
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    ref_rounds = _record_rounds(monkeypatch, RefManager)
+    rounds = _record_rounds(monkeypatch, RMQEvictionManager)
+    rtier, tier = RefTier(), ServingTier()
+    want = ref_engine_mod.ServeEngine(
+        rcfg, rparams, RefServeConfig(**SERVE), serving_tier=rtier).generate(
+            jnp.asarray(prompts), 48)
+    got = engine_mod.ServeEngine(
+        cfg, params, ServeConfig(**SERVE), serving_tier=tier).generate(
+            torch.from_numpy(prompts), 48)
+    np.testing.assert_array_equal(got["tokens"].numpy(),
+                                  np.asarray(want["tokens"]))
+    assert got["final_pos"] == want["final_pos"]
+    assert got["evicted"] == want["evicted"] > 0
+    assert len(rounds) == len(ref_rounds) > 1
+    for (_, live, v), (_, rlive, rv) in zip(rounds, ref_rounds):
+        assert live == rlive
+        np.testing.assert_array_equal(v, rv)
+    t = tier.stats()["tenants"]["kv-eviction"]
+    rt = rtier.stats()["tenants"]["kv-eviction"]
+    assert t["snapshot_swaps"] == rt["snapshot_swaps"] == len(rounds) - 1
+    assert t["flushes"] == rt["flushes"] == len(rounds)
 
 
 def test_engine_eviction_never_rebuilds_per_round(models, monkeypatch):
