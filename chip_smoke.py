@@ -216,6 +216,29 @@ outside the repository.  Phases:
    to the direct path's, the ``kv-eviction`` tenant swapping once a round
    after the first.  The J launches are added to the kernels' counts.
 
+16. bfloat16 values (K; run after phase 15, on geometry A's data cast to
+   bf16, round to nearest even): n = 2^30, c = 128, t = 64, positions, a
+   2 GiB level 0.  Phase 3's path (both builds, ``query``,
+   ``query_index``, one fused batch), B5 and B7 on the cut and sorted
+   spans, ``RMQ.update`` of 2^16 indices under
+   ``set_sync_debug_mode("error")`` (phase 7), the engine over 2^20
+   spans with ``query_mixed`` and ``query_bulk`` (phase 8), the signed
+   zeros and NaN phases (each with its control), ``register_many`` of 8
+   bf16 arrays of 2^24 (one B1 launch) and ``StreamingRMQ`` append 777 /
+   retire 1024 at B's geometry in bf16.  Every hierarchy and answer is
+   held to the plain version on the card as int16 / int32 views (gates at
+   0 differing entries); the launch counts are float32's; every bf16
+   launch must take the run layout (builds, update) or the
+   one-chunk-a-warp walk (B2 / B4 / B7; B5 four entries a lane), as read
+   back from each library (``_build.instances``); the peak memory of the
+   fused build and of the 2^24-span batch must stay below a float32 copy
+   of level 0 over their own bytes.  Times (CUDA events, warmed up) of
+   each bf16 kernel beside its bound (2 bytes an entry), its plain
+   version, float32's at A and the float32 rows' yardsticks, and the
+   ``-Xptxas -v`` registers and spills of every bf16 instance.  The bf16
+   instances get rows of their own in the kernels line ("<name>
+   (bf16)").
+
 Each phase sets every launch counter to 0 just before it drives its
 path and reads them just after.  The output ends with one
 ``{"kernels": [...]}`` line (per kernel: its launches on its phase's
@@ -718,8 +741,9 @@ def returns_while_busy(torch, fn, strict: bool,
     return {"busy": busy, "call_s": call_s, "sleep_s": sleep_s}
 
 
-def update_phase(torch, x, plan, rf, rc, seed):
-    """Phase 7: one update batch through the facade on both indexes."""
+def update_phase(torch, x, plan, rf, rc, seed, name="A"):
+    """Phase 7: one update batch through the facade on both indexes (at
+    geometry ``name``: A, or K in bf16)."""
     import numpy as np
 
     from repro_torch.streaming import updates as U
@@ -746,7 +770,7 @@ def update_phase(torch, x, plan, rf, rc, seed):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     launches = read(torch, count)
-    expect("A update", launches, hierarchy_update=2 * (levels - 1))
+    expect(f"{name} update", launches, hierarchy_update=2 * (levels - 1))
     # the sleep check on a further call, after one that leaves the
     # allocator holding a successor's blocks (a fresh 4 GB allocation takes
     # host time of its own)
@@ -767,7 +791,7 @@ def update_phase(torch, x, plan, rf, rc, seed):
     require(free["busy"] and free["call_s"] < 0.9 * free["sleep_s"]
             and control["call_s"] >= 0.9 * control["sleep_s"]
             and control_raised,
-            f"A update: the update waited for the card ({free}) or the "
+            f"{name} update: the update waited for the card ({free}) or the "
             f"control did not ({control}, raised {control_raised})")
 
     want = U.update_hierarchy(rc.hierarchy, idxs, vals)  # plain, on card
@@ -777,10 +801,11 @@ def update_phase(torch, x, plan, rf, rc, seed):
                                                   want.upper),
                   (r.hierarchy.upper_pos, want.upper_pos)]
     err = max_abs_err(torch, pairs)
-    require(err == 0.0, f"A update: kernel and plain disagree ({err})")
-    require(rc2.generation == rf2.generation == 1, "A update: generation")
+    require(err == 0.0, f"{name} update: kernel and plain disagree ({err})")
+    require(rc2.generation == rf2.generation == 1,
+            f"{name} update: generation")
     require(torch.equal(rc.hierarchy.base, x),
-            "A update: the predecessor's level 0 changed")
+            f"{name} update: the predecessor's level 0 changed")
     from repro_torch.tune.measure import make_queries
 
     ql, qr = (torch.from_numpy(a).cuda() for a in
@@ -789,7 +814,7 @@ def update_phase(torch, x, plan, rf, rc, seed):
                       rf2.query_index(ql, qr), 256, seed, n)
     brute_force_check(torch, x, ql, qr, rc.query(ql, qr),
                       rc.query_index(ql, qr), 256, seed, n)
-    print(f"A update: 2^16 indices, launches {launches}, max_abs_err "
+    print(f"{name} update: 2^16 indices, launches {launches}, max_abs_err "
           f"{err}, successor and predecessor brute force 256/256 ok; both "
           f"updates ran under torch.cuda.set_sync_debug_mode('error') and "
           f"returned while the card was busy ({json.dumps(free)}); the "
@@ -957,7 +982,8 @@ def time_update(torch, plan, rc, up):
     return out
 
 
-def engine_phase(torch, plan, rf, rc, rc2, ls, rs, wv, wp, seed):
+def engine_phase(torch, plan, rf, rc, rc2, ls, rs, wv, wp, seed,
+                 name="A"):
     """Phase 8: the engine on the cuda index, the fused index's
     query_mixed and query_bulk, then attach of the updated index."""
     import numpy as np
@@ -987,10 +1013,10 @@ def engine_phase(torch, plan, rf, rc, rc2, ls, rs, wv, wp, seed):
         torch, lambda: ec.query_index(el, er))
     got = read(torch, count)
     cls = {k: c_ // 2 for k, c_ in ec.stats()["class_counts"].items()}
-    expect("A engine (cuda)", got, rmq_short=2 * buckets(cls[SHORT]),
+    expect(f"{name} engine (cuda)", got, rmq_short=2 * buckets(cls[SHORT]),
            rmq_scan=2 * buckets(cls[MID]))
     require(cls[SHORT] > 0 and cls[MID] > 0 and cls["long"] > 0,
-            f"A engine (cuda): a span class is empty: {cls}")
+            f"{name} engine (cuda): a span class is empty: {cls}")
     launches["rmq_short"] = got["rmq_short"]
     labels = ec.planner.classify(el, er)
     fv, fp = rc.query(elt, ert), rc.query_index(elt, ert)
@@ -1015,7 +1041,7 @@ def engine_phase(torch, plan, rf, rc, rc2, ls, rs, wv, wp, seed):
     (mv, mp), walls["fused engine.query_mixed"] = wall(
         torch, lambda: ef.query_mixed(el, er, is_index))
     got = read(torch, count)
-    expect("A engine (fused, mixed)", got,
+    expect(f"{name} engine (fused, mixed)", got,
            rmq_fused=buckets(ef.stats()["class_counts"][FUSED]))
     launches["rmq_fused_mixed"] = got["rmq_fused"]
     ii = torch.from_numpy(is_index).cuda()
@@ -1031,7 +1057,7 @@ def engine_phase(torch, plan, rf, rc, rc2, ls, rs, wv, wp, seed):
         torch, lambda: eb.query_bulk(ls, rs, "index"))
     got = read(torch, count)
     per_op = -(-ls.numel() // eb._bulk.max_bucket)
-    expect("A engine (bulk)", got, rmq_bulk=2 * per_op)
+    expect(f"{name} engine (bulk)", got, rmq_bulk=2 * per_op)
     launches["rmq_bulk"] = got["rmq_bulk"]
     err["rmq_bulk"] = max_abs_err(torch, [(bv, wv), (bp, wp)])
 
@@ -1040,23 +1066,24 @@ def engine_phase(torch, plan, rf, rc, rc2, ls, rs, wv, wp, seed):
     count = zero_counts()
     v2, p2 = ec.query(el, er), ec.query_index(el, er)
     got = read(torch, count)
-    expect("A engine after attach", got, rmq_short=2 * buckets(cls[SHORT]),
-           rmq_scan=2 * buckets(cls[MID]))
+    expect(f"{name} engine after attach", got,
+           rmq_short=2 * buckets(cls[SHORT]), rmq_scan=2 * buckets(cls[MID]))
     rb = RMQ.build(rc2.hierarchy.base.clone(), with_positions=True,
                    backend="cuda", plan=plan, device=rc2.device)
     rebuild = max_abs_err(torch, [(v2, rb.query(elt, ert)),
                                   (p2, rb.query_index(elt, ert))])
-    require(rebuild == 0.0, f"A engine after attach: {rebuild} from a "
+    require(rebuild == 0.0, f"{name} engine after attach: {rebuild} from a "
             "rebuild of the updated array")
-    require(not torch.equal(v2, v), "A engine after attach: the update "
+    require(not torch.equal(v2, v), f"{name} engine after attach: the update "
             "changed no answer")
     require(all(e == 0.0 for e in err.values()),
-            f"A engine: kernels disagree with their plain versions: {err}")
-    print(f"A engine: 2^20 mixed spans, classes {cls}, launches "
+            f"{name} engine: kernels disagree with their plain versions: "
+            f"{err}")
+    print(f"{name} engine: 2^20 mixed spans, classes {cls}, launches "
           f"{launches}, max_abs_err {err}; after attach equal to a "
           "rebuild; brute force 256/256 ok")
-    print(f"A engine wall times (s, host clock to the end of device work, "
-          f"cache_size=0): {json.dumps(walls)}")
+    print(f"{name} engine wall times (s, host clock to the end of device "
+          f"work, cache_size=0): {json.dumps(walls)}")
     return {"launches": launches, "err": err, "short": (sl, sr)}
 
 
@@ -1278,6 +1305,10 @@ def with_nans(torch, x, c: int, g):
         bits = 0x7FC00000 + ri(1 << 22, k)
         bits = torch.where(neg, bits - (1 << 31), bits)  # sign bit set
         z.view(torch.int32)[at] = bits.to(torch.int32)
+    elif x.dtype == torch.bfloat16:
+        bits = 0x7FC0 + ri(1 << 6, k)
+        bits = torch.where(neg, bits - (1 << 15), bits)  # sign bit set
+        z.view(torch.int16)[at] = bits.to(torch.int16)
     else:
         bits = 0x7FF8000000000000 + ri(1 << 51, k)
         bits = torch.where(neg, bits | -(1 << 63), bits)
@@ -1411,8 +1442,10 @@ def stream_phase(torch, name, x, plan, seed):
     s = StreamingRMQ.from_array(x, with_positions=True, backend="cuda",
                                 plan=plan, device=x.device)
     rng = np.random.default_rng(seed + 6)
-    tail = torch.from_numpy(rng.random(777).astype(
-        np.dtype(str(x.dtype).replace("torch.", ""))) - 0.5).cuda()
+    made = (np.float32 if x.dtype == torch.bfloat16  # numpy has no bf16
+            else np.dtype(str(x.dtype).replace("torch.", "")))
+    tail = torch.from_numpy(rng.random(777).astype(made) - 0.5).to(
+        x.dtype).cuda()
     live = n + 777 - 1024
     ql, qr = (torch.from_numpy(a.astype(np.int64) + 1024).cuda()
               for a in make_queries(live, 1 << 16, "mixed", seed=seed + 7))
@@ -2273,11 +2306,12 @@ class TimedLock:
         return out
 
 
-def register_many_phase(torch, seed):
+def register_many_phase(torch, seed, dtype=None, name="J1"):
     """J1: 8 arrays of 2^24 through ``register_many``: one B1 launch, each
     row equal to a solo B1 build and to the plain build of that row; the
     batched build and the solo builds timed in turns, on the host clock
-    (CUDA events around the calls) and on the device (torch.profiler)."""
+    (CUDA events around the calls) and on the device (torch.profiler).
+    ``dtype``: the arrays cast (bfloat16 in phase 16), else float32."""
     from repro_torch.core import build_hierarchy, build_many, make_plan
     from repro_torch.kernels.hierarchy_fused.ops import build_hierarchy_fused
     from repro_torch.qe import QueryService
@@ -2285,13 +2319,18 @@ def register_many_phase(torch, seed):
 
     arrays = {f"row{i}": make_input_array(J_N, seed + 100 + i)
               for i in range(J_ROWS)}
+    if dtype is not None:
+        arrays = {k: torch.from_numpy(a).to(dtype)
+                  for k, a in arrays.items()}
     svc = QueryService()
     count = zero_counts()
     engines = svc.register_many(arrays, c=128, t=64, with_positions=True)
     launches = read(torch, count)
-    expect("J1 register_many", launches, hierarchy_fused=1)
+    expect(f"{name} register_many", launches, hierarchy_fused=1)
     plan = make_plan(J_N, c=128, t=64)
-    xs = torch.stack([torch.from_numpy(a).cuda() for a in arrays.values()])
+    xs = torch.stack([torch.as_tensor(a).cuda() for a in arrays.values()])
+    require(xs.dtype == engines["row0"].index.hierarchy.upper.dtype,
+            f"{name}: register_many changed the rows' dtype")
     solos = [build_hierarchy_fused(xs[i], plan, True) for i in range(J_ROWS)]
     plains = [build_hierarchy(xs[i], plan, True) for i in range(J_ROWS)]
 
@@ -2302,12 +2341,12 @@ def register_many_phase(torch, seed):
             for i, h in enumerate(hs))
 
     require(rows_equal(solos),
-            "J1: a row of register_many differs from its solo B1 build")
+            f"{name}: a row of register_many differs from its solo B1 build")
     require(rows_equal(plains),
-            "J1: a row of register_many differs from the plain build")
+            f"{name}: a row of register_many differs from the plain build")
     for hs in (solos, plains):
         require(not rows_equal([hs[1], hs[0]] + hs[2:]),
-                "J1 control: two rows swapped passed the gate")
+                f"{name} control: two rows swapped passed the gate")
     fns = {"batched": lambda: build_many(xs, plan, True),
            "solo x8": lambda: [build_hierarchy_fused(xs[i], plan, True)
                                for i in range(J_ROWS)]}
@@ -2318,13 +2357,15 @@ def register_many_phase(torch, seed):
               in fns.items()}
     device["solo x8"] = (None if device["solo x8"] is None
                          else device["solo x8"] * J_ROWS)
-    bound = bound_ms(J_ROWS * (plan.capacity * 4 + plan.upper_size * 8),
+    item = xs.element_size()
+    bound = bound_ms(J_ROWS * (plan.capacity * item
+                               + plan.upper_size * (item + 4)),
                      J_ROWS * plan.capacity)
-    print(f"J1 register_many: {J_ROWS} x {J_N} float32, c=128 t=64, "
+    print(f"{name} register_many: {J_ROWS} x {J_N} {xs.dtype}, c=128 t=64, "
           f"positions; launches {launches}; every row equal to its solo B1 "
           f"build and to the plain build (integer views); control (rows 0 "
           f"and 1 swapped) fails both gates as it must")
-    print(f"J1 times (ms a call, CUDA events, in turns; {card_line()}): "
+    print(f"{name} times (ms a call, CUDA events, in turns; {card_line()}): "
           f"{json.dumps(times)}; B1 device ms a call (torch.profiler) "
           f"{json.dumps(device)}; bound of the {J_ROWS} rows {bound}")
     del svc, engines, xs, solos, plains
@@ -2886,6 +2927,256 @@ def tier_eviction_phase(torch, cfg, params, sc, prompts):
           f"{tenant['latency_s']['p99'] * 1e3} ms; generate {t_t} s "
           f"against {t_d} s direct (host clock); launches {launches}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 16: bfloat16 values (K)
+# ---------------------------------------------------------------------------
+BF16_KERNELS = ("hierarchy_fused", "hierarchy_build", "rmq_fused", "rmq_scan",
+                "rmq_short", "rmq_bulk", "hierarchy_update")
+# The instance every bf16 launch at K (c = 128, capacity a whole number of
+# four-entry vectors) must take: the run layout of build_hopper.cuh for the
+# builds and the update, the one-chunk-a-warp walk ("-fast", four bf16 a
+# lane) for B2 / B4 / B7; B5 is a one-level walk (level 0 as its top), so
+# four entries a lane and never the fast walk.
+BF16_INSTANCES = {"hierarchy_fused": ["run"], "hierarchy_build": ["run"],
+                  "hierarchy_update": ["run"], "rmq_fused": ["V4-fast"],
+                  "rmq_scan": ["V4-fast"], "rmq_bulk": ["V4-fast"],
+                  "rmq_short": ["V4"]}
+# The kernel names of each source in a -Xptxas -v report.
+KERNEL_STEMS = {
+    "hierarchy_fused": ("fused_runs_kernel", "fused_parts_kernel"),
+    "hierarchy_build": ("build_level_runs", "build_level_parts"),
+    "hierarchy_update": ("update_runs_kernel", "update_parts_kernel"),
+    "rmq_fused": ("rmq_fused_kernel",), "rmq_scan": ("rmq_scan_kernel",),
+    "rmq_short": ("rmq_short_kernel",), "rmq_bulk": ("rmq_bulk_kernel",),
+}
+
+
+def instances_of(names):
+    """``{kernel: instances launched since the last read}`` (read and
+    cleared: ``_build.instances``)."""
+    from repro_torch.kernels import _build
+
+    return {name: _build.instances(name) for name in names}
+
+
+def check_instances(where: str, seen) -> None:
+    bad = {k: v for k, v in seen.items() if v != BF16_INSTANCES[k]}
+    require(not bad, f"K {where}: a bf16 launch took another instance than "
+            f"the run / fast layout: {bad} (want {BF16_INSTANCES})")
+
+
+def bf16_ptxas(reports):
+    """Registers and spills of every bf16 instance, from the build's
+    ``-Xptxas -v`` report."""
+    out = {}
+    for src, stems in KERNEL_STEMS.items():
+        for stem in stems:
+            for name, regs in ptxas_all(reports.get(src, ""), stem).items():
+                if "bfloat16" in name:
+                    out[name] = regs
+    return out
+
+
+def bf16_phase(torch, seed, xa, ls, rs, f32_ms, reports):
+    """Phase 16 (K): A's data cast to bf16 (round to nearest even), n =
+    2^30, c = 128, t = 64, positions; every RMQ kernel's bf16 instance on
+    the main path, held to its plain version as integer views, with
+    float32's launch counts and the run / fast instances; the peak memory
+    of the build and of the query batch; the times beside the bounds and
+    float32's.  Returns the rows of the kernels line and the launches."""
+    from repro_torch.core import RMQ, build_hierarchy, make_plan
+    from repro_torch.core import rmq_walk_batch
+    from repro_torch.kernels.hierarchy_build.ops import (
+        build_hierarchy_percall,
+    )
+    from repro_torch.kernels.hierarchy_fused.ops import build_hierarchy_fused
+    from repro_torch.kernels.rmq_fused.ops import rmq_fused_batch
+    from repro_torch.kernels.rmq_scan.ops import (
+        rmq_index_batch_cuda,
+        rmq_value_batch_cuda,
+    )
+
+    t0 = time.perf_counter()
+    n, m, c = xa.numel(), ls.numel(), 128
+    plan = make_plan(n, c=c, t=64)
+    xk = xa.to(torch.bfloat16)
+    item = xk.element_size()
+    require(item == 2, "K: the bf16 input is not 2 bytes an entry")
+    print(f"K: A's data cast to bf16 (n = 2^30, {n * item} bytes), c=128, "
+          f"t=64, positions; m=2^24 mixed spans")
+    instances_of(BF16_KERNELS)  # cleared
+    k = drive(torch, "K", xk, ls, rs, plan, True, seed)
+    seen = instances_of(BF16_KERNELS)
+    seen.pop("hierarchy_update")
+    check_instances("builds and queries", seen)
+    launches = dict(k["launches"])
+    errors = dict(k["err"])
+    rf, rc, hp, wv, wp = k["rf"], k["rc"], k["hp"], k["wv"], k["wp"]
+    del k
+    for r in (rf, rc):
+        h = r.hierarchy
+        require(h.base.dtype == h.upper.dtype == torch.bfloat16
+                and h.base.data_ptr() == xk.data_ptr(),
+                "K: an index does not keep the bf16 input as its level 0 "
+                "with bf16 upper levels")
+    require(wv.dtype == torch.bfloat16, "K: the answers are not bf16")
+
+    # -- memory: no float32 copy of level 0, stored or passing -------------
+    widened = n * 4
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rm = RMQ.build(xk, with_positions=True, backend="fused", plan=plan,
+                   device="cuda")
+    torch.cuda.synchronize()
+    build_extra = torch.cuda.max_memory_allocated() - before
+    own = rm.hierarchy.auxiliary_bytes()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    qv, qp = rmq_fused_batch(rm.hierarchy, ls, rs, True)
+    torch.cuda.synchronize()
+    query_extra = torch.cuda.max_memory_allocated() - before
+    answers = qv.numel() * qv.element_size() + qp.numel() * 4
+    print(f"K memory (bytes, torch.cuda.max_memory_allocated over the "
+          f"call): the fused build {build_extra} (its own planes "
+          f"{own}), the 2^24-span fused batch {query_extra} (its answers "
+          f"{answers}); a float32 copy of level 0 would be {widened}")
+    require(build_extra < own + widened and query_extra < answers + widened,
+            "K memory: a bf16 call took a float32 copy of level 0")
+    require(same_bits(torch, [(qv, wv), (qp, wp)]),
+            "K: the fused batch differs from the plain walk")
+    del rm, qv, qp
+
+    # -- mutation and the engine -------------------------------------------
+    up = update_phase(torch, xk, plan, rf, rc, seed, name="K")
+    launches["hierarchy_update"] = up["launches"]["hierarchy_update"]
+    errors["hierarchy_update"] = up["err"]
+    check_instances("update", instances_of(("hierarchy_update",)))
+    eng = engine_phase(torch, plan, rf, rc, up["rc2"], ls, rs, wv, wp, seed,
+                       name="K")
+    for key in ("rmq_short", "rmq_bulk"):
+        launches[key] = eng["launches"][key]
+    launches["rmq_fused"] += eng["launches"]["rmq_fused_mixed"]
+    for key, e in eng["err"].items():
+        errors[key] = max(errors.get(key, 0.0), e)
+    seen = instances_of(BF16_KERNELS)
+    check_instances("engine", {k_: v for k_, v in seen.items() if v})
+
+    # -- signed zeros and NaN, each with its control -----------------------
+    zs, zb, zh = zero_phase(torch, "K", xk, plan, ls, rs, seed)
+    for key, e in (("rmq_short", zs), ("rmq_bulk", zb),
+                   ("hierarchy_fused", zh), ("hierarchy_build", zh)):
+        errors[key] = max(errors[key], e)
+    nan_phase(torch, "K", xk, plan, ls, rs, seed)
+    check_instances("zeros and NaN", instances_of(BF16_KERNELS))
+
+    # -- times at K: CUDA events, warmed up -----------------------------------
+    h = rf.hierarchy
+    ms = {
+        "hierarchy_fused": time_ms(
+            torch, lambda: build_hierarchy_fused(xk, plan, True), 10),
+        "hierarchy_build": time_ms(
+            torch, lambda: build_hierarchy_percall(xk, plan, True), 10),
+        "rmq_fused": time_ms(
+            torch, lambda: rmq_fused_batch(h, ls, rs, True), 10),
+        "rmq_scan": time_ms(
+            torch, lambda: (rmq_value_batch_cuda(h, ls, rs),
+                            rmq_index_batch_cuda(h, ls, rs)), 10),
+    }
+    detail = {
+        "build value-only fused": time_ms(
+            torch, lambda: build_hierarchy_fused(xk, plan, False), 10),
+        "build value-only per-level": time_ms(
+            torch, lambda: build_hierarchy_percall(xk, plan, False), 10),
+        "rmq_fused value plane": time_ms(
+            torch, lambda: rmq_fused_batch(h, ls, rs, False), 10),
+    }
+    plain_build = time_ms(torch, lambda: build_hierarchy(xk, plan, True), 3,
+                          warmup=1)
+    plain_walk = time_ms(torch, lambda: rmq_walk_batch(hp, ls, rs, True), 1,
+                         warmup=1)
+    lib_min = time_ms(torch, lambda: torch.min(xk.view(-1, c), dim=1), 10)
+    lib_amin = time_ms(torch, lambda: torch.amin(xk.view(-1, c), dim=1), 10)
+    t_up = time_update(torch, plan, rc, up)
+    t_short, t_bulk = time_queries(torch, plan, rc.hierarchy, ls, rs,
+                                   eng["short"], seed)
+    check_instances("timed launches", instances_of(BF16_KERNELS))
+    for key, tm in (("hierarchy_update", t_up), ("rmq_short", t_short),
+                    ("rmq_bulk", t_bulk)):
+        ms[key] = tm["ms"]
+    build_bytes = plan.capacity * item + plan.upper_size * (item + 4)
+    q_bytes = level0_bytes(torch, ls, rs, c, item) + m * (8 + item + 4)
+    bounds = {
+        "hierarchy_fused": bound_ms(build_bytes, plan.capacity),
+        "hierarchy_build": bound_ms(build_bytes, plan.capacity),
+        "rmq_fused": bound_ms(q_bytes, q_bytes / item),
+        "rmq_scan": bound_ms(q_bytes, q_bytes / item),
+        "hierarchy_update": t_up["bound"], "rmq_short": t_short["bound"],
+        "rmq_bulk": t_bulk["bound"],
+    }
+    plain = {"hierarchy_fused": plain_build, "hierarchy_build": plain_build,
+             "rmq_fused": plain_walk, "rmq_scan": plain_walk,
+             "hierarchy_update": t_up["plain_ms"],
+             "rmq_short": t_short["plain_ms"],
+             "rmq_bulk": t_bulk["plain_ms"]}
+    library = {"hierarchy_fused": lib_min, "hierarchy_build": lib_min,
+               "rmq_fused": None, "rmq_scan": None,
+               "hierarchy_update": t_up["library_ms"], "rmq_short": None,
+               "rmq_bulk": None}
+    print(f"K times (ms, CUDA events; {card_line()}): bf16 "
+          f"{json.dumps(ms)}; float32 at A {json.dumps(f32_ms)}")
+    print(f"K detail (ms): {json.dumps(detail)}; plain build {plain_build}, "
+          f"plain walk {plain_walk}; torch.min(x.view(-1, c), dim=1) "
+          f"{lib_min}, torch.amin {lib_amin} (bf16, timed only)")
+    print(f"K bounds (ms): {json.dumps(bounds)}; build bytes {build_bytes}, "
+          f"level-0 bytes of the batch {q_bytes}")
+    print(f"K hierarchy_update (ms): {json.dumps(t_up)}")
+    print(f"K rmq_short (ms a 4096-span launch): {json.dumps(t_short)}")
+    print(f"K rmq_bulk (ms a 2^20 launch): {json.dumps(t_bulk)}")
+    for name in BF16_KERNELS:
+        print(f"K {name}: bf16 {ms[name]} ms (instance "
+              f"{BF16_INSTANCES[name][0]}), bound {bounds[name][0]} "
+              f"({bounds[name][1]}), float32 {f32_ms[name]} ms, ratio "
+              f"{ms[name] / f32_ms[name]}")
+    regs = bf16_ptxas(reports)
+    spills = {k_: v for k_, v in regs.items()
+              if "0 bytes spill stores, 0 bytes spill loads" not in v}
+    print(f"K ptxas (every bf16 instance): {json.dumps(regs)}")
+    print(f"K spills (bf16 instances with a spill or not in the report): "
+          f"{json.dumps(spills)}")
+
+    # -- register_many of 8 bf16 rows, and streaming at B in bf16 ----------
+    del h, hp, wv, wp, up, eng, rf, rc
+    gc.collect()
+    torch.cuda.empty_cache()
+    many = register_many_phase(torch, seed, dtype=torch.bfloat16,
+                               name="K register_many")
+    launches["hierarchy_fused"] += many["launches"]["hierarchy_fused"]
+    nb = (1 << 27) - 777
+    xb, _, _, _ = geometry(torch, nb, 1, seed)
+    plan_b = make_plan(nb, c=128, t=64, capacity=1 << 27)
+    st = stream_phase(torch, "K (B, bf16)", xb.to(torch.bfloat16), plan_b,
+                      seed)
+    for key, e in st["err"].items():
+        errors[key] = max(errors[key], e)
+    check_instances("register_many and streaming",
+                    {k_: v for k_, v in instances_of(BF16_KERNELS).items()
+                     if v})
+    del xb, xk
+    print(f"K: phase {time.perf_counter() - t0} s; every bf16 launch took "
+          f"its run / fast instance ({json.dumps(BF16_INSTANCES)})")
+    rows = []
+    for name in BF16_KERNELS:
+        b, by = bounds[name]
+        rows.append({
+            "name": f"{name} (bf16)", "route": "cuda", **KERNELS[name],
+            "launches": launches[name], "max_abs_err": errors[name],
+            "ms": ms[name], "plain_ms": plain[name], "bound_ms": b,
+            "bound_by": by, "library_ms": library[name],
+        })
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3890,7 +4181,13 @@ def run(torch, seed: int):
           f"{json.dumps(tier_summary)}")
     for key, v in tier_launches.items():
         main_launches[key] = main_launches.get(key, 0) + v
-    del xa, lsa, rsa, a_answers
+    del a_answers
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 16: bfloat16 values at A's data -----------------------------
+    bf16_rows = bf16_phase(torch, seed, xa, lsa, rsa, ms, reports)
+    del xa, lsa, rsa
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3950,6 +4247,7 @@ def run(torch, seed: int):
             "ms": ms[name], "plain_ms": plain[name], "bound_ms": b,
             "bound_by": by, "library_ms": library[name],
         })
+    out += bf16_rows
     require(all(k["launches"] > 0 for k in out),
             "a kernel of the main path was never launched")
     # again here: the first lines of a long log get cut

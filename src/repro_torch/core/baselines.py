@@ -25,7 +25,7 @@ import torch
 
 from repro_torch.core import protocol as px
 from repro_torch.core.api import resolve_device
-from repro_torch.core.hierarchy import Hierarchy, build_hierarchy
+from repro_torch.core.hierarchy import Hierarchy, build_hierarchy, gather_bits
 from repro_torch.core.plan import make_plan
 from repro_torch.core.query import nan_less, rmq_value_batch
 
@@ -76,7 +76,8 @@ class FullScan:
             w = torch.where(mask, self.x, float("inf"))
             # argmin's rule (NaN least, first occurrence): the leftmost
             # minimal entry's own bits
-            out[s:s + step] = w.gather(1, w.argmin(dim=1, keepdim=True))[:, 0]
+            out[s:s + step] = gather_bits(
+                w, 1, w.argmin(dim=1, keepdim=True))[:, 0]
         return out
 
 

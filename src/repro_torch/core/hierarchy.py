@@ -42,6 +42,7 @@ from repro_torch.core.constants import PAD_POS
 from repro_torch.core.plan import HierarchyPlan
 
 __all__ = [
+    "VALUE_DTYPES",
     "Hierarchy",
     "build_hierarchy",
     "build_many",
@@ -50,12 +51,19 @@ __all__ = [
     "check_compact_build",
     "chunk_min",
     "finalize_compact",
+    "gather_bits",
     "pad_to",
     "pos_dtype_for",
     "quantized_planes",
     "reduce_level",
     "reduce_upper_levels",
+    "value_bits",
 ]
+
+
+# The value dtypes an index stores (level 0 and, unless its plan asks for
+# bf16 summaries, the upper levels).
+VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
 
 def pos_dtype_for(n: int) -> torch.dtype:
@@ -108,6 +116,18 @@ class Hierarchy:
         return total
 
 
+def value_bits(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 plane as its int16 bits (other planes as they are): PyTorch's
+    CPU gather and scatter on bf16 compute a NaN's bits anew, so the plain
+    versions move bf16 values by their bits."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def gather_bits(v: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
+    """``v.gather(dim, idx)``, each entry's own bits (:func:`value_bits`)."""
+    return value_bits(v).gather(dim, idx).view(v.dtype)
+
+
 def pad_to(x: torch.Tensor, length: int, fill) -> torch.Tensor:
     """``x`` extended along its last axis to ``length`` with ``fill``
     (``x`` itself if long enough already)."""
@@ -158,7 +178,7 @@ def chunk_min(values: torch.Tensor, c: int, out_len: int):
     NaN least (``torch.argmin``'s rule)."""
     v = pad_to(values, out_len * c, float("inf")).view(out_len, c)
     idx = torch.argmin(v, dim=1)  # first occurrence: the leftmost tie
-    return v.gather(1, idx[:, None])[:, 0], idx
+    return gather_bits(v, 1, idx[:, None])[:, 0], idx
 
 
 def reduce_level(
@@ -230,8 +250,9 @@ def check_build_input(x: torch.Tensor, plan: HierarchyPlan,
         raise ValueError(f"input must be rank-1, got shape {tuple(x.shape)}")
     if x.shape[0] != plan.n:
         raise ValueError(f"plan is for n={plan.n}, input has n={x.shape[0]}")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"values must be float32 or float64, got {x.dtype}")
+    if x.dtype not in VALUE_DTYPES:
+        raise TypeError(
+            f"values must be float32, bfloat16 or float64, got {x.dtype}")
     check_compact_build(plan, with_positions, x.dtype)
 
 

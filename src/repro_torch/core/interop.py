@@ -4,6 +4,10 @@ The port never imports the JAX package: both directions go through
 plain numpy arrays and a mapping of plan fields
 (``dataclasses.asdict(plan)`` of either package's ``HierarchyPlan``).
 The layouts are the same entry for entry, so no array is rewritten.
+numpy has no bfloat16 of its own: a bf16 plane leaves the port as its
+int16 bits (view them as the reference's bfloat16) and enters it from a
+numpy array of a ``bfloat16`` extension dtype (the reference's
+``np.asarray``), by its bits too.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.hierarchy import Hierarchy
+from repro_torch.core.hierarchy import Hierarchy, value_bits
 from repro_torch.core.plan import HierarchyPlan, LevelSplit
 
 __all__ = [
@@ -50,7 +54,11 @@ def hierarchy_from_reference(
 ) -> Hierarchy:
     """The port's ``Hierarchy`` from a reference hierarchy's planes."""
     def tensor(a):
-        return torch.from_numpy(np.array(a)).to(device)  # a writable copy
+        a = np.array(a)  # a writable copy
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.int16)).to(device).view(
+                torch.bfloat16)
+        return torch.from_numpy(a).to(device)
 
     return Hierarchy(
         base=tensor(base),
@@ -62,10 +70,14 @@ def hierarchy_from_reference(
 
 def hierarchy_to_reference(h: Hierarchy) -> Dict[str, Any]:
     """The planes as numpy arrays and the plan as a field mapping, ready
-    for the reference's ``Hierarchy`` and ``HierarchyPlan``."""
+    for the reference's ``Hierarchy`` and ``HierarchyPlan`` (bf16 planes
+    as their int16 bits)."""
+    def array(t):
+        return None if t is None else value_bits(t).cpu().numpy()
+
     return {
-        "base": h.base.cpu().numpy(),
-        "upper": h.upper.cpu().numpy(),
-        "upper_pos": None if h.upper_pos is None else h.upper_pos.cpu().numpy(),
+        "base": array(h.base),
+        "upper": array(h.upper),
+        "upper_pos": array(h.upper_pos),
         "plan_fields": dataclasses.asdict(h.plan),
     }

@@ -32,7 +32,12 @@ from typing import Optional, Protocol, runtime_checkable
 import numpy as np
 import torch
 
-from repro_torch.core.hierarchy import Hierarchy, build_hierarchy, build_many
+from repro_torch.core.hierarchy import (
+    VALUE_DTYPES,
+    Hierarchy,
+    build_hierarchy,
+    build_many,
+)
 from repro_torch.core.plan import HierarchyPlan
 from repro_torch.core.query import _debug_checks_enabled, _is_integer
 from repro_torch.obs import trace
@@ -63,7 +68,6 @@ __all__ = [
 ]
 
 BACKENDS = ("eager", "cuda", "fused")
-_VALUE_DTYPES = (torch.float32, torch.float64)
 
 
 def capacity_limit_message(capacity: int) -> str:
@@ -177,12 +181,14 @@ def mutation_backend(backend: str, device) -> str:
 
 
 def coerce_values(x, device) -> torch.Tensor:
-    """The input as a contiguous 1-D float32/float64 tensor on ``device``.
+    """The input as a contiguous 1-D float32/bfloat16/float64 tensor on
+    ``device``.
 
     Other real dtypes, float16 included, become float32 (exactly, for
-    float16), as in the reference.  bfloat16 inputs are refused: the
-    reference keeps them as a bf16 level 0 through its kernels, which
-    the port's kernels do not take yet (ROADMAP A3b).
+    float16), as in the reference.  bfloat16 stays bfloat16: the index
+    keeps a bf16 level 0 and bf16 upper levels, and the kernels read and
+    write them as 2-byte values (comparing them widened to float32, which
+    is exact), as the reference keeps bf16 through its kernels.
 
     NaN is accepted and is the least value, as ``torch.argmin`` has it: a
     chunk or a span that holds a NaN answers its leftmost NaN, with that
@@ -194,13 +200,7 @@ def coerce_values(x, device) -> torch.Tensor:
     x = torch.as_tensor(x)
     if x.ndim != 1:
         raise ValueError(f"input must be rank-1, got shape {tuple(x.shape)}")
-    if x.dtype == torch.bfloat16:
-        raise TypeError(
-            f"{x.dtype} inputs are not supported by the port yet (ROADMAP "
-            "A3b: a bf16 level 0 through the kernels); pass float32 or "
-            "float64 values (summary_dtype='bfloat16' keeps bf16 upper "
-            "levels over a float32 input)")
-    if x.dtype not in _VALUE_DTYPES:
+    if x.dtype not in VALUE_DTYPES:
         x = x.to(torch.float32)
     return x.to(device).contiguous()
 

@@ -46,7 +46,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import bitpack
-from repro_torch.core.hierarchy import Hierarchy, pos_dtype_for
+from repro_torch.core.hierarchy import Hierarchy, gather_bits, pos_dtype_for
 
 __all__ = [
     "check_query_args",
@@ -134,7 +134,7 @@ def _window_min(vals, mask, lane):
     masked, hit = _least(vals, mask)
     at = torch.where(hit, lane, lane.shape[0] - 1).amin(dim=-1,
                                                         keepdim=True)
-    return masked.gather(-1, at)[..., 0], at
+    return gather_bits(masked, -1, at)[..., 0], at
 
 
 def _exact_window_min(quant, pos, mask, lane, base):

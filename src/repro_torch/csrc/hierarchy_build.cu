@@ -9,9 +9,10 @@
 // the card's operation rate.
 //
 // Design: the Hopper build core (build_hopper.cuh).  At the run layout
-// (c = 128 float32, c = 64 float64, 16-byte aligned) a persistent grid
-// walks runs of eight chunks, one warp instruction a chunk, every load of
-// a run issued before its first reduce.  Every other layout (sub-warp
+// (c = 128 float32 and bfloat16, c = 64 float64, aligned to the vector) a
+// persistent grid walks runs of 4 KB (eight chunks, sixteen in bf16), one
+// warp instruction a chunk, every load of a run issued before its first
+// reduce.  Every other layout (sub-warp
 // chunks, c = 32 float64, a misaligned or ragged source) takes the
 // part-by-part reduce of rmq_common.cuh: one warp a chunk (c/32 entries a
 // lane, lane-strided), or 32/c chunks a warp for c < 32, in a grid-stride
@@ -53,9 +54,11 @@ template <typename T, bool TRACK, typename Src>
 cudaError_t launch_level(const Src& src, int c, T* out_v, int32_t* out_p,
                          long long out_len, cudaStream_t stream) {
   if (hopper::run_layout<T>(c, src.len, src.v)) {
+    note_instance(kRunsInstance);
     auto kernel = build_level_runs<T, TRACK, Src>;
     unsigned grid = 0;
-    const long long runs = (out_len + hopper::kRun - 1) / hopper::kRun;
+    constexpr int R = hopper::run_len<T>();
+    const long long runs = (out_len + R - 1) / R;
     const cudaError_t err = resident_grid(
         kernel, hopper::kBuildThreads, 0,
         (runs * kWarp + hopper::kBuildThreads - 1) / hopper::kBuildThreads,
@@ -65,6 +68,7 @@ cudaError_t launch_level(const Src& src, int c, T* out_v, int32_t* out_p,
                                                        out_len);
     return cudaGetLastError();
   }
+  note_instance(0);
   constexpr int kThreads = 256;
   const long long cpw = c < kWarp ? kWarp / c : 1;
   const long long warps = (out_len + cpw - 1) / cpw;
@@ -97,7 +101,8 @@ cudaError_t launch_build_level(int track, const void* src_v,
 
 }  // namespace rmq
 
-// dtype: 0 float32, 1 float64.  src_p == nullptr with track: level 0.
+// dtype: 0 float32, 1 float64, 2 bfloat16.  src_p == nullptr with track:
+// level 0.
 extern "C" int rmq_build_level(int dtype, int track, const void* src_v,
                                const void* src_p, long long src_len, int c,
                                void* out_v, void* out_p, long long out_len,
@@ -110,5 +115,8 @@ extern "C" int rmq_build_level(int dtype, int track, const void* src_v,
   if (dtype == 1)
     return rmq::launch_build_level<double>(track, src_v, src_p, src_len, c,
                                            out_v, out_p, out_len, s);
+  if (dtype == 2)
+    return rmq::launch_build_level<rmq::bf16>(track, src_v, src_p, src_len,
+                                              c, out_v, out_p, out_len, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

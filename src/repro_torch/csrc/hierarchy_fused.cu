@@ -23,15 +23,15 @@
 // The build is one launch at every depth.  Where the tile does not fit in
 // shared memory (very large c) level 2 joins the serial fold instead.
 //
-// At the run layout of build_hopper.cuh (c = 128 float32, c = 64 float64,
-// an aligned base) a persistent grid of blocks walks the tiles, each warp
-// taking runs of eight chunks with every load of a run issued before its
-// first reduce.  The tile is double-buffered in shared memory, and a warp
-// issues its first run of the next tile before the tile's one barrier and
-// the tile's level-2 reduce, so the barrier leaves loads in flight.  The
-// fold walks runs too, with L2-only vector loads.  Every other layout keeps
-// one block a tile with the part-by-part reduce of rmq_common.cuh.  Both
-// follow its tie rule: the bits of the chunk's leftmost minimal entry,
+// At the run layout of build_hopper.cuh (c = 128 float32 and bfloat16, c = 64
+// float64, an aligned base) a persistent grid of blocks walks the tiles, each
+// warp taking runs of 4 KB (eight chunks, sixteen in bf16) with every load of a
+// run issued before its first reduce.  The tile is double-buffered in shared
+// memory, and a warp issues its first run of the next tile before the tile's
+// one barrier and the tile's level-2 reduce, so the barrier leaves loads in
+// flight.  The fold walks runs too, with L2-only vector loads.  Every other
+// layout keeps one block a tile with the part-by-part reduce of rmq_common.cuh.
+// Both follow its tie rule: the bits of the chunk's leftmost minimal entry,
 // value-only or not.
 //
 // Rows (build_many): the grid's y dimension is a row of a (rows, capacity)
@@ -97,23 +97,22 @@ __device__ __forceinline__ void fold_levels(const FusedGeo& g, T* upper,
   }
 }
 
-// Global run r of level 0 (chunks [r * kRun, (r + 1) * kRun)): unmasked
-// while it holds whole chunks only.
-template <typename T, int V>
+// Global run r of level 0 (chunks [r * R, (r + 1) * R)): unmasked while
+// it holds whole chunks only.
+template <typename T, int V, int R>
 __device__ __forceinline__ void load_level0_run(
-    hopper::Vec<T, V> (&x)[hopper::kRun], const T* base, int64_t capacity,
+    hopper::Vec<T, V> (&x)[R], const T* base, int64_t capacity,
     int64_t whole_runs, int64_t r, int lane,
     const hopper::StreamLoad<T, V>& ld) {
   if (r < whole_runs) {
-    hopper::load_run<T, V, false>(x, base, r * hopper::kRun, capacity, lane,
-                                  ld);
+    hopper::load_run<T, V, R, false>(x, base, r * R, capacity, lane, ld);
   } else {
-    hopper::load_run<T, V, true>(x, base, r * hopper::kRun, capacity, lane,
-                                 ld);
+    hopper::load_run<T, V, R, true>(x, base, r * R, capacity, lane, ld);
   }
 }
 
-// A tile's level-2 entries from its level-1 copy in shared memory.
+// A tile's level-2 entries from its level-1 copy in shared memory (stored
+// values, as in device memory).
 template <typename T, bool TRACK>
 __device__ __forceinline__ void tile_level2(const T* tv, const int32_t* tp,
                                             int64_t tile, int out2,
@@ -125,12 +124,12 @@ __device__ __forceinline__ void tile_level2(const T* tv, const int32_t* tp,
   for (int k = warp; k < out2; k += nw) {
     const hopper::Vec<T, V> y =
         *reinterpret_cast<const hopper::Vec<T, V>*>(tv + k * c + lane * V);
-    T val;
+    cmp_t<T> val;
     uint32_t w;
     hopper::pick_chunk<T, V>(y, lane, val, w);
     const int64_t o = tile * out2 + k;
     if (lane == 0 && o < g.level_lens[2]) {
-      upper[g.offsets[1] + o] = val;
+      upper[g.offsets[1] + o] = narrow<T>(val);
       if (TRACK) upper_pos[g.offsets[1] + o] = tp[k * c + w];
     }
   }
@@ -149,7 +148,7 @@ __global__ void __launch_bounds__(hopper::kBuildThreads,
                                   fused_min_blocks<T, ROWS>())
     fused_runs_kernel(const T* __restrict__ base, FusedGeo g, T* upper,
                       int32_t* upper_pos, unsigned int* done) {
-  using hopper::kRun;
+  constexpr int kRun = hopper::run_len<T>();
   if constexpr (ROWS) {
     // This block's row: its planes and its fold counter.
     const int64_t row = blockIdx.y;
@@ -186,20 +185,20 @@ __global__ void __launch_bounds__(hopper::kBuildThreads,
     load_level0_run(x, base, g.capacity, whole_runs, tile * runs + run,
                     lane, ld);
   while (tile < ntiles) {
-    T v;
+    cmp_t<T> v;
     uint32_t w;
-    hopper::pick_run<T, V>(x, lane, v, w);
+    hopper::pick_run<T, V, kRun>(x, lane, v, w);
     if (lane < kRun) {
       const int64_t chunk = (tile * runs + run) * kRun + lane;
       const bool live = chunk < len1;
       const int32_t pos = live ? static_cast<int32_t>(chunk * c + w) : kPadPos;
       if (live) {
-        l1v[chunk] = v;
+        l1v[chunk] = narrow<T>(v);
         if (TRACK) l1p[chunk] = pos;
       }
       if (g.stream_l2) {
         const int local = parity * tile1 + run * kRun + lane;
-        tile_v[local] = live ? v : pos_inf<T>();
+        tile_v[local] = live ? narrow<T>(v) : pos_inf<T>();
         if (TRACK) tile_p[local] = pos;
       }
     }
@@ -259,7 +258,7 @@ __global__ void __launch_bounds__(256)
   for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int64_t first = tile * g.tile1;
     for (int grp = warp; grp * cpw < g.tile1; grp += nw) {
-      T v;
+      cmp_t<T> v;
       int64_t at;
       reduce_chunk_group<T>(level0, first + grp * cpw, c, lane, v, at);
       const int local = grp * cpw + lane / lanes;
@@ -267,11 +266,11 @@ __global__ void __launch_bounds__(256)
         // Chunks wholly past `capacity` give (+inf, PAD_POS).
         const int32_t p = winner_pos(level0, at);
         if (g.stream_l2) {
-          tile_v[local] = v;
+          tile_v[local] = narrow<T>(v);
           if (TRACK) tile_p[local] = p;
         }
         if (first + local < len1) {
-          l1v[first + local] = v;
+          l1v[first + local] = narrow<T>(v);
           if (TRACK) l1p[first + local] = p;
         }
       }
@@ -282,13 +281,13 @@ __global__ void __launch_bounds__(256)
       const int out2 = g.tile1 / c;
       const int64_t first2 = tile * out2;
       for (int grp = warp; grp * cpw < out2; grp += nw) {
-        T v;
+        cmp_t<T> v;
         int64_t at;
         reduce_chunk_group<T>(tile_src, grp * cpw, c, lane, v, at);
         const int local = grp * cpw + lane / lanes;
         if ((lane & (lanes - 1)) == 0 && local < out2 &&
             first2 + local < g.level_lens[2]) {
-          upper[g.offsets[1] + first2 + local] = v;
+          upper[g.offsets[1] + first2 + local] = narrow<T>(v);
           if (TRACK)
             upper_pos[g.offsets[1] + first2 + local] = winner_pos(tile_src,
                                                                   at);
@@ -365,9 +364,11 @@ cudaError_t launch_fused_build(int track, const void* base,
   constexpr int V = hopper::run_width<T>();
   const bool runs =
       hopper::run_layout<T>(g.c, g.capacity, base) &&
-      reinterpret_cast<uintptr_t>(upper) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(upper) % (V * sizeof(T)) == 0 &&
       (rows == 1 || (g.base_stride % V == 0 && g.upper_stride % V == 0)) &&
-      g.tile1 % (hopper::kRun * (hopper::kBuildThreads / kWarp)) == 0;
+      g.tile1 % (hopper::run_len<T>() * (hopper::kBuildThreads / kWarp)) ==
+          0;
+  note_instance(runs ? kRunsInstance : 0);
   if (rows > 1) return launch_runs<T, true>(track, runs, b, g, rows, u, up,
                                             d, stream);
   return launch_runs<T, false>(track, runs, b, g, rows, u, up, d, stream);
@@ -375,9 +376,9 @@ cudaError_t launch_fused_build(int track, const void* base,
 
 }  // namespace rmq
 
-// dtype: 0 float32, 1 float64.  level_lens has `levels` entries, offsets
-// `levels - 1`; `done` is `rows` zeroed 32-bit words on the device.  Row r
-// reads base + r * base_stride and writes upper (upper_pos) + r *
+// dtype: 0 float32, 1 float64, 2 bfloat16.  level_lens has `levels` entries,
+// offsets `levels - 1`; `done` is `rows` zeroed 32-bit words on the device.
+// Row r reads base + r * base_stride and writes upper (upper_pos) + r *
 // upper_stride.
 extern "C" int rmq_fused_build(int dtype, int track, const void* base,
                                long long capacity, int c, int levels,
@@ -405,5 +406,8 @@ extern "C" int rmq_fused_build(int dtype, int track, const void* base,
   if (dtype == 1)
     return rmq::launch_fused_build<double>(track, base, g, rows, upper,
                                            upper_pos, done, s);
+  if (dtype == 2)
+    return rmq::launch_fused_build<rmq::bf16>(track, base, g, rows, upper,
+                                              upper_pos, done, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

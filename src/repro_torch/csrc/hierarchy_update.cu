@@ -30,22 +30,21 @@
 // entry's: each flagged lane starts a chunk's run, and the slice whose
 // entries hold a run's first entry owns that chunk (and, at level 1, its
 // entries), however far the run reaches.
-//  * The run layout (c = 32 V with V = 16 / sizeof(T): c = 128 float32,
-//    c = 64 float64; a source whose length is a whole number of vectors
-//    and whose values are 16-byte aligned): four warps share a slice,
-//    each taking eight of its flagged chunks (a slice flags at most 32),
-//    so a 2^16-entry batch puts 8192 warps, each with up to 4 KB of loads
-//    in flight, on the card at once.  Lane j loads vector j of a chunk
-//    with one 16-byte load, and a warp issues all its loads before its
-//    first reduce.  At level 1 the warp's winning entries are then laid
-//    over those registers (a byte table in shared memory names, for each
-//    entry, the lane that holds its value: one table read and V shuffles
-//    a lane and chunk) and stored to level 0: one read of each chunk, and
-//    no wait between the stores and the loads.  The reduce is the build
-//    core's pick_chunk; lane r stores chunk r's summary and gathers its
-//    winner's carried position (above level 1).  The slice's last chunk,
-//    when its run goes on past the slice, is read alone after its entries
-//    are stored.
+//  * The run layout of build_hopper.cuh (c = 32 V: c = 128 float32 and
+//    bfloat16, c = 64 float64; a source whose length is a whole number of
+//    vectors and whose values are aligned to the vector): four warps share a
+//    slice, each taking eight of its flagged chunks (a slice flags at most 32),
+//    so a 2^16-entry batch puts 8192 warps, each with up to 4 KB of loads in
+//    flight (2 KB in bf16), on the card at once.  Lane j loads vector j of a
+//    chunk with one 16-byte load (8 bytes in bf16), and a warp issues all its
+//    loads before its first reduce.  At level 1 the warp's winning entries are
+//    then laid over those registers (a byte table in shared memory names, for
+//    each entry, the lane that holds its value: one table read and V shuffles a
+//    lane and chunk) and stored to level 0: one read of each chunk, and no wait
+//    between the stores and the loads.  The reduce is the build core's
+//    pick_chunk; lane r stores chunk r's summary and gathers its winner's
+//    carried position (above level 1).  The slice's last chunk, when its run
+//    goes on past the slice, is read alone after its entries are stored.
 //  * Every other layout: one warp a slice, part by part (reduce_chunk_at
 //    of rmq_common.cuh, 32 / c chunks a warp for c < 32); its level 1
 //    stores the winning entries first and reads its chunks after
@@ -59,7 +58,7 @@ namespace rmq {
 namespace update {
 
 constexpr int kThreads = 256;
-constexpr int kRun = hopper::kRun;  // flagged chunks a warp loads at once
+constexpr int kRun = 8;  // flagged chunks a warp loads at once
 constexpr int kParts = 4;  // run layout: warps a slice (kParts * kRun = 32)
 
 // The chunk of index `key` at a level whose chunks span 2^sh indices.
@@ -76,7 +75,7 @@ struct Slice {
   unsigned first;  // lanes that start a chunk's run at this level
   unsigned owned;  // lanes from the first flagged one on
   bool win;        // level 1: the last of its run of equal indices
-  T val;           // level 1: its value
+  T val;           // level 1: its value (stored bits)
 };
 
 template <typename T, bool LEVEL1>
@@ -96,7 +95,7 @@ __device__ __forceinline__ void load_slice(const int32_t* keys,
       kFullMask, valid && (q == 0 || chunk_of(prev, sh) != s.cid));
   s.owned = s.first ? ~((1u << (__ffs(s.first) - 1)) - 1u) : 0u;
   s.win = false;
-  s.val = T(0);
+  s.val = T{};
   if (LEVEL1) {
     s.win = valid && s.next != s.key && ((s.owned >> lane) & 1u);
     if (s.win) s.val = vals[q];
@@ -142,8 +141,7 @@ __device__ __forceinline__ void load_chunk(const Src& src, int32_t cid,
   if (at < src.len) {
     hopper::ld_stream<T, V>(x, src.v + at, pol);
   } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e) x.x[e] = pos_inf<T>();
+    hopper::vfill_inf(x);
   }
 }
 
@@ -188,9 +186,9 @@ __device__ __forceinline__ void lay_over(hopper::Vec<T, V> (&x)[kRun],
 #pragma unroll
       for (int e = 0; e < V; ++e) {
         const uint32_t from = (b >> (8 * e)) & 0xffu;
-        const T v = __shfl_sync(kFullMask, s.val,
-                                from ? static_cast<int>(from) - 1 : lane);
-        if (from) x[r].x[e] = v;
+        const T v =
+            shfl_raw(s.val, from ? static_cast<int>(from) - 1 : lane);
+        if (from) hopper::vset(x[r], e, v);
       }
     }
   }
@@ -252,13 +250,13 @@ __global__ void __launch_bounds__(kThreads,
   if constexpr (LEVEL1)
     lay_over<T, V>(x, ids, s, s.win && lane >= lo && lane < hi, base,
                    sel_all[threadIdx.x / kWarp], lane);
-  T my_v = pos_inf<T>();
+  cmp_t<T> my_v = pos_inf<cmp_t<T>>();
   uint32_t my_w = 0;
   int32_t my_id = -1;
 #pragma unroll
   for (int r = 0; r < kRun; ++r) {
     if (ids[r] >= 0) {
-      T v;
+      cmp_t<T> v;
       uint32_t w;
       hopper::pick_chunk<T, V>(x[r], lane, v, w);
       if (lane == r) {
@@ -269,7 +267,7 @@ __global__ void __launch_bounds__(kThreads,
     }
   }
   if (my_id >= 0) {
-    out_v[my_id] = my_v;
+    out_v[my_id] = narrow<T>(my_v);
     if (TRACK)
       out_p[my_id] = winner_pos(src, static_cast<int64_t>(my_id) * c + my_w);
   }
@@ -279,11 +277,11 @@ __global__ void __launch_bounds__(kThreads,
     __syncwarp();  // its in-slice entries went out in lay_over
     hopper::Vec<T, V> y;
     load_chunk<T, V>(src, cid, lane, pol, y);
-    T v;
+    cmp_t<T> v;
     uint32_t w;
     hopper::pick_chunk<T, V>(y, lane, v, w);
     if (lane == 0) {
-      out_v[cid] = v;
+      out_v[cid] = narrow<T>(v);
       if (TRACK)
         out_p[cid] = winner_pos(src, static_cast<int64_t>(cid) * c + w);
     }
@@ -321,11 +319,11 @@ __global__ void __launch_bounds__(kThreads)
       const int32_t cid = __shfl_sync(kFullMask, s.cid, b);
       if (lane / lanes == g) mine = cid;
     }
-    T v;
+    cmp_t<T> v;
     int64_t at;
     reduce_chunk_at<T>(src, mine, c, lane, v, at);
     if ((lane & (lanes - 1)) == 0 && mine >= 0) {
-      out_v[mine] = v;
+      out_v[mine] = narrow<T>(v);
       if (TRACK) out_p[mine] = winner_pos(src, at);
     }
   }
@@ -338,6 +336,7 @@ cudaError_t launch_level(const Src& src, T* base, const int32_t* keys,
                          cudaStream_t stream) {
   const long long slices = (count + kWarp - 1) / kWarp;
   const bool runs = hopper::run_layout<T>(c, src.len, src.v);
+  note_instance(runs ? kRunsInstance : 0);
   const long long warps = runs ? slices * kParts : slices;
   const unsigned grid =
       static_cast<unsigned>((warps * kWarp + kThreads - 1) / kThreads);
@@ -401,13 +400,13 @@ cudaError_t update_levels(int track, void* base_v, long long capacity,
 
 // One update, every upper level: the level-k launch for k = 1 .. levels-1,
 // back to back on `stream`, each checked with cudaGetLastError().
-// dtype: 0 float32, 1 float64.  base (capacity entries), upper / upper_pos
-// (upper_pos null when !track): the successor's planes, written in place.
-// offsets[k-1]: level k's offset in upper; src_lens[k-1]: the length of
+// dtype: 0 float32, 1 float64, 2 bfloat16.  base (capacity entries), upper /
+// upper_pos (upper_pos null when !track): the successor's planes, written in
+// place. offsets[k-1]: level k's offset in upper; src_lens[k-1]: the length of
 // level k - 1 (capacity for k = 1, else its padded length).  keys: device
-// int32, ascending, out-of-range indices set to capacity; vals: device,
-// beside them; count: the batch's static size.  *launched: the levels
-// launched without error.
+// int32, ascending, out-of-range indices set to capacity; vals: device, beside
+// them; count: the batch's static size.  *launched: the levels launched without
+// error.
 extern "C" int rmq_update_levels(int dtype, int track, void* base,
                                  long long capacity, void* upper,
                                  void* upper_pos, const long long* offsets,
@@ -425,6 +424,10 @@ extern "C" int rmq_update_levels(int dtype, int track, void* base,
         log2c, k, vals, count, launched, s);
   if (dtype == 1)
     return rmq::update::update_levels<double>(
+        track, base, capacity, upper, upper_pos, offsets, src_lens, levels,
+        log2c, k, vals, count, launched, s);
+  if (dtype == 2)
+    return rmq::update::update_levels<rmq::bf16>(
         track, base, capacity, upper, upper_pos, offsets, src_lens, levels,
         log2c, k, vals, count, launched, s);
   return static_cast<int>(cudaErrorInvalidValue);

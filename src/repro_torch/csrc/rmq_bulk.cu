@@ -74,6 +74,7 @@ struct BulkLaunch {
 
   template <int V, bool FAST>
   cudaError_t run() const {
+    note_instance(2 * V + (FAST ? 1 : 0));
     const size_t smem = hopper::stage_value_bytes<T>(g);
     auto kernel =
         rmq_bulk_kernel<T, TRACK, V, FAST, FAST ? kBulkLanes : kWarp>;
@@ -113,9 +114,9 @@ cudaError_t launch_bulk_query(int track, WalkGeo g,
 
 }  // namespace rmq
 
-// dtype: 0 float32, 1 float64.  padded_lens (host, levels - 1 entries);
-// offsets_table (device int32, levels - 1 entries).  out_p may be null
-// unless track.  Each block copies the top's values into shared memory
+// dtype: 0 float32, 1 float64, 2 bfloat16.  padded_lens (host, levels - 1
+// entries); offsets_table (device int32, levels - 1 entries).  out_p may be
+// null unless track.  Each block copies the top's values into shared memory
 // where they fit (hopper::kStageLimit).
 extern "C" int rmq_bulk_query(int dtype, int track, int capacity, int c,
                               int levels, const int* padded_lens,
@@ -137,5 +138,9 @@ extern "C" int rmq_bulk_query(int dtype, int track, int capacity, int c,
     return rmq::launch_bulk_query<double>(track, g, offsets_table, base,
                                           upper, upper_pos, ls, rs, m,
                                           out_v, out_p, s);
+  if (dtype == 2)
+    return rmq::launch_bulk_query<rmq::bf16>(track, g, offsets_table, base,
+                                             upper, upper_pos, ls, rs, m,
+                                             out_v, out_p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

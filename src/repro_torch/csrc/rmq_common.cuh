@@ -21,9 +21,27 @@
 // positions grow along a level, so this is the lexicographic (value,
 // position) minimum.  Entries at or past a level's end read +inf and never
 // win: a chunk's first entry lies inside the level and is no larger.
+//
+// Value types: float32, float64 and bfloat16.  A value is stored in its
+// own type and compared in cmp_t<T>: itself for float32 and float64,
+// float32 for bfloat16.  A bf16 entry is widened in registers by a 16-bit
+// shift (exact: it keeps the order, the sign of a zero and a NaN's
+// payload), so one compare code (vmin / vless / vsame / pick_index) serves
+// every type, and a bf16 winner is written back as the high 16 bits of its
+// widened float (narrow), never rounded by a conversion.  No bf16 operator
+// or implicit conversion is compiled in (the two macros below): a bf16
+// value is only ever moved as bits, widened or narrowed.
 #pragma once
 
+#ifndef __CUDA_NO_BFLOAT16_OPERATORS__
+#define __CUDA_NO_BFLOAT16_OPERATORS__
+#endif
+#ifndef __CUDA_NO_BFLOAT16_CONVERSIONS__
+#define __CUDA_NO_BFLOAT16_CONVERSIONS__
+#endif
+
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace rmq {
@@ -32,6 +50,31 @@ constexpr int32_t kPadPos = 0x7fffffff;  // PAD_POS in core/constants.py
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kWarp = 32;
 
+using bf16 = __nv_bfloat16;
+
+// The compare type of a stored value type.
+template <typename T> struct CmpType { using type = T; };
+template <> struct CmpType<bf16> { using type = float; };
+template <typename T> using cmp_t = typename CmpType<T>::type;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ double widen(double x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) {
+  return __uint_as_float(static_cast<uint32_t>(__bfloat16_as_ushort(x))
+                         << 16);
+}
+
+// A widened value back in its stored type, by its bits.
+template <typename T>
+__device__ __forceinline__ T narrow(cmp_t<T> x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 narrow<bf16>(float x) {
+  return __ushort_as_bfloat16(
+      static_cast<unsigned short>(__float_as_uint(x) >> 16));
+}
+
 template <typename T> __device__ __forceinline__ T pos_inf();
 template <> __device__ __forceinline__ float pos_inf<float>() {
   return __int_as_float(0x7f800000);
@@ -39,6 +82,42 @@ template <> __device__ __forceinline__ float pos_inf<float>() {
 template <> __device__ __forceinline__ double pos_inf<double>() {
   return __longlong_as_double(0x7ff0000000000000LL);
 }
+template <> __device__ __forceinline__ bf16 pos_inf<bf16>() {
+  return __ushort_as_bfloat16(static_cast<unsigned short>(0x7f80));
+}
+
+// A stored value read through L2 only (ld.global.cg).
+template <typename T>
+__device__ __forceinline__ T ld_cg(const T* p) {
+  return __ldcg(p);
+}
+template <>
+__device__ __forceinline__ bf16 ld_cg<bf16>(const bf16* p) {
+  return __ushort_as_bfloat16(
+      __ldcg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// A stored value from lane `src` (moved as bits).
+__device__ __forceinline__ float shfl_raw(float v, int src) {
+  return __shfl_sync(kFullMask, v, src);
+}
+__device__ __forceinline__ double shfl_raw(double v, int src) {
+  return __shfl_sync(kFullMask, v, src);
+}
+__device__ __forceinline__ bf16 shfl_raw(bf16 v, int src) {
+  return __ushort_as_bfloat16(static_cast<unsigned short>(__shfl_sync(
+      kFullMask, static_cast<unsigned>(__bfloat16_as_ushort(v)), src)));
+}
+
+// The instances the launches of a library took since the last read, one
+// bit each (the host launchers set them): the builds and the update 1 <<
+// kRunsInstance at the run layout, else bit 0; the query walks 1 << (2 V +
+// FAST).  rmq_instances() reads and clears them.  Each library (one
+// translation unit) keeps its own word: static, since an inline variable
+// would be one GNU-unique symbol shared by every library in the process.
+constexpr int kRunsInstance = 1;
+static unsigned g_instances = 0u;
+static inline void note_instance(int code) { g_instances |= 1u << code; }
 
 // The port's order on values: NaN is the least value (two NaNs tie), as
 // torch.argmin has it.  vmin returns a NaN (not necessarily the entry's
@@ -100,7 +179,9 @@ template <typename T>
 struct IndexedSrc {
   const T* v;
   int64_t len;
-  __device__ __forceinline__ T val(int64_t i) const { return v[i]; }
+  __device__ __forceinline__ cmp_t<T> val(int64_t i) const {
+    return widen(v[i]);
+  }
   __device__ __forceinline__ int32_t pos(int64_t i) const {
     return static_cast<int32_t>(i);
   }
@@ -112,7 +193,9 @@ struct CarriedSrc {
   const T* v;
   const int32_t* p;
   int64_t len;
-  __device__ __forceinline__ T val(int64_t i) const { return v[i]; }
+  __device__ __forceinline__ cmp_t<T> val(int64_t i) const {
+    return widen(v[i]);
+  }
   __device__ __forceinline__ int32_t pos(int64_t i) const { return p[i]; }
 };
 
@@ -123,7 +206,9 @@ struct CoherentSrc {
   const T* v;
   const int32_t* p;
   int64_t len;
-  __device__ __forceinline__ T val(int64_t i) const { return __ldcg(v + i); }
+  __device__ __forceinline__ cmp_t<T> val(int64_t i) const {
+    return widen(ld_cg(v + i));
+  }
   __device__ __forceinline__ int32_t pos(int64_t i) const {
     return __ldcg(p + i);
   }
@@ -147,16 +232,16 @@ __device__ __forceinline__ int chunks_per_warp(int c) {
 // entries of the one chunk, lane-strided so that every load instruction of
 // the warp reads 32 neighbouring entries; for c < 32 the warp holds 32/c
 // chunks side by side.  Every lane returns its own group's winning value
-// and the winner's index in the source.
+// (widened: its stored type is T) and the winner's index in the source.
 template <typename T, typename Src>
 __device__ __forceinline__ void reduce_chunk_at(const Src& src, int64_t chunk,
-                                                int c, int lane, T& v,
-                                                int64_t& at) {
+                                                int c, int lane,
+                                                cmp_t<T>& v, int64_t& at) {
   const int lanes = chunk_lanes(c);
   const int per_lane = c / lanes;
   const int gl = lane & (lanes - 1);
   const int64_t chunk0 = chunk * c;
-  v = pos_inf<T>();
+  v = pos_inf<cmp_t<T>>();
   uint32_t idx = gl;
   if (chunk >= 0) {
 #pragma unroll 4
@@ -174,7 +259,7 @@ __device__ __forceinline__ void reduce_chunk_at(const Src& src, int64_t chunk,
 template <typename T, typename Src>
 __device__ __forceinline__ void reduce_chunk_group(const Src& src,
                                                    int64_t first, int c,
-                                                   int lane, T& v,
+                                                   int lane, cmp_t<T>& v,
                                                    int64_t& at) {
   reduce_chunk_at<T>(src, first + lane / chunk_lanes(c), c, lane, v, at);
 }
@@ -191,12 +276,12 @@ __device__ __forceinline__ void reduce_level_warps(const Src& src, int c,
   const int lanes = chunk_lanes(c);
   const int64_t groups = (out_len + cpw - 1) / cpw;
   for (int64_t g = warp; g < groups; g += nwarps) {
-    T v;
+    cmp_t<T> v;
     int64_t at;
     reduce_chunk_group<T>(src, g * cpw, c, lane, v, at);
     const int64_t chunk = g * cpw + lane / lanes;
     if ((lane & (lanes - 1)) == 0 && chunk < out_len) {
-      out_v[chunk] = v;
+      out_v[chunk] = narrow<T>(v);
       if (TRACK) out_p[chunk] = winner_pos(src, at);
     }
   }
@@ -231,4 +316,11 @@ cudaError_t resident_grid(K kernel, int threads, size_t smem, int64_t want,
 // source is built into a library of its own, so each defines it once.
 extern "C" const char* rmq_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The instances launched since the last call (rmq::note_instance), cleared.
+extern "C" int rmq_instances() {
+  const unsigned got = rmq::g_instances;
+  rmq::g_instances = 0u;
+  return static_cast<int>(got);
 }

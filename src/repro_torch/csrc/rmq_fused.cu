@@ -8,15 +8,15 @@
 // in L2.  The comparisons are far below the card's operation rate.
 //
 // Design: the Hopper walk of rmq_walk_hopper.cuh (one warp per query, WLQ
-// bounds, 16-byte vectors, the loads of a query's levels below the top
-// issued before any merge, level 0 streamed and the upper value planes
-// kept in L2, one position gather per query).  As in the TPU kernel, the level offsets arrive as a table on the
-// device (there: scalar prefetch), which every block copies into shared
-// memory, while the level sizes are fixed by the plan.  With track the one
-// launch emits both the value and the leftmost-position plane.  Degenerate
-// plans (one level, capacity < c) run here too: their top is level 0.  The
-// grid is persistent: as many blocks as fit, so the top's values are staged
-// once per block and not once per 256 queries.
+// bounds, 16-byte vectors (8 bytes of four bf16), the loads of a query's levels
+// below the top issued before any merge, level 0 streamed and the upper value
+// planes kept in L2, one position gather per query).  As in the TPU kernel, the
+// level offsets arrive as a table on the device (there: scalar prefetch), which
+// every block copies into shared memory, while the level sizes are fixed by the
+// plan.  With track the one launch emits both the value and the
+// leftmost-position plane.  Degenerate plans (one level, capacity < c) run here
+// too: their top is level 0.  The grid is persistent: as many blocks as fit, so
+// the top's values are staged once per block and not once per 256 queries.
 #include "rmq_walk_hopper.cuh"
 
 namespace rmq {
@@ -59,6 +59,7 @@ struct FusedLaunch {
 
   template <int V, bool FAST>
   cudaError_t run() const {
+    note_instance(2 * V + (FAST ? 1 : 0));
     const size_t smem = hopper::stage_value_bytes<T>(g);
     auto kernel = rmq_fused_kernel<T, TRACK, V, FAST>;
     unsigned grid = 0;
@@ -97,9 +98,9 @@ cudaError_t launch_fused_query(int track, WalkGeo g,
 
 }  // namespace rmq
 
-// dtype: 0 float32, 1 float64.  padded_lens (host, levels - 1 entries);
-// offsets_table (device int32, levels - 1 entries).  out_p may be null
-// unless track.  Each block copies the top's values into shared memory
+// dtype: 0 float32, 1 float64, 2 bfloat16.  padded_lens (host, levels - 1
+// entries); offsets_table (device int32, levels - 1 entries).  out_p may be
+// null unless track.  Each block copies the top's values into shared memory
 // where they fit (hopper::kStageLimit).
 extern "C" int rmq_fused_query(int dtype, int track, int capacity, int c,
                                int levels, const int* padded_lens,
@@ -122,5 +123,9 @@ extern "C" int rmq_fused_query(int dtype, int track, int capacity, int c,
     return rmq::launch_fused_query<double>(track, g, offsets_table, base,
                                            upper, upper_pos, ls, rs, m,
                                            out_v, out_p, s);
+  if (dtype == 2)
+    return rmq::launch_fused_query<rmq::bf16>(track, g, offsets_table, base,
+                                              upper, upper_pos, ls, rs, m,
+                                              out_v, out_p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -52,6 +52,7 @@ struct ScanLaunch {
 
   template <int V, bool FAST>
   cudaError_t run() const {
+    note_instance(2 * V + (FAST ? 1 : 0));
     const size_t smem = hopper::stage_value_bytes<T>(g);
     auto kernel = rmq_scan_kernel<T, TRACK, V, FAST>;
     unsigned grid = 0;
@@ -83,10 +84,10 @@ cudaError_t launch_scan_query(int track, WalkGeo g, const void* base,
 
 }  // namespace rmq
 
-// dtype: 0 float32, 1 float64.  offsets / padded_lens: host arrays of
-// levels - 1 entries.  track: write positions (int32) to `out`, else
-// values.  Each block copies the top's values into shared memory where
-// they fit (hopper::kStageLimit).
+// dtype: 0 float32, 1 float64, 2 bfloat16.  offsets / padded_lens: host arrays
+// of levels - 1 entries.  track: write positions (int32) to `out`, else values.
+// Each block copies the top's values into shared memory where they fit
+// (hopper::kStageLimit).
 extern "C" int rmq_scan_query(int dtype, int track, int capacity, int c,
                               int levels, const int* offsets,
                               const int* padded_lens,
@@ -106,5 +107,8 @@ extern "C" int rmq_scan_query(int dtype, int track, int capacity, int c,
   if (dtype == 1)
     return rmq::launch_scan_query<double>(track, g, base, upper, upper_pos,
                                           ls, rs, m, out, s);
+  if (dtype == 2)
+    return rmq::launch_scan_query<rmq::bf16>(track, g, base, upper,
+                                             upper_pos, ls, rs, m, out, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -83,6 +83,7 @@ struct ShortLaunch {
   // one-level walk has no chunk below the top.
   template <int V, bool FAST>
   cudaError_t run() const {
+    note_instance(2 * V);  // a one-level walk: never the FAST walk
     auto kernel = rmq_short_kernel<T, V>;
     const int tq = short_tile(m);
     unsigned grid = 0;
@@ -97,9 +98,9 @@ struct ShortLaunch {
 
 }  // namespace rmq
 
-// dtype: 0 float32, 1 float64.  base: level 0 at its stored length
-// (capacity).  track: write leftmost positions to out_p (int32); out_v
-// always gets the values.
+// dtype: 0 float32, 1 float64, 2 bfloat16.  base: level 0 at its stored length
+// (capacity).  track: write leftmost positions to out_p (int32); out_v always
+// gets the values.
 extern "C" int rmq_short_query(int dtype, int track, int capacity, int c,
                                const void* base, const void* ls,
                                const void* rs, long long m, void* out_v,
@@ -121,5 +122,11 @@ extern "C" int rmq_short_query(int dtype, int track, int capacity, int c,
         g, base, nullptr,
         rmq::ShortLaunch<double>{g, static_cast<const double*>(base), l, r,
                                  m, static_cast<double*>(out_v), op, s});
+  if (dtype == 2)
+    return rmq::hopper::dispatch_width<rmq::bf16>(
+        g, base, nullptr,
+        rmq::ShortLaunch<rmq::bf16>{g, static_cast<const rmq::bf16*>(base), l,
+                                    r, m, static_cast<rmq::bf16*>(out_v), op,
+                                    s});
   return static_cast<int>(cudaErrorInvalidValue);
 }

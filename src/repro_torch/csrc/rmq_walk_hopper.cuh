@@ -18,16 +18,16 @@
 //
 // How it runs (G lanes per query, 32 / G queries at once a warp; 32
 // queries a tile as in WLQ):
-//  * loads are V-wide vectors (16 bytes: float4 / double2) where c, the
-//    capacity and the pointers allow it; lane j of a group covers vectors
-//    j, j + G, ... of a chunk and loads only where its vector overlaps the
-//    part, so only the sectors a part touches are requested.  At c = 32 V
-//    (c = 128 in float32, the paper's default) one warp instruction covers
-//    a chunk (G = 32), and the loads of both parts of the first
-//    kBatchLevels levels are all issued before the first merge: a large
-//    span waits on memory about once, not once per level.  With G < 32
-//    (lane groups, same layout) each lane holds 32 / G vectors of a part
-//    and a group issues one level's two parts at a time;
+//  * loads are V-wide vectors (16 bytes: float4 / double2; 8 bytes: four bf16)
+//    where c, the capacity and the pointers allow it; lane j of a group covers
+//    vectors j, j + G, ... of a chunk and loads only where its vector overlaps
+//    the part, so only the sectors a part touches are requested.  At c = 32 V
+//    (c = 128 in float32 and bfloat16, the paper's default) one warp
+//    instruction covers a chunk (G = 32), and the loads of both parts of the
+//    first kBatchLevels levels are all issued before the first merge: a large
+//    span waits on memory about once, not once per level.  With G < 32 (lane
+//    groups, same layout) each lane holds 32 / G vectors of a part and a group
+//    issues one level's two parts at a time;
 //  * upper levels are read as values only: the position plane is touched
 //    once per query, by the gather;
 //  * level 0 either streams (L1 no-allocate, L2 evict_first: B2 / B4) or
@@ -35,7 +35,8 @@
 //    neighbouring sectors again); upper-level reads are L2 evict_last
 //    (paper §5.8: the upper levels stay in cache);
 //  * each lane merges its vectors in rank order with vmin (min.NaN, so a
-//    NaN reaches the minimum) and keeps the first vector that lowered its
+//    NaN reaches the minimum; bf16 entries widened to float32 in registers,
+//    rmq_common.cuh) and keeps the first vector that lowered its
 //    minimum (a strict <); a query whose minimum comes out NaN is walked
 //    again with NaN as the least value (`lowered`), so a NaN-free span
 //    pays one vote a round for the NaN rule (and the kernel the second
@@ -46,7 +47,7 @@
 //    decides;
 //  * lane j keeps M and the key of the tile's query j.  At the end of the
 //    tile every lane re-reads its winning vector once, takes the first
-//    valid entry equal to M (its own bits: the value returned is the
+//    valid entry equal to M (its own stored bits: the value returned is the
 //    winning entry's, never a min of two signed zeros) and gathers its
 //    position, all 32 queries at once.  A span whose minimum is +inf (or
 //    an empty one) answers (+inf, l) ((+inf, PAD_POS) when empty), the
@@ -185,7 +186,7 @@ template <int G, bool LEVEL0, bool NAN_LEAST, typename T, int V, bool C0>
 __device__ __forceinline__ void part_walk(const Walk<T, V, C0>& w,
                                           const T* p, int32_t cs, int32_t a,
                                           int32_t b, uint32_t rank, int gl,
-                                          uint64_t pol, T& v,
+                                          uint64_t pol, cmp_t<T>& v,
                                           uint32_t& best_rank,
                                           int32_t& best_sub) {
   for (int vi = gl; vi < w.nv; vi += G) {
@@ -197,10 +198,10 @@ __device__ __forceinline__ void part_walk(const Walk<T, V, C0>& w,
       } else {
         ld_keep<T, V>(x, p + cs + st, pol);
       }
-      const T before = v;
+      const cmp_t<T> before = v;
 #pragma unroll
       for (int e = 0; e < V; ++e)
-        if (st + e >= a && st + e < b) v = vmin(v, x.x[e]);
+        if (st + e >= a && st + e < b) v = vmin(v, vget(x, e));
       if (lowered<NAN_LEAST>(v, before)) {
         best_rank = rank;
         best_sub = vi;
@@ -213,7 +214,7 @@ template <int G, bool NAN_LEAST, typename T, int V, bool C0>
 __device__ __forceinline__ void part_any(const Walk<T, V, C0>& w,
                                          int32_t lo0, int32_t hi0, int k,
                                          bool left, int gl, uint64_t stream,
-                                         uint64_t keep, T& v,
+                                         uint64_t keep, cmp_t<T>& v,
                                          uint32_t& best_rank,
                                          int32_t& best_sub) {
   int32_t cs, a, b;
@@ -245,7 +246,7 @@ __device__ __forceinline__ void walk_from(const Walk<T, V, C0>& w,
                                           int32_t lo0, int32_t hi0,
                                           int32_t lo, int32_t hi, int kb,
                                           int gl, uint64_t stream,
-                                          uint64_t keep, T& v,
+                                          uint64_t keep, cmp_t<T>& v,
                                           uint32_t& best_rank,
                                           int32_t& best_sub) {
   int kp = kb;  // live levels below the top
@@ -266,10 +267,10 @@ __device__ __forceinline__ void walk_from(const Walk<T, V, C0>& w,
          t0 += G * V, ++it) {
       Vec<T, V> x;
       ld_top(w, t0, stream, keep, x);
-      const T before = v;
+      const cmp_t<T> before = v;
 #pragma unroll
       for (int e = 0; e < V; ++e)
-        if (t0 + e >= lo && t0 + e < end) v = vmin(v, x.x[e]);
+        if (t0 + e >= lo && t0 + e < end) v = vmin(v, vget(x, e));
       if (lowered<NAN_LEAST>(v, before)) {
         best_rank = w.top_k;
         best_sub = it * G + gl;
@@ -294,8 +295,9 @@ template <typename T, int V, bool C0>
 __device__ __forceinline__ void walk_batched(const Walk<T, V, C0>& w,
                                              int32_t lo0, int32_t hi0,
                                              int lane, uint64_t stream,
-                                             uint64_t keep, T& v,
+                                             uint64_t keep, cmp_t<T>& v,
                                              uint32_t& key) {
+  using F = cmp_t<T>;
   constexpr int UL = kBatchLevels;
   const uint32_t c1 = (1u << w.s) - 1u;
   const uint32_t st = lane * V;
@@ -336,7 +338,7 @@ __device__ __forceinline__ void walk_batched(const Walk<T, V, C0>& w,
       hi >>= w.s;
     }
   }
-  v = pos_inf<T>();
+  v = pos_inf<F>();
   uint32_t best_rank = 0;
   int32_t best_sub = lane;
 #pragma unroll
@@ -344,10 +346,10 @@ __device__ __forceinline__ void walk_batched(const Walk<T, V, C0>& w,
     const uint32_t al = pk[k] & 0xff;
     const uint32_t bl = (pk[k] >> 8) & 0xff;
     if (st + V > al && st < bl) {
-      const T before = v;
+      const F before = v;
 #pragma unroll
       for (int e = 0; e < V; ++e)
-        if (st + e >= al && st + e < bl) v = vmin(v, xl[k].x[e]);
+        if (st + e >= al && st + e < bl) v = vmin(v, vget(xl[k], e));
       if (v < before) best_rank = k;
     }
   }
@@ -358,10 +360,10 @@ __device__ __forceinline__ void walk_batched(const Walk<T, V, C0>& w,
   for (int k = UL - 1; k >= 0; --k) {
     const uint32_t br = pk[k] >> 16;
     if (st < br) {
-      const T before = v;
+      const F before = v;
 #pragma unroll
       for (int e = 0; e < V; ++e)
-        if (st + e < br) v = vmin(v, xr[k].x[e]);
+        if (st + e < br) v = vmin(v, vget(xr[k], e));
       if (v < before) {
         best_rank = 2 * w.top_k - k;
         best_sub = lane;
@@ -383,15 +385,16 @@ template <int G, typename T, int V, bool C0>
 __device__ __forceinline__ void walk_grouped(const Walk<T, V, C0>& w,
                                              int32_t lo0, int32_t hi0,
                                              int gl, uint64_t stream,
-                                             uint64_t keep, T& v,
+                                             uint64_t keep, cmp_t<T>& v,
                                              uint32_t& key) {
+  using F = cmp_t<T>;
   constexpr int UL = kBatchLevels;
   constexpr int NPL = kWarp / G;  // vectors of a part a lane holds
   const uint32_t c1 = (1u << w.s) - 1u;
-  v = pos_inf<T>();
+  v = pos_inf<F>();
   uint32_t best_rank = 0;
   int32_t best_sub = gl;
-  T vr = pos_inf<T>();  // the right parts' accumulator
+  F vr = pos_inf<F>();  // the right parts' accumulator
   uint32_t rr = 0;
   int32_t rsub = 0;
   uint32_t lo = lo0, hi = hi0;
@@ -425,26 +428,26 @@ __device__ __forceinline__ void walk_grouped(const Walk<T, V, C0>& w,
           }
         }
       }
-      T pm = pos_inf<T>();
+      F pm = pos_inf<F>();
       int32_t ps = 0;
 #pragma unroll
       for (int j = 0; j < NPL; ++j) {
         const uint32_t st = (gl + j * G) * V;
         if (st + V > al && st < bl) {
-          const T before = v;
+          const F before = v;
 #pragma unroll
           for (int e = 0; e < V; ++e)
-            if (st + e >= al && st + e < bl) v = vmin(v, xl[j].x[e]);
+            if (st + e >= al && st + e < bl) v = vmin(v, vget(xl[j], e));
           if (v < before) {
             best_rank = k;
             best_sub = gl + j * G;
           }
         }
         if (st < br) {
-          const T before = pm;
+          const F before = pm;
 #pragma unroll
           for (int e = 0; e < V; ++e)
-            if (st + e < br) pm = vmin(pm, xr[j].x[e]);
+            if (st + e < br) pm = vmin(pm, vget(xr[j], e));
           if (pm < before) ps = gl + j * G;
         }
       }
@@ -478,9 +481,9 @@ template <int G, bool NAN_LEAST, typename T, int V, bool C0>
 __device__ __forceinline__ void walk_plain(const Walk<T, V, C0>& w,
                                            int32_t lo0, int32_t hi0,
                                            int gl, uint64_t stream,
-                                           uint64_t keep, T& v,
+                                           uint64_t keep, cmp_t<T>& v,
                                            uint32_t& key) {
-  v = pos_inf<T>();
+  v = pos_inf<cmp_t<T>>();
   uint32_t best_rank = 0;
   int32_t best_sub = gl;
   walk_from<G, NAN_LEAST>(w, lo0, hi0, lo0, hi0, 0, gl, stream, keep, v,
@@ -507,15 +510,16 @@ __device__ __forceinline__ void group_min(T v, uint32_t key, int lane, T& m,
 
 // End of a tile: lane `lane` answers its own query from (M, key): the
 // winning vector re-read once, the first valid entry equal to M, and the
-// one position gather.
+// one position gather.  `val` is the winning entry's stored bits.
 template <typename T, int V, bool TRACK, bool C0>
 __device__ __forceinline__ void answer(const Walk<T, V, C0>& w, int32_t l,
-                                       int32_t r, T res_m, uint32_t key,
-                                       uint64_t stream, uint64_t keep,
-                                       T& val, int32_t& pos) {
+                                       int32_t r, cmp_t<T> res_m,
+                                       uint32_t key, uint64_t stream,
+                                       uint64_t keep, T& val,
+                                       int32_t& pos) {
   int32_t lo0, hi0;
   bounds0(w.capacity, l, r, lo0, hi0);
-  if (res_m == pos_inf<T>()) {
+  if (res_m == pos_inf<cmp_t<T>>()) {
     // Every entry +inf: the leftmost entry of the span, +inf.
     val = pos_inf<T>();
     pos = lo0 < hi0 ? lo0 : kPadPos;
@@ -551,11 +555,12 @@ __device__ __forceinline__ void answer(const Walk<T, V, C0>& w, int32_t l,
   int e_win = V - 1;
 #pragma unroll
   for (int e = V - 1; e >= 0; --e)
-    if (start + e >= a && start + e < b && vsame(x.x[e], res_m)) e_win = e;
-  T got = x.x[0];
+    if (start + e >= a && start + e < b && vsame(vget(x, e), res_m))
+      e_win = e;
+  T got = vraw(x, 0);
 #pragma unroll
   for (int e = 1; e < V; ++e)
-    if (e == e_win) got = x.x[e];
+    if (e == e_win) got = vraw(x, e);
   val = got;
   const int32_t i = start + e_win;
   pos = i;
@@ -581,6 +586,7 @@ __device__ __forceinline__ void answer_batch(const Walk<T, V, C0>& w,
                                              int tq = kWarp) {
   static_assert(G == kWarp || FAST,
                 "lane groups need the one-chunk-a-warp layout");
+  using F = cmp_t<T>;
   const int lane = threadIdx.x & (kWarp - 1);
   const int gl = lane & (G - 1);
   // Tile counters fit 32 bits: 2^31 tiles of bounds would not fit a card.
@@ -600,7 +606,7 @@ __device__ __forceinline__ void answer_batch(const Walk<T, V, C0>& w,
   // whole warp parks its own there around a second walk).
   __shared__ int32_t tile_l[kQueryThreads];
   __shared__ int32_t tile_r[kQueryThreads];
-  __shared__ T tile_m[kQueryThreads];
+  __shared__ F tile_m[kQueryThreads];
   __shared__ uint32_t tile_k[kQueryThreads];
   for (int tile = first; tile < end; tile += step) {
     const int64_t qi = static_cast<int64_t>(tile) * tq + lane;
@@ -613,7 +619,7 @@ __device__ __forceinline__ void answer_batch(const Walk<T, V, C0>& w,
     const int64_t left = m - static_cast<int64_t>(tile) * tq;
     const int count = left < tq ? static_cast<int>(left) : tq;
     const int rounds = G == kWarp ? count : G;
-    T res_m = pos_inf<T>();
+    F res_m = pos_inf<F>();
     uint32_t res_key = 0;
     if constexpr (G < kWarp) {
       __syncwarp();
@@ -622,7 +628,7 @@ __device__ __forceinline__ void answer_batch(const Walk<T, V, C0>& w,
       __syncwarp();
     }
     for (int j = 0; j < rounds; ++j) {
-      T v, mm;
+      F v, mm;
       uint32_t key, kmin;
       {
         int32_t lo0, hi0;
@@ -650,7 +656,7 @@ __device__ __forceinline__ void answer_batch(const Walk<T, V, C0>& w,
           // them than the first walks.
           volatile int32_t* park_l = tile_l;
           volatile int32_t* park_r = tile_r;
-          volatile T* park_m = tile_m;
+          volatile F* park_m = tile_m;
           volatile uint32_t* park_k = tile_k;
           __syncwarp();
           park_l[threadIdx.x] = my_l;
@@ -687,11 +693,11 @@ __device__ __forceinline__ void answer_batch(const Walk<T, V, C0>& w,
         __syncwarp();  // every lane's answers, before lanes read others
         for (int j = 0; j < rounds; ++j) {
           const int t = (threadIdx.x & ~(G - 1)) | j;
-          const T mj = tile_m[t];
+          const F mj = tile_m[t];
           if (__any_sync(kFullMask, mj != mj)) {
             int32_t lo0, hi0;
             bounds0(w.capacity, tile_l[t], tile_r[t], lo0, hi0);
-            T v, mm;
+            F v, mm;
             uint32_t key, kmin;
             walk_plain<G, true>(w, lo0, hi0, gl, stream, keep, v, key);
             group_min<G, true>(v, key, lane, mm, kmin);
@@ -758,10 +764,11 @@ __host__ __device__ __forceinline__ size_t stage_value_bytes(
 
 
 // The widest vector (elements) that divides c and the capacity and to
-// which both level planes are aligned: 16 bytes where possible.
+// which both level planes are aligned: run_width<T>() (16 bytes; four bf16)
+// where possible.
 template <typename T>
 int vector_width(const WalkGeo& g, const void* base, const void* upper) {
-  int v = static_cast<int>(16 / sizeof(T));
+  int v = run_width<T>();
   const int c = 1 << g.log2c;
   while (v > 1) {
     const uintptr_t bytes = static_cast<uintptr_t>(v) * sizeof(T);
@@ -776,11 +783,13 @@ int vector_width(const WalkGeo& g, const void* base, const void* upper) {
 }
 
 // Calls f.template run<V, FAST>() for the launch's vector width; FAST is
-// the one-chunk-a-warp-instruction layout (c == 32 V).
+// the one-chunk-a-warp-instruction layout (c == 32 V: c = 128 in float32
+// and bfloat16, c = 64 in float64).  Each run() notes the instance it
+// launches (note_instance(2 V + FAST)).
 template <typename T, typename F>
 cudaError_t dispatch_width(const WalkGeo& g, const void* base,
                            const void* upper, const F& f) {
-  constexpr int kMax = static_cast<int>(16 / sizeof(T));
+  constexpr int kMax = run_width<T>();
   const int v = vector_width<T>(g, base, upper);
   const int c = 1 << g.log2c;
   if (v == kMax) {

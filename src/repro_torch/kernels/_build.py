@@ -23,8 +23,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
 __all__ = [
-    "SOURCES", "build_all", "check", "dtype_code", "load", "ptr",
-    "require_cuda", "stream_of",
+    "SOURCES", "build_all", "check", "dtype_code", "instances", "load",
+    "ptr", "require_cuda", "stream_of",
 ]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -128,13 +128,40 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def dtype_code(dtype) -> int:
-    """The C entry points' value-type code: 0 float32, 1 float64."""
+    """The C entry points' value-type code: 0 float32, 1 float64, 2
+    bfloat16."""
     import torch
 
-    codes = {torch.float32: 0, torch.float64: 1}
+    codes = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
     if dtype not in codes:
-        raise TypeError(f"the CUDA kernels take float32 or float64, got {dtype}")
+        raise TypeError(
+            f"the CUDA kernels take float32, float64 or bfloat16, got {dtype}")
     return codes[dtype]
+
+
+def instances(name: str) -> list:
+    """The kernel instances that ``csrc/<name>.cu`` launched since the
+    last call (the library's ``rmq_instances``, which clears them), by
+    name: ``"run"`` / ``"parts"`` for the builds and the update (the run
+    layout of ``csrc/build_hopper.cuh`` or the part-by-part reduce),
+    ``"V<width>"`` for the query walks, with ``"-fast"`` for the
+    one-chunk-a-warp layout.  Empty if the library was never loaded."""
+    lib = _libs.get(name)
+    if lib is None:
+        return []
+    fn = lib.rmq_instances
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    mask = fn()
+    walk = name.startswith("rmq_")
+    names = []
+    for code in range(32):
+        if not mask >> code & 1:
+            continue
+        if walk:
+            names.append(f"V{code // 2}" + ("-fast" if code & 1 else ""))
+        else:
+            names.append("run" if code == 1 else "parts")
+    return names
 
 
 def require_cuda(what: str, *tensors) -> None:

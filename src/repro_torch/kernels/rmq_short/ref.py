@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.hierarchy import pos_dtype_for
+from repro_torch.core.hierarchy import gather_bits, pos_dtype_for
 
 __all__ = ["rmq_short_batch_ref"]
 
@@ -49,7 +49,7 @@ def rmq_short_batch_ref(
         hit = mask & ((masked == m) | masked.isnan())
         cand = torch.where(hit, idx, torch.iinfo(pos_dtype).max)
         at = cand.argmin(dim=1, keepdim=True)
-        vals[s:s + step] = masked.gather(1, at)[:, 0]
+        vals[s:s + step] = gather_bits(masked, 1, at)[:, 0]
         if track_pos:
             pos[s:s + step] = cand.gather(1, at)[:, 0].to(pos_dtype)
     return vals, pos

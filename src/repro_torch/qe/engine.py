@@ -49,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core.hierarchy import value_bits
 from repro_torch.core.protocol import (
     check_capacity_limit,
     is_distributed,
@@ -85,8 +86,21 @@ def _host_bounds(ls, rs, n: int):
             rs.cpu().numpy().astype(np.int32, copy=False).ravel())
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A result plane on the host, bf16 as its int16 bits (numpy has no
+    bfloat16, and a round trip through float32 could change a NaN's
+    bits)."""
+    return value_bits(t).cpu().numpy()
+
+
 def _np_dtype(dtype: torch.dtype) -> np.dtype:
-    return torch.empty((), dtype=dtype).numpy().dtype
+    """The host dtype that carries a plane of ``dtype`` (:func:`_to_host`)."""
+    return _to_host(torch.empty((), dtype=dtype)).dtype
+
+
+def _to_device(a: np.ndarray, dtype: torch.dtype, dev) -> torch.Tensor:
+    """A host plane (:func:`_np_dtype`) back on ``dev`` as ``dtype``."""
+    return torch.from_numpy(a).to(dev).view(dtype)
 
 
 def _check_supported(index) -> None:
@@ -408,7 +422,8 @@ class QueryEngine:
         pos_out = np.zeros((m,), np.int32)
 
         def done(v, p):
-            return (torch.from_numpy(v).to(dev), torch.from_numpy(p).to(dev))
+            return (_to_device(v, index.value_dtype, dev),
+                    torch.from_numpy(p).to(dev))
 
         if m == 0:
             return done(vals_out, pos_out)
@@ -418,11 +433,9 @@ class QueryEngine:
             vi = np.nonzero(~is_index)[0]
             ii = np.nonzero(is_index)[0]
             if vi.shape[0]:
-                vals_out[vi] = self._execute(
-                    ls[vi], rs[vi], VALUE).cpu().numpy()
+                vals_out[vi] = _to_host(self._execute(ls[vi], rs[vi], VALUE))
             if ii.shape[0]:
-                pos_out[ii] = self._execute(
-                    ls[ii], rs[ii], INDEX).cpu().numpy()
+                pos_out[ii] = _to_host(self._execute(ls[ii], rs[ii], INDEX))
             return done(vals_out, pos_out)
 
         self.batches += 1
@@ -482,8 +495,8 @@ class QueryEngine:
                     h, torch.from_numpy(bucket.ls).to(dev),
                     torch.from_numpy(bucket.rs).to(dev))
                 rows = miss_idx[bucket.idxs]
-                uv[rows] = bv[:bucket.count].cpu().numpy()
-                up[rows] = bp[:bucket.count].cpu().numpy()
+                uv[rows] = _to_host(bv[:bucket.count])
+                up[rows] = _to_host(bp[:bucket.count])
                 if tr is not None:
                     tr.end(sp, cls=bucket.cls, count=bucket.count,
                            shape=bucket.shape, op="mixed")
@@ -509,10 +522,10 @@ class QueryEngine:
         dev = index.hierarchy.device
         ls, rs = _host_bounds(ls, rs, live_length(index))
         m = ls.shape[0]
-        out_dtype = (np.dtype(np.int32) if op == INDEX
-                     else _np_dtype(index.value_dtype))
+        dtype = torch.int32 if op == INDEX else index.value_dtype
+        out_dtype = _np_dtype(dtype)
         if m == 0:
-            return torch.from_numpy(np.zeros((0,), out_dtype)).to(dev)
+            return _to_device(np.zeros((0,), out_dtype), dtype, dev)
 
         self.batches += 1
         self.queries_in += m
@@ -556,7 +569,7 @@ class QueryEngine:
                 res = self.executors[bucket.cls].run(
                     h, torch.from_numpy(bucket.ls).to(dev),
                     torch.from_numpy(bucket.rs).to(dev), op)
-                res = res[:bucket.count].cpu().numpy().astype(
+                res = _to_host(res[:bucket.count]).astype(
                     out_dtype, copy=False)
                 if tr is not None:
                     tr.end(sp, cls=bucket.cls, count=bucket.count,
@@ -568,7 +581,7 @@ class QueryEngine:
                                    uniq_res[i].item())
 
         sp = tr.begin("scatter") if tr is not None else None
-        out = torch.from_numpy(uniq_res[inverse.ravel()]).to(dev)
+        out = _to_device(uniq_res[inverse.ravel()], dtype, dev)
         if tr is not None:
             tr.end(sp, queries=m, unique=k, op=op)
         return out

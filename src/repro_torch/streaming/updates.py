@@ -49,8 +49,9 @@ import torch
 
 from repro_torch.core import bitpack
 from repro_torch.core.constants import PAD_POS
-from repro_torch.core.hierarchy import (Hierarchy, pos_dtype_for,
-                                        quantized_planes)
+from repro_torch.core.hierarchy import (Hierarchy, gather_bits,
+                                        pos_dtype_for, quantized_planes,
+                                        value_bits)
 from repro_torch.core.plan import HierarchyPlan
 
 __all__ = [
@@ -91,7 +92,8 @@ def scatter_base(base: torch.Tensor, idxs: torch.Tensor,
     last = torch.where(nxt != keys, q, keys.numel())
     last = torch.flip(torch.cummin(torch.flip(last, (0,)), 0).values, (0,))
     out = torch.cat([base, base.new_zeros(1)])
-    out.scatter_(0, keys, vals.index_select(0, perm.index_select(0, last)))
+    value_bits(out).scatter_(0, keys, value_bits(
+        vals.index_select(0, perm.index_select(0, last))))
     return out[:cap]
 
 
@@ -142,7 +144,7 @@ def repair_level_plain(
     safe = torch.where(inside, gather, 0)
     v = torch.where(inside, src_v[safe], float("inf"))
     am = torch.argmin(v, dim=1, keepdim=True)  # first occurrence: leftmost
-    nv = v.gather(1, am)[:, 0]
+    nv = gather_bits(v, 1, am)[:, 0]
     if not track:
         return nv, None, am[:, 0]
     if src_p is None:
@@ -172,7 +174,7 @@ def exact_recompare(v: torch.Tensor, p_abs: torch.Tensor,
     m = ex.amin(dim=1, keepdim=True)
     win = ((ex == m) | (ex != ex)) & tied
     am = torch.argmax(win.to(torch.uint8), dim=1, keepdim=True)
-    return v.gather(1, am)[:, 0], p_abs.gather(1, am)[:, 0], am[:, 0]
+    return gather_bits(v, 1, am)[:, 0], p_abs.gather(1, am)[:, 0], am[:, 0]
 
 
 def _repair_exact(plan: HierarchyPlan, base, upper, upper_pos, level: int,

@@ -200,3 +200,53 @@ def subnormal_input(rng, n, dtype=np.float32):
     sign = np.where(rng.random(k) < 0.5, -1, 1).astype(dtype)
     x[z] = pool[rng.integers(0, pool.size, k)] * sign
     return x
+
+
+# bfloat16 inputs (torch tensors on the CPU: numpy has no bfloat16).
+# "dense": uniform [0, 1) cast to bf16, whose 8 mantissa bits make many
+# entries tie, in a chunk and across chunks; "tied" / "zeros": tied_input /
+# zero_heavy cast; the edge kinds: edge_input cast, with bf16 NaNs and
+# subnormals made from their bits (a float cast would make every NaN
+# 0x7fc0 and round float32 subnormals to zero).
+BF16_KINDS = ("dense", "tied", "zeros") + EDGE_KINDS
+BF16_REFERENCE_KINDS = ("dense", "tied", "zeros") + REFERENCE_EDGE_KINDS
+
+
+def bf16_bits(bits):
+    """A bfloat16 tensor from its 16-bit patterns (numpy integers)."""
+    import torch
+
+    return torch.from_numpy(
+        np.asarray(bits).astype(np.uint16).view(np.int16)).view(
+            torch.bfloat16)
+
+
+def bf16_input(kind, rng, n, c):
+    """``n`` bfloat16 values of ``kind`` (:data:`BF16_KINDS`)."""
+    import torch
+
+    if n == 0:
+        return bf16_bits(np.zeros(0, np.int64))
+    if kind == "dense":
+        x = rng.random(n).astype(np.float32)
+    elif kind == "tied":
+        x = tied_input(rng, n)
+    elif kind == "zeros":
+        x = zero_heavy(rng, n)
+    else:
+        x = edge_input(kind, rng, n, c)
+    bits = torch.from_numpy(x).to(torch.bfloat16).view(torch.int16).numpy()
+    bits = bits.astype(np.int64) & 0xFFFF
+    if kind == "nan":
+        # quiet NaNs of either sign, each with its own payload
+        at = np.isnan(x)
+        k = int(at.sum())
+        bits[at] = (0x7FC0 | rng.integers(0, 64, k)
+                    | np.where(rng.random(k) < 0.5, 0x8000, 0))
+    elif kind == "subnormals":
+        # the smallest few of either sign and the largest, so they tie
+        z = rng.integers(0, n, max(n // 16, 2))
+        pool = np.array([1, 2, 3, 0x7F])
+        bits[z] = (pool[rng.integers(0, pool.size, z.size)]
+                   | np.where(rng.random(z.size) < 0.5, 0x8000, 0))
+    return bf16_bits(bits)

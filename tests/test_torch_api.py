@@ -108,8 +108,13 @@ def test_build_refusals():
         RMQ.build(x, backend="pallas", device="cpu")
     with pytest.raises(ValueError, match="capacity via make_plan"):
         RMQ.build(x, plan=make_plan(3000), capacity=4000, device="cpu")
-    with pytest.raises(TypeError, match="bfloat16"):
-        RMQ.build(torch.from_numpy(x).to(torch.bfloat16), device="cpu")
+    # bfloat16 input builds, keeping a bf16 level 0 (A3b); bf16 summaries
+    # over it stay refused, as in the reference
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    assert RMQ.build(xb, device="cpu").hierarchy.base.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="float32 inputs only"):
+        RMQ.build(xb, summary_dtype="bfloat16", with_positions=True,
+                  device="cpu")
     with pytest.raises(ValueError, match="rank-1"):
         RMQ.build(x.reshape(2, -1), device="cpu")
     # c="auto" is served (A9): the committed cache is keyed by the card,

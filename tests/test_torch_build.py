@@ -176,5 +176,9 @@ def test_build_input_is_checked(build):
     with pytest.raises(ValueError, match="n=100"):
         PORT_BUILDS[build](torch.zeros(99), plan, False)
     with pytest.raises(TypeError):
-        PORT_BUILDS[build](torch.zeros(100, dtype=torch.bfloat16), plan,
+        PORT_BUILDS[build](torch.zeros(100, dtype=torch.float16), plan,
                            False)
+    # bfloat16 is a value dtype (A3b): bf16 planes, 2 bytes an entry
+    h = PORT_BUILDS[build](torch.zeros(100, dtype=torch.bfloat16), plan,
+                           False)
+    assert h.base.dtype == h.upper.dtype == torch.bfloat16

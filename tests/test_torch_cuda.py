@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from _torch_cases import (
+    BF16_KINDS,
     EDGE_BATCHES,
     EDGE_GEOMETRIES,
     EDGE_KINDS,
@@ -34,6 +35,7 @@ from _torch_cases import (
     brute_force,
     edge_input,
     edge_spans,
+    bf16_input,
     query_batch,
     tied_input,
     zero_heavy,
@@ -359,6 +361,8 @@ def test_bulk_kernel_matches_plain(card, n, c, t, cap, dtype, ordered):
 def _int_view(t):
     if t.dtype == torch.float32:
         return t.view(torch.int32)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16)
     return t.view(torch.int64) if t.dtype == torch.float64 else t
 
 
@@ -1689,3 +1693,328 @@ def test_ticket_read_under_a_side_stream(card):
                 else r.query(ls, rs))
         _same_bits(res, want)
     assert tier.stats()["flusher_errors"] == 0
+
+
+# -- bfloat16 values (A3b) ---------------------------------------------------
+# A bf16 index keeps bf16 planes (2 bytes an entry) and every RMQ kernel
+# reads and writes them natively, comparing them widened to float32.  Each
+# kernel is held to its plain version as int16 / int32 views, with the
+# launch counts of float32 and, at c = 128 over a capacity of whole
+# vectors, the run layout (builds, update) and the one-chunk-a-warp walk
+# ("V4-fast"); test_bf16_controls_fail holds a control for each gate.
+BF16_GEOMETRIES = [
+    (1 << 16, 128, 64, None),             # run / fast layout
+    ((1 << 16) + 5, 128, 64, None),       # ragged capacity: part by part
+    (100_003, 128, 4, 1 << 17),           # ragged n, capacity > n, 4 levels
+    ((1 << 20) - 777, 128, 64, 1 << 20),  # a full c*t top (8192)
+    (70_000, 4, 64, 1 << 17),             # sub-warp chunks, many levels
+    (50_001, 32, 8, None),                # c = 32
+    (40_000, 1024, 4, None),              # several vectors a lane
+    (200_000, 128, 1024, None),           # top too large to stage
+    (700, 128, 64, None),                 # single level
+    (3, 128, 64, 64),                     # n and capacity below c
+]
+
+
+def _bf16_fast(plan) -> bool:
+    """Whether a bf16 plan takes the run layout and the fast walk."""
+    return (plan.c == 128 and plan.capacity % 4 == 0
+            and plan.num_levels > 1)
+
+
+def _instances(name):
+    from repro_torch.kernels import _build
+
+    return _build.instances(name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,t,cap", BF16_GEOMETRIES)
+@pytest.mark.parametrize("kind", BF16_KINDS)
+@pytest.mark.parametrize("with_pos", [False, True])
+def test_bf16_builds_match_plain(card, n, c, t, cap, kind, with_pos):
+    x = bf16_input(kind, np.random.default_rng(n + c), n, c).to(card)
+    plan = make_plan(n, c=c, t=t, capacity=cap)
+    ref = build_hierarchy(x, plan, with_positions=with_pos)
+    assert ref.upper.dtype == torch.bfloat16
+    for name in ("hierarchy_fused", "hierarchy_build"):
+        _instances(name)  # clears them
+    fused0, level0 = fused_ops.LAUNCHES.launches, build_ops.LAUNCHES.launches
+    got_f = fused_ops.build_hierarchy_fused(x, plan, with_pos)
+    inst_f = _instances("hierarchy_fused")
+    got_l = build_ops.build_hierarchy_percall(x, plan, with_pos)
+    inst_l = _instances("hierarchy_build")
+    torch.cuda.synchronize()
+    assert fused_ops.LAUNCHES.launches - fused0 == min(
+        1, plan.num_levels - 1)
+    assert build_ops.LAUNCHES.launches - level0 == plan.num_levels - 1
+    if _bf16_fast(plan):
+        assert inst_f == ["run"] and inst_l == ["run"]
+    for got in (got_f, got_l):
+        assert got.upper.element_size() == 2
+        _same_bits(got.base, ref.base)
+        _same_bits(got.upper, ref.upper)
+        if with_pos:
+            _same_bits(got.upper_pos, ref.upper_pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,t,cap", BF16_GEOMETRIES)
+@pytest.mark.parametrize("kind", BF16_KINDS)
+def test_bf16_queries_match_plain(card, n, c, t, cap, kind):
+    """B2, B4, B7 (on value-only and position builds) and B5 against the
+    plain walk, as integer views; one launch a call."""
+    from repro_torch.kernels.rmq_bulk import ops as bulk_ops
+    from repro_torch.kernels.rmq_short import ops as short_ops
+
+    rng = np.random.default_rng(3 * n + c)
+    x = bf16_input(kind, rng, n, c).to(card)
+    plan = make_plan(n, c=c, t=t, capacity=cap)
+    ls_n, rs_n = edge_spans(rng, n, c, 197)
+    ls, rs = torch.from_numpy(ls_n).to(card), torch.from_numpy(rs_n).to(card)
+    sl_n, sr_n = _short_spans(rng, n, c)
+    sl, sr = torch.from_numpy(sl_n).to(card), torch.from_numpy(sr_n).to(card)
+    fast = _bf16_fast(plan)
+    mods = (qfused_ops, scan_ops, bulk_ops, short_ops)
+    for with_pos in (False, True):
+        h = build_hierarchy(x, plan, with_positions=with_pos)
+        want_v, want_p = rmq_walk_batch(h, ls, rs, track_pos=with_pos)
+        for name in ("rmq_fused", "rmq_scan", "rmq_bulk", "rmq_short"):
+            _instances(name)  # clears them
+        counts = [m.LAUNCHES.launches for m in mods]
+        fv, fp = qfused_ops.rmq_fused_batch(h, ls, rs, track_pos=with_pos)
+        sv = scan_ops.rmq_value_batch_cuda(h, ls, rs)
+        bv, bp = bulk_ops.rmq_bulk_batch(h, ls, rs, track_pos=with_pos)
+        qv, qp = short_ops.rmq_short_batch(h, sl, sr, track_pos=True)
+        got_p = [fp, bp]
+        if with_pos:
+            got_p.append(scan_ops.rmq_index_batch_cuda(h, ls, rs))
+        torch.cuda.synchronize()
+        assert [m.LAUNCHES.launches - c0 for m, c0 in zip(mods, counts)] == [
+            1, 1 + with_pos, 1, 1]
+        if fast:
+            for name in ("rmq_fused", "rmq_scan", "rmq_bulk"):
+                assert _instances(name) == ["V4-fast"], name
+            assert _instances("rmq_short") == ["V4"]
+        for v in (fv, sv, bv):
+            assert v.dtype == torch.bfloat16
+            _same_bits(v, want_v)
+        if with_pos:
+            for p in got_p:
+                _same_bits(p, want_p)
+        wv, wp = short_ops.rmq_short_batch_plain(
+            h.base, sl, sr, c, plan.capacity, True)
+        _same_bits(qv, wv)
+        _same_bits(qp, wp)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,t,cap", BF16_GEOMETRIES)
+@pytest.mark.parametrize("kind", BF16_KINDS)
+@pytest.mark.parametrize("with_pos", [False, True])
+def test_bf16_update_matches_plain(card, n, c, t, cap, kind, with_pos):
+    """B6 on bf16 planes (NaN, zeros and ties written over the data)
+    against the plain update, then a fresh build; L - 1 launches a call."""
+    from repro_torch.kernels.hierarchy_update import ops as upd_ops
+    from repro_torch.streaming import updates as U
+
+    rng = np.random.default_rng(7 * n + c)
+    x = bf16_input(kind, rng, n, c).to(card)
+    plan = make_plan(n, c=c, t=t, capacity=cap)
+    h = build_hierarchy(x, plan, with_positions=with_pos)
+    idxs = rng.integers(-3, plan.capacity + 3, 300)
+    idxs[:40] = idxs[40:80]  # duplicates: the last one wins
+    vals = bf16_input(kind, rng, 300, c).to(card)
+    tail = bf16_input(kind, rng, min(plan.capacity - n, 257), c).to(card)
+    _instances("hierarchy_update")
+    before = upd_ops.LAUNCHES.launches
+    got = upd_ops.update_hierarchy_cuda(h, idxs, vals)
+    got_a = upd_ops.append_hierarchy_cuda(got, tail, n)
+    torch.cuda.synchronize()
+    appends = 1 if len(tail) else 0
+    assert upd_ops.LAUNCHES.launches - before == (1 + appends) * (
+        plan.num_levels - 1)
+    if _bf16_fast(plan):
+        assert _instances("hierarchy_update") == ["run"]
+    want = U.update_hierarchy(h, torch.from_numpy(idxs), vals)
+    want_a = U.append_hierarchy(want, tail, n)
+    fresh = build_hierarchy(want_a.base[:plan.capacity].clone(), make_plan(
+        plan.capacity, c=c, t=t), with_positions=with_pos)
+    for g, w in ((got, want), (got_a, want_a)):
+        assert g.base.dtype == g.upper.dtype == torch.bfloat16
+        _same_bits(g.base, w.base)
+        _same_bits(g.upper, w.upper)
+        if with_pos:
+            _same_bits(g.upper_pos, w.upper_pos)
+    _same_bits(got_a.upper, fresh.upper)
+
+
+def _flip_zero(t):
+    """-0.0 entries set to +0.0 (a control's plane)."""
+    return torch.where((t == 0) & torch.signbit(t), torch.zeros_like(t), t)
+
+
+def _nan_to_inf(t):
+    return torch.where(torch.isnan(t), torch.full_like(t, float("inf")), t)
+
+
+def _rightmost_build(x, plan):
+    """A build whose ties go to the rightmost entry (a control)."""
+    flipped = build_hierarchy(x.flip(0), make_plan(
+        plan.n, c=plan.c, t=plan.t), with_positions=True)
+    return flipped
+
+
+@pytest.mark.gpu
+def test_bf16_controls_fail(card):
+    """Each gate of the bf16 tests has a control that must fail it: the
+    plain planes with -0.0 set to +0.0 (zeros), NaN set to +inf (nan),
+    and answers with the rightmost tie (dense), against B1, B3, B2, B4,
+    B5, B6 and B7's bf16 instances."""
+    from repro_torch.kernels.hierarchy_update import ops as upd_ops
+    from repro_torch.kernels.rmq_bulk import ops as bulk_ops
+    from repro_torch.kernels.rmq_short import ops as short_ops
+
+    def fails(got, control):
+        return not torch.equal(_int_view(got), _int_view(control))
+
+    n, c = 1 << 16, 128
+    plan = make_plan(n, c=c, t=64)
+    rng = np.random.default_rng(17)
+    ls_n, rs_n = edge_spans(rng, n, c, 197)
+    ls, rs = torch.from_numpy(ls_n).to(card), torch.from_numpy(rs_n).to(card)
+    sl_n, sr_n = _short_spans(rng, n, c)
+    sl, sr = torch.from_numpy(sl_n).to(card), torch.from_numpy(sr_n).to(card)
+    for kind, control in (("zeros", _flip_zero), ("signed_zeros", _flip_zero),
+                          ("nan", _nan_to_inf)):
+        x = bf16_input(kind, rng, n, c).to(card)
+        for got in (fused_ops.build_hierarchy_fused(x, plan, True),
+                    build_ops.build_hierarchy_percall(x, plan, True)):
+            assert fails(got.upper, control(
+                build_hierarchy(x, plan, True).upper))
+        h = build_hierarchy(x, plan, with_positions=True)
+        want_v, _ = rmq_walk_batch(h, ls, rs, track_pos=True)
+        want_s = short_ops.rmq_short_batch_plain(h.base, sl, sr, c, n,
+                                                 False)[0]
+        for v, want in ((qfused_ops.rmq_fused_value_batch(h, ls, rs), want_v),
+                        (scan_ops.rmq_value_batch_cuda(h, ls, rs), want_v),
+                        (bulk_ops.rmq_bulk_value_batch(h, ls, rs), want_v),
+                        (short_ops.rmq_short_value_batch(h, sl, sr), want_s)):
+            _same_bits(v, want)
+            assert fails(v, control(want))
+        vals = bf16_input(kind, rng, 4096, c).to(card)
+        idxs = rng.integers(0, n, 4096)
+        got = upd_ops.update_hierarchy_cuda(h, idxs, vals)
+        assert fails(got.upper, control(build_hierarchy(
+            got.base.clone(), plan, True).upper))
+    # ties: the rightmost-tie build's positions differ
+    x = bf16_input("tied", rng, n, c).to(card)
+    right = _rightmost_build(x, plan)
+    got = fused_ops.build_hierarchy_fused(x, plan, True)
+    l1 = slice(plan.offsets[0], plan.offsets[0] + plan.level_lens[1])
+    mirrored = (n - 1 - right.upper_pos[l1]).flip(0)
+    assert fails(got.upper_pos[l1], mirrored)
+    h = build_hierarchy(x, plan, with_positions=True)
+    _, want_p = rmq_walk_batch(h, ls, rs, track_pos=True)
+    _, right_p = rmq_walk_batch(right, n - 1 - rs, n - 1 - ls,
+                                track_pos=True)
+    fp = qfused_ops.rmq_fused_index_batch(h, ls, rs)
+    _same_bits(fp, want_p)
+    assert fails(fp, n - 1 - right_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 3, 8])
+def test_bf16_build_many_rows_equal_solo_builds(card, rows):
+    """build_many over bf16 rows: one B1 launch with the row axis, each
+    row equal to a solo build and the plain build, as int16 views."""
+    from repro_torch.core import build_many
+
+    n, c = (1 << 16) + 96, 128
+    rng = np.random.default_rng(rows)
+    xs = torch.stack([bf16_input(BF16_KINDS[i % len(BF16_KINDS)], rng, n, c)
+                      for i in range(rows)]).to(card)
+    plan = make_plan(n, c=c, t=16)
+    _instances("hierarchy_fused")
+    before = fused_ops.LAUNCHES.launches
+    batched = build_many(xs, plan, with_positions=True)
+    torch.cuda.synchronize()
+    assert fused_ops.LAUNCHES.launches - before == 1
+    assert _instances("hierarchy_fused") == ["run"]
+    for i in range(rows):
+        plain = build_hierarchy(xs[i], plan, with_positions=True)
+        _same_bits(batched.upper[i], plain.upper)
+        _same_bits(batched.upper_pos[i], plain.upper_pos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["fused", "cuda"])
+def test_bf16_facade_engine_and_streaming_on_card(card, backend):
+    """RMQ.build / query / update, the engine (query, query_mixed,
+    query_bulk) and StreamingRMQ on a bf16 input: bf16 planes and answers,
+    float32's launch counts, no eager walk, equal to the plain index."""
+    from repro_torch.kernels.hierarchy_update import ops as upd_ops
+    from repro_torch.kernels.rmq_bulk import ops as bulk_ops
+    from repro_torch.streaming import StreamingRMQ
+
+    n, c = (1 << 18) + 4, 128
+    rng = np.random.default_rng(23)
+    x = bf16_input("dense", rng, n, c).to(card)
+    ls, rs = query_batch(rng, n, c, m=2048)
+    f0, l0 = fused_ops.LAUNCHES.launches, build_ops.LAUNCHES.launches
+    r = RMQ.build(x, with_positions=True, backend=backend)
+    plain = RMQ.build(x, with_positions=True, backend="eager")
+    L = r.plan.num_levels
+    assert (fused_ops.LAUNCHES.launches - f0,
+            build_ops.LAUNCHES.launches - l0) == (
+                (1, 0) if backend == "fused" else (0, L - 1))
+    assert r.hierarchy.base.element_size() == 2
+    assert r.hierarchy.upper.dtype == torch.bfloat16
+    q0, s0 = qfused_ops.LAUNCHES.launches, scan_ops.LAUNCHES.launches
+    v, p = r.query(ls, rs), r.query_index(ls, rs)
+    launched = (qfused_ops.LAUNCHES.launches - q0,
+                scan_ops.LAUNCHES.launches - s0)
+    assert launched == ((2, 0) if backend == "fused" else (0, 2))
+    assert v.dtype == torch.bfloat16
+    _same_bits(v, plain.query(ls, rs))
+    _same_bits(p, plain.query_index(ls, rs))
+    e = r.engine(cache_size=0)
+    _same_bits(e.query(ls, rs), plain.query(ls, rs))
+    is_index = np.arange(ls.size) % 3 == 0
+    mv, mp = e.query_mixed(ls, rs, is_index)
+    assert mv.dtype == torch.bfloat16
+    sel = torch.from_numpy(~is_index).to(card)
+    _same_bits(mv[sel], plain.query(ls, rs)[sel])
+    _same_bits(mp[~sel], plain.query_index(ls, rs)[~sel])
+    e.bulk_crossover = 1
+    b0 = bulk_ops.LAUNCHES.launches
+    bv = e.query_bulk(ls, rs)
+    assert bulk_ops.LAUNCHES.launches > b0
+    _same_bits(bv, plain.query(ls, rs))
+    idxs = torch.from_numpy(rng.integers(0, n, 1 << 12)).to(card)
+    vals = torch.from_numpy(rng.random(1 << 12).astype(np.float32)).to(card)
+    u0 = upd_ops.LAUNCHES.launches
+    r2 = r.update(idxs, vals)
+    assert upd_ops.LAUNCHES.launches - u0 == L - 1
+    p2 = plain.update(idxs, vals)
+    _same_bits(r2.hierarchy.base, p2.hierarchy.base)
+    _same_bits(r2.hierarchy.upper, p2.hierarchy.upper)
+    _same_bits(r2.hierarchy.upper_pos, p2.hierarchy.upper_pos)
+    s = StreamingRMQ.from_array(x, capacity=1 << 19, with_positions=True,
+                                backend=backend)
+    tail = bf16_input("zeros", rng, 777, c).to(card)
+    u0 = upd_ops.LAUNCHES.launches
+    s = s.append(tail).retire(1024)
+    assert upd_ops.LAUNCHES.launches - u0 == 2 * (s.plan.num_levels - 1)
+    arr = torch.cat([x, tail])
+    arr[:1024] = float("inf")
+    fresh = build_hierarchy(arr, make_plan(
+        arr.numel(), c=c, t=64, capacity=1 << 19), True)
+    _same_bits(s.hierarchy.base, fresh.base)
+    _same_bits(s.hierarchy.upper, fresh.upper)
+    _same_bits(s.hierarchy.upper_pos, fresh.upper_pos)
+    ql, qr = query_batch(rng, arr.numel(), c, m=512)
+    want_v, want_p = rmq_walk_batch(fresh, torch.from_numpy(ql).to(card),
+                                    torch.from_numpy(qr).to(card), True)
+    _same_bits(s.query(ql, qr), want_v)
+    _same_bits(s.query_index(ql, qr), want_p.to(torch.int32))

@@ -446,7 +446,7 @@ def test_build_many_refusals():
         build_many(torch.zeros(64), plan)
     with pytest.raises(ValueError, match="plan is for n=64"):
         build_many(torch.zeros((2, 65)), plan)
-    with pytest.raises(TypeError, match="float32 or float64"):
+    with pytest.raises(TypeError, match="float32, bfloat16 or float64"):
         build_many(torch.zeros((2, 64), dtype=torch.int32), plan)
     with pytest.raises(ValueError, match="at least one row"):
         build_many(torch.zeros((0, 64)), plan)
