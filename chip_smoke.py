@@ -239,6 +239,41 @@ outside the repository.  Phases:
    instances get rows of their own in the kernels line ("<name>
    (bf16)").
 
+17. serving mamba2-1.3b (L; run after phase 12): G's model at full width
+   and depth (48 layers, d_model 2048, 64 SSD heads x 64, state 128,
+   chunk 128), bf16 weights from a seeded ``torch.Generator`` on the
+   card, through ``ServeEngine`` at F's shape (batch 4, a 2048-token
+   prompt, 64 new tokens, cache 2120) with no eviction (the SSM has no KV
+   cache).  ``ssd_scan`` (B9) launches 48 times a prefill, nothing else
+   and nothing in the decode steps.  B9 at the prefill shape (4, 2048,
+   64, 64, 128) within 1e-4 of max|plain| with G's two controls; the
+   whole model's prefill logits with B9 against the same model through
+   the plain scan (``ssm_scan`` takes ``ssd_with_state`` too; rms over
+   the last position's logits), with a control that drops every block's
+   state into the last chunk; 8 decode steps after a 2040-token prefill
+   against a 2048-token ``forward`` at those positions (logits and greedy
+   tokens), with a control (the state zeroed).  Times: B9 at that shape
+   beside its 3xTF32 bound and its plain version; prefill, decode a token
+   and tokens/s beside the weight-read bound, peak memory, a
+   ``torch.profiler`` top-8 of a prefill and top-5 of a decode step with
+   the idle share;
+
+18. serving hymba-1.5b (M; run after phase 17): 32 layers, d_model 1600,
+   25 heads over 5 KV heads, head_dim 64, d_ff 5504, SWA 1024 with every
+   8th layer global, SSD 25 x 64, state 16, as L.  B8 and B9 launch 32
+   times each a prefill (28 windowed B8 launches, 4 global), neither in
+   a decode step.  B8 at the prefill shape with window 1024 and none
+   (F's bf16 gate, its rms control and a control without the window), B9
+   at (4, 2048, 25, 64, 16) (the partial-tile state kernel) with both
+   controls, the whole model against ``attn_impl="ref"`` and the plain
+   scan (control: every layer global), and decode past the window
+   (positions 2040-2047, SWA layers 1024 back) against ``forward``, with
+   two controls (the state zeroed; every layer global).  Times as L, and
+   B8 at both windows beside the operations bound of the pairs the window
+   leaves visible and ``scaled_dot_product_attention`` with the same mask
+   (timed only).
+   Their launches are added to B8's and B9's rows.
+
 Each phase sets every launch counter to 0 just before it drives its
 path and reads them just after.  The output ends with one
 ``{"kernels": [...]}`` line (per kernel: its launches on its phase's
@@ -3394,6 +3429,20 @@ def expected_rounds(sc, new_tokens: int):
     return rounds, victims, pos
 
 
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a tree of dicts and lists."""
+    total, stack = 0, [tree]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, list):
+            stack.extend(node)
+        else:
+            total += node.numel() * node.element_size()
+    return total
+
+
 def serving_phase(torch, seed):
     """Phase 11: llama3.2-3b through ServeEngine with eviction."""
     import numpy as np
@@ -3413,16 +3462,7 @@ def serving_phase(torch, seed):
     torch.cuda.empty_cache()
     params, t_init = wall(torch, lambda: lm.init_params(
         cfg, seed=seed, device="cuda"))
-    weights = 0
-    stack = [params]
-    while stack:
-        node = stack.pop()
-        if isinstance(node, dict):
-            stack.extend(node.values())
-        elif isinstance(node, list):
-            stack.extend(node)
-        else:
-            weights += node.numel() * node.element_size()
+    weights = tree_bytes(params)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     prompts = torch.randint(0, cfg.vocab_size, (F_BATCH, F_PROMPT),
                             generator=gen, device="cuda")
@@ -3648,47 +3688,74 @@ def rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
-def dropped_state_scan(dtx, la, bm, cm, chunk):
+def rms_rel(got, want) -> float:
+    """||got - want|| / ||want|| (root mean squares, float32)."""
+    g, w = got.float(), want.float()
+    return float((g - w).pow(2).mean().sqrt() / w.pow(2).mean().sqrt())
+
+
+def last_chunk_dropped(dtx, la, bm, cm, chunk):
+    """The control a last position can see: the plain scan with the state
+    carried into the last chunk dropped."""
+    return dropped_state_scan(dtx, la, bm, cm, chunk, last=True)
+
+
+def plain_scan(dtx, la, bm, cm, chunk):
+    """The plain chunked scan, ``(y, final state)``."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
+
+    return ssd_chunked_ref(dtx, la, bm, cm, chunk=chunk)
+
+
+def dropped_state_scan(dtx, la, bm, cm, chunk, last: bool = False):
     """A wrong scan for the controls: the plain chunked version with the
-    state carried into the middle chunk dropped."""
+    state carried into the middle chunk (``last``: the last chunk)
+    dropped; ``(y, final state)``."""
     import torch
 
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 
-    half = dtx.shape[1] // chunk // 2 * chunk
+    chunks = dtx.shape[1] // chunk
+    half = (chunks - 1 if last else chunks // 2) * chunk
     y, _ = ssd_chunked_ref(dtx, la, bm, cm, chunk=chunk)
-    cut, _ = ssd_chunked_ref(dtx[:, half:], la[:, half:], bm[:, half:],
-                             cm[:, half:], chunk=chunk)
-    return torch.cat([y[:, :half], cut], dim=1)
+    cut, state = ssd_chunked_ref(dtx[:, half:], la[:, half:], bm[:, half:],
+                                 cm[:, half:], chunk=chunk)
+    return torch.cat([y[:, :half], cut], dim=1), state
 
 
 @contextlib.contextmanager
 def ssm_scan(scan):
     """Every SSM block's SSD scan taken by ``scan(dtx, log_a, B, C,
-    chunk)`` inside the block: the plain scan asked for, or a control."""
+    chunk) -> (y, final state)`` inside the block (``ssd`` in a forward,
+    ``ssd_with_state`` in a prefill): the plain scan asked for, or a
+    control."""
     from repro_torch.models import ssm
 
-    kernel_scan = ssm.ssd
+    kernel_scan, kernel_with_state = ssm.ssd, ssm.ssd_with_state
     ssm.ssd = lambda dtx, la, bm, cm, chunk, impl: scan(dtx, la, bm, cm,
-                                                        chunk)
+                                                        chunk)[0]
+    ssm.ssd_with_state = lambda dtx, la, bm, cm, chunk: scan(dtx, la, bm, cm,
+                                                             chunk)
     try:
         yield
     finally:
-        ssm.ssd = kernel_scan
+        ssm.ssd, ssm.ssd_with_state = kernel_scan, kernel_with_state
 
 
-def ssd_check(torch, seed):
-    """B9 against its plain chunked version at the training shape: y and
-    the final state, with and without an initial state; a control that
-    must fail the limit; the gradient through SSDScan against autograd of
-    the plain version."""
+def ssd_gate(torch, seed, shape, label, inits):
+    """B9 against its plain chunked version at ``shape`` (b, l, h, p, n,
+    chunk): y and the final state for each initial state in ``inits``
+    (None or "random"), and the two controls that must fail the limit.
+    Returns the largest |diff|."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 
-    b, l, h, p, n, q = ssd_shape()
+    b, l, h, p, n, q = shape
     dtx, la, bm, cm = ssd_inputs(torch, seed + 30, b, l, h, p, n)
     worst = 0.0
-    for init in (None, torch.randn((b, h, p, n), device="cuda") * 0.5):
+    for kind in inits:
+        init = (None if kind is None else
+                torch.randn((b, h, p, n), device="cuda") * 0.5)
         y, s = ssd_ops.ssd_scan_cuda(dtx, la, bm, cm, chunk=q,
                                      init_state=init, return_state=True)
         y_ref, s_ref = ssd_chunked_ref(dtx, la, bm, cm, chunk=q,
@@ -3697,20 +3764,20 @@ def ssd_check(torch, seed):
         ey, es = rel_err(y, y_ref), rel_err(s, s_ref)
         worst = max(worst, float((y - y_ref).abs().max()),
                     float((s - s_ref).abs().max()))
-        print(f"G ssd_scan vs plain at {(b, l, h, p, n)}, chunk {q}, "
+        print(f"{label} ssd_scan vs plain at {(b, l, h, p, n)}, chunk {q}, "
               f"init_state {init is not None}: max|diff|/max|plain| y {ey}, "
               f"final state {es} (limit {SSD_REL_LIMIT})")
         require(ey < SSD_REL_LIMIT and es < SSD_REL_LIMIT,
-                "G: ssd_scan strays from its plain version")
+                f"{label}: ssd_scan strays from its plain version")
         del y, s, y_ref, s_ref
     # control: the plain version with the state carried into the middle
     # chunk dropped must fail the same limit
-    y_ref, _ = ssd_chunked_ref(dtx, la, bm, cm, chunk=q)
-    c = rel_err(dropped_state_scan(dtx, la, bm, cm, q), y_ref)
-    print(f"G control (plain, state into chunk {l // q // 2} dropped): "
-          f"max|diff|/max|plain| {c}")
-    require(c > SSD_REL_LIMIT, "G control: the ssd limit accepted a scan "
-            "with its carried state dropped")
+    y_ref, s_ref = ssd_chunked_ref(dtx, la, bm, cm, chunk=q)
+    c = rel_err(dropped_state_scan(dtx, la, bm, cm, q)[0], y_ref)
+    print(f"{label} control (plain, state into chunk {l // q // 2} "
+          f"dropped): max|diff|/max|plain| {c}")
+    require(c > SSD_REL_LIMIT, f"{label} control: the ssd limit accepted a "
+            "scan with its carried state dropped")
     # second control: the plain version with its products at one TF32 pass
     # (what the kernel would compute without its 3xTF32 split)
     keep = torch.backends.cuda.matmul.allow_tf32
@@ -3719,14 +3786,26 @@ def ssd_check(torch, seed):
         y_tf32, s_tf32 = ssd_chunked_ref(dtx, la, bm, cm, chunk=q)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = keep
-    _, s_ref = ssd_chunked_ref(dtx, la, bm, cm, chunk=q)
     one = max(rel_err(y_tf32, y_ref), rel_err(s_tf32, s_ref))
-    print(f"G control (plain, allow_tf32 = True: one TF32 pass per product):"
-          f" max|diff|/max|plain| y {rel_err(y_tf32, y_ref)}, final state "
-          f"{rel_err(s_tf32, s_ref)}; allow_tf32 set back to {keep}")
-    require(one > SSD_REL_LIMIT, "G control: the ssd limit accepted the "
-            "plain version at one TF32 pass per product")
-    del y_ref, y_tf32, s_tf32, s_ref
+    print(f"{label} control (plain, allow_tf32 = True: one TF32 pass per "
+          f"product): max|diff|/max|plain| y {rel_err(y_tf32, y_ref)}, final "
+          f"state {rel_err(s_tf32, s_ref)}; allow_tf32 set back to {keep}")
+    require(one > SSD_REL_LIMIT, f"{label} control: the ssd limit accepted "
+            "the plain version at one TF32 pass per product")
+    return worst
+
+
+def ssd_check(torch, seed):
+    """B9 against its plain chunked version at the training shape: y and
+    the final state, with and without an initial state; the controls that
+    must fail the limit; the gradient through SSDScan against autograd of
+    the plain version."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
+
+    b, l, h, p, n, q = ssd_shape()
+    worst = ssd_gate(torch, seed, ssd_shape(), "G", (None, "random"))
+    dtx, la, bm, cm = ssd_inputs(torch, seed + 30, b, l, h, p, n)
 
     # the gradient's autograd wiring: SSDScan's backward is autograd of the
     # plain version, so this reads 0 unless the wiring is wrong (the CPU
@@ -3752,14 +3831,25 @@ def ssd_check(torch, seed):
     return worst
 
 
-def time_ssd(torch, seed, report: str):
-    """B9 at the training shape beside its bound, the CUDA-core figure and
-    its plain version; each CUDA kernel's share of a call from
-    ``torch.profiler`` and its registers and spills from ``report``."""
+def ssd_ptxas(report: str):
+    """Registers and spills of B9's kernel instances."""
+    return {k: ptxas_of(report, entry) for k, entry in (
+        ("prep_kernel", "prep_kernel"),
+        ("state_kernel<true>", "state_kernelILb1"),
+        ("state_kernel<false>", "state_kernelILb0"),
+        ("chunk_kernel<true>", "chunk_kernelILb1"),
+        ("chunk_kernel<false>", "chunk_kernelILb0"))}
+
+
+def time_ssd(torch, seed, report: str, shape=None, backward: bool = True):
+    """B9 at ``shape`` (default the training shape) beside its bound, the
+    CUDA-core figure and its plain version; each CUDA kernel's share of a
+    call from ``torch.profiler`` and its registers and spills from
+    ``report``; with ``backward``, the plain backward a train step runs."""
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 
-    b, l, h, p, n, q = ssd_shape()
+    b, l, h, p, n, q = shape or ssd_shape()
     dtx, la, bm, cm = ssd_inputs(torch, seed + 31, b, l, h, p, n)
     nc = l // q
     tri = q * (q + 1) // 2                # the causal pairs j <= i
@@ -3786,12 +3876,9 @@ def time_ssd(torch, seed, report: str):
         busy = sum(r[1] for r in mine)
         out["kernel_shares"] = {r[0].split("(")[0].split("ssd::")[1]:
                                 [r[1] / 5, r[1] / busy] for r in mine}
-    out["ptxas"] = {k: ptxas_of(report, entry) for k, entry in (
-        ("prep_kernel", "prep_kernel"),
-        ("state_kernel<true>", "state_kernelILb1"),
-        ("state_kernel<false>", "state_kernelILb0"),
-        ("chunk_kernel<true>", "chunk_kernelILb1"),
-        ("chunk_kernel<false>", "chunk_kernelILb0"))}
+    out["ptxas"] = ssd_ptxas(report)
+    if not backward:
+        return out
     # the backward a train step runs once per layer: the plain chunked
     # scan recomputed and differentiated
     xs = [t.requires_grad_(True) for t in (dtx, la, bm, cm)]
@@ -3840,7 +3927,6 @@ def training_phase(torch, seed, report: str):
     """Phase 12: mamba2-1.3b through launch/train.py on the card."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data import SyntheticTokenDataset
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch import train as train_cli
     from repro_torch.train.train_step import (
         build_train_step,
@@ -3928,9 +4014,6 @@ def training_phase(torch, seed, report: str):
         torch.cuda.empty_cache()
         return {k: float(mx[k]) for k in ("loss", "grad_norm")}
 
-    def plain_scan(dtx, la, bm, cm, chunk):
-        return ssd_ops.ssd(dtx, la, bm, cm, chunk=chunk, impl="chunked_ref")
-
     mine = {k: float(m[k]) for k in ("loss", "grad_norm")}
     plain, wrong = step0(plain_scan), step0(dropped_state_scan)
     ok = {k: abs(mine[k] - plain[k]) / abs(plain[k]) for k in mine}
@@ -3959,6 +4042,326 @@ def training_phase(torch, seed, report: str):
           f"launches {got}, steps {json.dumps(short['steps'])}")
     restart_drill(torch)
     return launches, b9
+
+
+# ---------------------------------------------------------------------------
+# phases 17 and 18: serving mamba2-1.3b (L) and hymba-1.5b (M)
+# ---------------------------------------------------------------------------
+LM_DECODE_FROM = F_PROMPT - 8   # prefill 2040 tokens, decode 2040..2047
+# The whole model's last-position prefill logits with B9 (and B8 at M)
+# against the same model through the plain scan (and attn_impl="ref"),
+# rms(diff) / rms(plain): bf16 matmuls on both sides; the scan outputs
+# differ by about 1e-6 before their bf16 rounding, and a flipped rounding
+# grows through the layers of a random-weight model.  Measured on an
+# "NVIDIA H100 80GB HBM3, 700.00 W": L 0.0464, M 0.0325 (max|diff| /
+# max|plain| 0.049 and 0.037).  Controls: at L every block's state into
+# the last chunk dropped reads 0.60; at M that drop reads only 0.055 (25
+# heads of state 16 beside the attention half), so M's control is the
+# plain path with every layer global, and the dropped state is printed.
+LM_PREFILL_RMS = 0.12
+# Decode steps after a 2040-token prefill against a 2048-token forward at
+# those positions, rms(diff) / rms(forward): the one-step recurrence
+# against the chunked scan, both through bf16 projections and a bf16 conv
+# tail.  Measured: L 0.0343, M 0.0303; the controls (one step) read 1.03
+# (L, the state zeroed), 0.24 and 0.41 (M, the state zeroed; every layer
+# global).
+LM_DECODE_RMS = 0.1
+
+
+def served_launches(torch, engine, prompts):
+    """One counted ``generate``: ``(out, seconds, prefill launches,
+    launches of the rest)``."""
+    from repro_torch.serve import engine as serve_engine
+
+    orig = serve_engine.prefill
+    split = {}
+
+    def prefill(*args, **kwargs):
+        before = {k: c.launches for k, c in count.items()}
+        out = orig(*args, **kwargs)
+        split.update({k: c.launches - before[k] for k, c in count.items()})
+        return out
+
+    serve_engine.prefill = prefill
+    try:
+        count = zero_counts()
+        out, seconds = wall(torch, lambda: engine.generate(prompts, F_NEW))
+        total = read(torch, count)
+    finally:
+        serve_engine.prefill = orig
+    return out, seconds, split, {k: total[k] - split[k] for k in total}
+
+
+def hybrid_attention(torch, seed, cfg, report: str):
+    """B8 at M's prefill shape (hymba: 25 heads over 5 KV heads, head dim
+    64), window 1024 and none: F's bf16 gate, its rms control, and a window
+    control (the plain version without the window held to the windowed
+    one); then times beside the operations bound of the visible pairs and
+    SDPA with the same mask (timed only, in turns)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, hq, hkv, s, d = (F_BATCH, cfg.num_heads, cfg.num_kv_heads, F_PROMPT,
+                        cfg.head_dim)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 40)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    worst, out = 0.0, {}
+    for window in (cfg.sliding_window, None):
+        got = fa_ops.attention(q, k, v, window=window)
+        want = attention_ref(q, k, v, window=window)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        close, ratio, ok = bf16_gate(torch, got, want)
+        what = (f"M flash_attention vs plain at {(b, hq, s, d)} / {hkv} KV "
+                f"heads, bf16, window {window}: max_abs_err {err}, allclose "
+                f"2e-2 {close}, max|diff|/rms(plain) {ratio} (limit "
+                f"{BF16_RMS_LIMIT})")
+        require(ok, what)
+        print(what)
+        if window is None:
+            ctrl = want.clone()
+            ctrl[:, :, -64:] = attention_ref(q[:, :, -64:], k[:, :, 64:],
+                                             v[:, :, 64:])
+            c_close, c_ratio, c_ok = bf16_gate(torch, ctrl, want)
+            require(not c_ok, "M control: the bf16 gate accepted attention "
+                    "with 64 keys hidden")
+            print(f"M control (plain, keys 0..63 hidden from the last 64 "
+                  f"rows): rejected; allclose 2e-2 {c_close}, max|diff|/rms "
+                  f"{c_ratio}")
+        else:
+            c_close, c_ratio, c_ok = bf16_gate(torch, attention_ref(q, k, v),
+                                               want)
+            require(not c_ok, "M control: the bf16 gate accepted global "
+                    "attention for the windowed one")
+            print(f"M control (plain, no window, against window {window}): "
+                  f"rejected; allclose 2e-2 {c_close}, max|diff|/rms "
+                  f"{c_ratio}")
+        del got, want
+    # SDPA with the same mask on K / V expanded to the query heads
+    kx = k.repeat_interleave(hq // hkv, dim=1)
+    vx = v.repeat_interleave(hq // hkv, dim=1)
+    row = torch.arange(s, device="cuda")[:, None]
+    col = torch.arange(s, device="cuda")[None, :]
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    for window in (cfg.sliding_window, None):
+        mask = (col <= row) & (col > row - (window or s + 1))
+        turns = time_turns(torch, {
+            "kernel": lambda: fa_ops.flash_attention_cuda(q, k, v,
+                                                          window=window),
+            "sdpa": lambda: F.scaled_dot_product_attention(
+                q, kx, vx, attn_mask=mask)}, 10)
+        flops = visible_pairs(s, window) * b * hq * 4 * d
+        r = {"ms": mean(turns["kernel"]), "library_ms": mean(turns["sdpa"]),
+             "turns_ms": turns,
+             "plain_ms": time_ms(torch, lambda: attention_ref(
+                 q, k, v, window=window), 3, warmup=1),
+             "flops": flops, "bytes": nbytes,
+             "bound": bound_ms(nbytes, flops, BF16_OPS_PER_S)}
+        r["tflops"] = flops / r["ms"] / 1e9
+        r["bound_share"] = r["bound"][0] / r["ms"]
+        out[f"window {window}"] = r
+    out["ptxas D 64"] = ptxas_of(report, "flash_bf16_kernelILi64E")
+    print(f"M flash_attention bf16 at {(b, hq, s, d)} / {hkv} KV heads (ms, "
+          f"CUDA events; bound over the visible pairs at 989 TFLOP/s; SDPA "
+          f"with the same mask, timed only): {json.dumps(out)}")
+    return worst, out
+
+
+def lm_serving_phase(torch, seed, label, arch, reports):
+    """Phases 17 (L, mamba2-1.3b) and 18 (M, hymba-1.5b): the model at full
+    width and depth through ServeEngine, F's serving shape, no eviction."""
+    import dataclasses
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(arch)
+    hybrid = cfg.family == "hybrid"
+    cache_len = F_PROMPT + F_NEW + 8
+    sc = ServeConfig(seq_len=cache_len, batch=F_BATCH,
+                     kv_cache_dtype="bfloat16", eviction_enabled=False)
+    shape = (F_BATCH, F_PROMPT, cfg.ssm_heads, cfg.ssm_head_dim,
+             cfg.ssm_state, cfg.ssm_chunk)
+    t0 = time.perf_counter()
+    res = {"err": {}, "launches": {}}
+
+    # -- the kernels at this model's prefill shapes --------------------------
+    res["err"]["ssd_scan"] = ssd_gate(torch, seed, shape, label, (None,))
+    if hybrid:
+        res["err"]["flash_attention"], t_fa = hybrid_attention(
+            torch, seed, cfg, reports.get("flash_attention", ""))
+    t_ssd = time_ssd(torch, seed, reports.get("ssd_scan", ""), shape,
+                     backward=False)
+    print(f"{label} ssd_scan at {shape[:5]}, chunk {shape[5]} (ms, CUDA "
+          f"events; bound: 3 TF32 passes at 495 TFLOP/s, or the bytes): "
+          f"{json.dumps(t_ssd)}")
+
+    # -- the main path: ServeEngine.generate, counted -----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, t_init = wall(torch, lambda: lm.init_params(
+        cfg, seed=seed, device="cuda"))
+    weights = tree_bytes(params)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (F_BATCH, F_PROMPT),
+                            generator=gen, device="cuda")
+    engine = ServeEngine(cfg, params, sc)
+    heads = (f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV, head_dim "
+             f"{cfg.head_dim}, d_ff {cfg.d_ff}, SWA {cfg.sliding_window} "
+             f"with every {cfg.global_attn_every}th layer global, "
+             if hybrid else "")
+    print(f"{label}: {cfg.name}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {heads}{cfg.ssm_heads} SSD heads x "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}, vocab {cfg.vocab_size}; num_params() "
+          f"{cfg.num_params()}; bf16 weights {weights} bytes made in "
+          f"{t_init} s; batch {F_BATCH}, prompt {F_PROMPT}, {F_NEW} new "
+          f"tokens, cache {cache_len}, no eviction")
+    out1, t_run1, pre, rest = served_launches(torch, engine, prompts)
+    want = {"ssd_scan": cfg.num_layers}
+    if hybrid:
+        want["flash_attention"] = cfg.num_layers
+    expect(f"{label} prefill", pre, **want)
+    expect(f"{label} decode steps", rest)
+    res["launches"] = {k: pre[k] + rest[k] for k in pre}
+    toks = out1["tokens"]
+    require(toks.shape == (F_BATCH, F_NEW) and bool(
+        ((toks >= 0) & (toks < cfg.padded_vocab)).all())
+        and out1["final_pos"] == F_PROMPT + F_NEW - 1
+        and out1["evicted"] == 0,
+        f"{label} generate: tokens {tuple(toks.shape)}, final_pos "
+        f"{out1['final_pos']}, evicted {out1['evicted']}")
+    print(f"{label} generate: launches of the prefill {json.dumps(pre)}, "
+          f"of the {F_NEW - 1} decode steps {json.dumps(rest)}; final_pos "
+          f"{out1['final_pos']}, evicted {out1['evicted']}")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out2, t_run2 = wall(torch, lambda: engine.generate(prompts, F_NEW))
+    peak = torch.cuda.max_memory_allocated()
+
+    # -- gate 2: the whole model's prefill against the plain path -----------
+    impl = "ref" if hybrid else "auto"
+    logits_k, cache_k = lm.prefill(cfg, params, prompts, cache_len)
+    count = zero_counts()
+    with ssm_scan(plain_scan):
+        logits_p, cache_p = lm.prefill(cfg, params, prompts, cache_len,
+                                       attn_impl=impl)
+    with ssm_scan(last_chunk_dropped):
+        logits_d, _ = lm.prefill(cfg, params, prompts, cache_len,
+                                 attn_impl=impl)
+    if hybrid:
+        what = "the plain path with every layer global"
+        with ssm_scan(plain_scan):
+            logits_c, _ = lm.prefill(
+                dataclasses.replace(cfg, sliding_window=None), params,
+                prompts, cache_len, attn_impl=impl)
+    else:
+        what = "the plain path with every block's state into the last " \
+               "chunk dropped"
+        logits_c = logits_d
+    expect(f"{label} plain prefills", read(torch, count))
+    require(bool(torch.isfinite(logits_k).all()),
+            f"{label} prefill: logits are not finite")
+    rel, ctrl = rms_rel(logits_k, logits_p), rms_rel(logits_c, logits_p)
+    info = {"max|diff|/max|plain|": rel_err(logits_k, logits_p),
+            "state into the last chunk dropped, rms":
+                rms_rel(logits_d, logits_p),
+            "greedy agree": float((logits_k.argmax(-1)
+                                   == logits_p.argmax(-1)).float().mean())}
+    cache_rel = {key: rms_rel(cache_k[key], cache_p[key]) for key in cache_k}
+    plain_what = ("B9 and B8 against the plain scan and attn_impl='ref'"
+                  if hybrid else "B9 against the plain scan")
+    print(f"{label} prefill last-position logits, {plain_what}: rms(diff) / "
+          f"rms(plain) = {rel} (limit {LM_PREFILL_RMS}); control ({what}): "
+          f"{ctrl}; {json.dumps(info)}; cache entries, rms "
+          f"{json.dumps(cache_rel)}")
+    require(rel <= LM_PREFILL_RMS, f"{label}: the model with its kernels "
+            f"strays from the plain path ({rel})")
+    require(ctrl > LM_PREFILL_RMS, f"{label} control: the prefill limit "
+            f"accepted {what}")
+    del logits_k, logits_p, logits_c, logits_d, cache_k, cache_p
+
+    # -- gate 3: decode steps against a forward at the same positions -------
+    full = lm.forward(cfg, params, prompts)[0][:, LM_DECODE_FROM:].clone()
+    torch.cuda.empty_cache()
+    _, cache = lm.prefill(cfg, params, prompts[:, :LM_DECODE_FROM],
+                          cache_len)
+    zeroed = dict(cache, ssd=torch.zeros_like(cache["ssd"]))
+    steps = []
+    for pos in range(LM_DECODE_FROM, F_PROMPT):
+        logits, cache, _ = lm.decode_step(cfg, params, prompts[:, pos],
+                                          cache, pos)
+        steps.append(logits)
+    got = torch.stack(steps, dim=1)
+    drel = rms_rel(got, full)
+    top2 = full.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    err = (got - full).abs().max()
+    same = got.argmax(-1) == full.argmax(-1)
+    decisive = margin > 2 * err
+    controls = {"ssd zeroed": rms_rel(lm.decode_step(
+        cfg, params, prompts[:, LM_DECODE_FROM], zeroed,
+        LM_DECODE_FROM)[0], full[:, 0])}
+    if hybrid:
+        wide = dataclasses.replace(cfg, sliding_window=None)
+        _, cache = lm.prefill(cfg, params, prompts[:, :LM_DECODE_FROM],
+                              cache_len)
+        controls["no window"] = rms_rel(lm.decode_step(
+            wide, params, prompts[:, LM_DECODE_FROM], cache,
+            LM_DECODE_FROM)[0], full[:, 0])
+    print(f"{label} decode: {F_PROMPT - LM_DECODE_FROM} steps after a "
+          f"{LM_DECODE_FROM}-token prefill against a {F_PROMPT}-token "
+          f"forward: rms(diff) / rms(forward) {drel} (limit "
+          f"{LM_DECODE_RMS}; max|diff| / max|forward| {rel_err(got, full)}"
+          f"); greedy tokens agree at {int(same.sum())} of {same.numel()} "
+          f"(at {int(same[decisive].sum())} of {int(decisive.sum())} whose "
+          f"top-2 margin exceeds twice the largest difference); controls "
+          f"(one step, rms, limit {LM_DECODE_RMS}): {json.dumps(controls)}")
+    require(drel <= LM_DECODE_RMS and bool(same[decisive].all()),
+            f"{label}: decode strays from forward ({drel})")
+    require(all(c > LM_DECODE_RMS for c in controls.values()),
+            f"{label} control: the decode limit accepted {controls}")
+    del full, got, steps, cache, zeroed
+    torch.cuda.empty_cache()
+
+    # -- times ---------------------------------------------------------------
+    times = {"generate_s": t_run2,
+             "tokens_per_s": F_BATCH * F_NEW / t_run2,
+             "generate_s_run1": t_run1}
+    times["prefill_ms"] = time_ms(torch, lambda: lm.prefill(
+        cfg, params, prompts, cache_len), 3, warmup=1)
+    _, cache = lm.prefill(cfg, params, prompts, cache_len)
+    token = toks[:, 0]
+    times["decode_ms_per_token"] = time_ms(torch, lambda: lm.decode_step(
+        cfg, params, token, cache, F_PROMPT), 8)
+    times["decode_tokens_per_s"] = F_BATCH * 1e3 / times[
+        "decode_ms_per_token"]
+    times["decode_bound_ms"] = 1e3 * weights / HBM_BYTES_PER_S
+    print(f"{label} times ({card_line()}; host clock to the end of device "
+          f"work for generate, CUDA events for prefill and decode; the "
+          f"decode bound is the bf16 weights read once at 3.35 TB/s): "
+          f"{json.dumps(times)}")
+    print(f"{label} memory: weights {weights} bytes, held before run 2 "
+          f"{held}, peak in run 2 {peak}; run 2 tokens equal run 1's: "
+          f"{bool(torch.equal(out2['tokens'], toks))}")
+    print(f"{label} prefill under torch.profiler: " + json.dumps(profile_top(
+        torch, lambda: lm.prefill(cfg, params, prompts, cache_len), k=8)))
+    print(f"{label} decode step under torch.profiler: " + json.dumps(
+        profile_top(torch, lambda: lm.decode_step(cfg, params, token, cache,
+                                                  F_PROMPT))))
+    del cache, engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["t_ssd"] = t_ssd
+    if hybrid:
+        res["t_fa"] = t_fa
+    print(f"{label}: phase {time.perf_counter() - t0} s")
+    return res
 
 
 def run(torch, seed: int):
@@ -4237,6 +4640,16 @@ def run(torch, seed: int):
     plain["ssd_scan"] = t_ssd["plain_ms"]
     bounds["ssd_scan"] = t_ssd["bound"]
     library["ssd_scan"] = None
+
+    # -- phases 17 and 18: serving mamba2-1.3b and hymba-1.5b --------------
+    for label, arch in (("L", "mamba2-1.3b"), ("M", "hymba-1.5b")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        served_lm = lm_serving_phase(torch, seed, label, arch, reports)
+        for key, v in served_lm["launches"].items():
+            main_launches[key] = main_launches.get(key, 0) + v
+        for key, e in served_lm["err"].items():
+            errors[key] = max(errors[key], e)
 
     out = []
     for name, meta in KERNELS.items():

@@ -9,6 +9,12 @@ given; weights and prompts are random, from seeded generators.
       --smoke --evict --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       --evict --prompt-len 2048 --max-new 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+      --prompt-len 2048 --max-new 64
+
+It serves the dense GQA, SSM (mamba2) and hybrid (hymba) families.
 """
 
 from __future__ import annotations

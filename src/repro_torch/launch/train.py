@@ -10,6 +10,10 @@ from :class:`repro_torch.data.SyntheticTokenDataset`.
       --smoke --steps 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --steps 5 --seq-len 2048 --global-batch 8 --remat full
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
+      --smoke --steps 4 --device cpu
+
+It trains the dense GQA, SSM and hybrid families.
 
 Failure drill: ``--inject-failure-at N`` raises before step N; the loop
 drains the checkpoint writer, restarts, restores the latest checkpoint

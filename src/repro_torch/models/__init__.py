@@ -1,4 +1,8 @@
-"""The dense GQA language model of the port (plain dicts of tensors)."""
+"""The port's language models (plain dicts of tensors): the dense GQA, SSM
+(mamba2) and hybrid (hymba) families.  ``init_params``, ``forward``,
+``make_decode_cache``, ``prefill`` and ``decode_step`` take all three;
+MoE, MLA and the modality frontends raise ``NotImplementedError``
+(ROADMAP A12)."""
 
 from repro_torch.models.lm import (
     decode_step,

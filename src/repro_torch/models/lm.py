@@ -1,27 +1,39 @@
 """LM assembly: init / forward / prefill / decode for the ported families.
 
-The port of ``repro.models.lm`` for two families:
+The port of ``repro.models.lm`` for three families:
 
 * ``dense`` with GQA attention (llama3.2-3b, qwen1.5-0.5b,
   command-r-plus-104b): RMSNorm, SwiGLU, RoPE, optional ``qkv_bias``,
   ``parallel_block``, ``sliding_window`` and ``logit_softcap`` where the
-  reference has them; every entry point.
+  reference has them;
 * ``ssm`` (mamba2-1.3b): Mamba-2 blocks only, attention-free, through
-  :mod:`repro_torch.models.ssm` and the SSD scan B9.  :func:`init_params`
-  and :func:`forward` (the train path) take it; :func:`prefill`,
-  :func:`decode_step` and :func:`make_decode_cache` still refuse it.
+  :mod:`repro_torch.models.ssm` and the SSD scan B9;
+* ``hybrid`` (hymba-1.5b): attention and a Mamba-2 block at ``d_inner =
+  d_model`` read the same normed input; their outputs are RMSNormed,
+  scaled by float32 beta vectors and averaged.  Each layer has its own
+  attention window (:func:`layer_windows`: global every
+  ``global_attn_every``-th layer, ``sliding_window`` elsewhere).
+
+Every entry point (:func:`init_params`, :func:`forward`,
+:func:`make_decode_cache`, :func:`prefill`, :func:`decode_step`) takes
+all three.  On the card a prefill launches B8 once an attention layer and
+B9 once an SSM block; decode launches neither (einsums and the one-step
+recurrence, as in the reference).  The reference carries the hybrid's
+windows as scanned data; here they are Python ints, so B8 takes every
+hybrid layer, windowed or global.
 
 The reference's ``lax.scan`` over stacked layer parameters becomes a
 Python loop over a list of per-layer dicts; its ``remat`` wrapper of the
 scan body becomes a wrapper of each block (``train.train_step.make_remat``).
-MoE, hybrid, MLA and the modality frontends raise ``NotImplementedError``
+MoE, MLA and the modality frontends raise ``NotImplementedError``
 (ROADMAP A12).
 
 Parameters: ``{"embed": {"w"}, "layers": [layer, ...], "final_norm":
 {"scale"}, "lm_head": {"w"}}`` (no ``lm_head`` with tied embeddings); a
 dense layer is ``{"ln1", "attn", "mlp"[, "ln2"]}``, an SSM layer
-``{"ln", "ssm"}``.  :func:`init_params` draws them from a seeded
-``torch.Generator`` on the target device;
+``{"ln", "ssm"}``, a hybrid layer ``{"ln1", "attn", "ssm", "norm_attn",
+"norm_ssm", "beta_attn", "beta_ssm", "ln2", "mlp"}``.  :func:`init_params`
+draws them from a seeded ``torch.Generator`` on the target device;
 :func:`repro_torch.models.interop.params_from_reference` carries the
 reference's parameters across.  Entry points run on the card unless the
 caller passes ``device="cpu"``.
@@ -29,7 +41,7 @@ caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -43,31 +55,48 @@ __all__ = [
     "decode_step",
     "forward",
     "init_params",
+    "layer_windows",
     "make_decode_cache",
     "prefill",
 ]
 
 
-def check_supported(cfg: ModelConfig, serving: bool = False) -> None:
-    """Refuse what is not ported (ROADMAP A12): every family but dense GQA
-    and, for the train path (``serving=False``), the SSM family."""
-    if cfg.family == "hybrid":
-        what = "hybrid models"
-    elif cfg.is_attention_free:
-        if not serving:
-            return
-        what = "SSM models in prefill / decode"
-    elif cfg.uses_moe:
+def check_supported(cfg: ModelConfig) -> None:
+    """Refuse what is not ported (ROADMAP A12): MoE, MLA and the modality
+    frontends."""
+    if cfg.uses_moe:
         what = "MoE models"
     elif cfg.attention_type == "mla":
         what = "MLA attention"
-    elif cfg.frontend or cfg.family != "dense":
+    elif cfg.frontend or cfg.family not in ("dense", "ssm", "hybrid"):
         what = f"the {cfg.family} family (modality frontends)"
     else:
         return
     raise NotImplementedError(
         f"{cfg.name}: {what} are not ported yet (ROADMAP A12); the port "
-        f"serves the dense GQA family and trains it and the SSM family")
+        f"serves and trains the dense GQA, SSM and hybrid families")
+
+
+def _layer_kind(cfg: ModelConfig) -> str:
+    check_supported(cfg)
+    if cfg.family == "hybrid":
+        return "hybrid"
+    if cfg.is_attention_free:
+        return "ssm"
+    return "dense"
+
+
+def layer_windows(cfg: ModelConfig, seq_len: int) -> Optional[List[int]]:
+    """Per-layer attention windows of a hybrid model (None for the other
+    families): ``seq_len + 1`` on global layers (every
+    ``global_attn_every``-th, from layer 0), ``sliding_window`` elsewhere.
+    Python ints, as the B8 wrapper takes them."""
+    if cfg.family != "hybrid":
+        return None
+    full = seq_len + 1
+    every = cfg.global_attn_every
+    return [full if every and i % every == 0 else (cfg.sliding_window or full)
+            for i in range(cfg.num_layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -91,20 +120,39 @@ def _init_ssm_layer(gen: torch.Generator, cfg: ModelConfig, dtype):
     }
 
 
+def _init_hybrid_layer(gen: torch.Generator, cfg: ModelConfig, dtype):
+    d, dev = cfg.d_model, gen.device
+    return {
+        "ln1": L.rmsnorm_init(d, dev),
+        "attn": L.gqa_init(gen, cfg, dtype),
+        # the SSM path mirrors the attention width (expand 1)
+        "ssm": SSM.ssm_init(gen, cfg, dtype, d_inner=d),
+        "norm_attn": L.rmsnorm_init(d, dev),
+        "norm_ssm": L.rmsnorm_init(d, dev),
+        "beta_attn": torch.ones((d,), dtype=torch.float32, device=dev),
+        "beta_ssm": torch.ones((d,), dtype=torch.float32, device=dev),
+        "ln2": L.rmsnorm_init(d, dev),
+        "mlp": L.mlp_init(gen, cfg, dtype),
+    }
+
+
+_INIT_LAYER = {"dense": _init_dense_layer, "ssm": _init_ssm_layer,
+               "hybrid": _init_hybrid_layer}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Random parameters from ``torch.Generator(device).manual_seed(seed)``.
 
     Matrices are held in ``dtype`` (default: the compute dtype; the train
-    path asks for float32 masters), vectors and the SSM's ``conv_w`` in
-    float32.  The draws differ from the reference's ``jax.random``.
+    path asks for float32 masters), vectors (norm scales, the hybrid's
+    betas) and the SSM's ``conv_w`` in float32.  The draws differ from the
+    reference's ``jax.random``.
     """
-    check_supported(cfg)
+    init_layer = _INIT_LAYER[_layer_kind(cfg)]
     dev = resolve_device(device)
     dtype = dtype or L.cdtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    init_layer = (_init_ssm_layer if cfg.is_attention_free
-                  else _init_dense_layer)
     embed = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
                         device=dev, dtype=torch.float32) * 0.02
     params = {
@@ -130,7 +178,7 @@ def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Block body (full-sequence)
+# Block bodies (full-sequence)
 # ---------------------------------------------------------------------------
 def _dense_block(cfg: ModelConfig, p, x: torch.Tensor, positions,
                  attn_impl: str):
@@ -147,6 +195,26 @@ def _dense_block(cfg: ModelConfig, p, x: torch.Tensor, positions,
 def _ssm_block(cfg: ModelConfig, p, x: torch.Tensor):
     h = L.rmsnorm(p["ln"], x, cfg.norm_eps)
     return x + SSM.ssm_apply(p["ssm"], h, cfg)
+
+
+def _hybrid_out(cfg: ModelConfig, p, x, a, s):
+    """The hybrid layer after its two heads: each output RMSNormed and
+    scaled by its float32 beta, the sum halved (float32) and cast to
+    ``x``'s dtype, then the MLP."""
+    fused = (p["beta_attn"] * L.rmsnorm(p["norm_attn"], a, cfg.norm_eps)
+             + p["beta_ssm"] * L.rmsnorm(p["norm_ssm"], s, cfg.norm_eps)
+             ) * 0.5
+    x = x + fused.to(x.dtype)
+    return x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+
+
+def _hybrid_block(cfg: ModelConfig, p, x: torch.Tensor, positions,
+                  window: int, attn_impl: str):
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, kv, _ = L.gqa_attention(p["attn"], h, cfg, positions, window=window,
+                               attn_impl=attn_impl)
+    s = SSM.ssm_apply(p["ssm"], h, cfg, d_inner=cfg.d_model)
+    return _hybrid_out(cfg, p, x, a, s), kv
 
 
 # ---------------------------------------------------------------------------
@@ -167,23 +235,26 @@ def forward(
     body), e.g. in ``torch.utils.checkpoint``; ``return_hidden=True``
     skips the LM head and returns the final-normed hidden states (the
     chunked loss applies the head per sequence chunk).  ``attn_impl`` goes
-    to the attention of dense blocks.
+    to the attention of dense and hybrid blocks.
     """
-    check_supported(cfg)
+    kind = _layer_kind(cfg)
     x = _embed(params, tokens, cfg)
-    if cfg.is_attention_free:
-        def block(x, p):
+    s = x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    if kind == "ssm":
+        def block(x, p, w):
             return _ssm_block(cfg, p, x)
+    elif kind == "hybrid":
+        def block(x, p, w):
+            return _hybrid_block(cfg, p, x, positions, w, attn_impl)[0]
     else:
-        positions = torch.arange(x.shape[1], dtype=torch.int32,
-                                 device=x.device)
-
-        def block(x, p):
+        def block(x, p, w):
             return _dense_block(cfg, p, x, positions, attn_impl)[0]
     if remat is not None:
         block = remat(block)
-    for p in params["layers"]:
-        x = block(x, p)
+    windows = layer_windows(cfg, s) or [None] * cfg.num_layers
+    for p, w in zip(params["layers"], windows):
+        x = block(x, p, w)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
@@ -199,13 +270,30 @@ def forward(
 # ---------------------------------------------------------------------------
 def make_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
                       dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
-    """Zero-initialized decode cache sized for ``seq_len`` positions:
-    ``k`` and ``v`` of shape (layers, B, Hkv, seq_len, head_dim)."""
-    check_supported(cfg, serving=True)
+    """Zero-initialized decode cache sized for ``seq_len`` positions.
+
+    Dense and hybrid: ``k`` and ``v`` (layers, B, Hkv, seq_len, head_dim)
+    in ``dtype``.  SSM and hybrid: ``ssd`` (layers, B, H, P, N) float32
+    and ``conv`` (layers, B, conv - 1, d_inner + 2N) in ``dtype`` (a
+    prefill or decode step leaves ``conv`` in the compute dtype, as the
+    reference does)."""
+    kind = _layer_kind(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, seq_len, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    nl = cfg.num_layers
+    cache: Dict[str, Any] = {}
+    if kind in ("dense", "hybrid"):
+        shape = (nl, batch, cfg.num_kv_heads, seq_len, cfg.head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+    if kind in ("ssm", "hybrid"):
+        di = cfg.d_model if kind == "hybrid" else cfg.d_inner
+        n = cfg.ssm_state
+        cache["ssd"] = torch.zeros(
+            (nl, batch, cfg.ssm_heads, cfg.ssm_head_dim, n),
+            dtype=torch.float32, device=dev)
+        cache["conv"] = torch.zeros((nl, batch, cfg.ssm_conv - 1, di + 2 * n),
+                                    dtype=dtype, device=dev)
+    return cache
 
 
 def prefill(
@@ -219,21 +307,43 @@ def prefill(
     """Full-sequence pass that fills a decode cache of ``cache_len`` slots.
 
     Returns (last-position logits (B, V) float32, cache).  As in the
-    reference, prefill applies no ``logit_softcap``.
+    reference, prefill applies no ``logit_softcap``.  The SSM blocks run
+    ``ssm_prefill`` (B9 with the final state, once a block on the card);
+    ``attn_impl`` goes to the attention of dense and hybrid blocks.
     """
-    check_supported(cfg, serving=True)
+    kind = _layer_kind(cfg)
     x = _embed(params, tokens, cfg)
     s = x.shape[1]
-    if s > cache_len:
+    if kind != "ssm" and s > cache_len:
         raise ValueError(f"prompt of {s} tokens exceeds cache_len "
                          f"{cache_len}")
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    windows = layer_windows(cfg, s) or [None] * cfg.num_layers
     cache = make_decode_cache(cfg, tokens.shape[0], cache_len, cache_dtype,
                               x.device)
-    for i, p in enumerate(params["layers"]):
-        x, (k, v) = _dense_block(cfg, p, x, positions, attn_impl)
+    states = []
+    for i, (p, w) in enumerate(zip(params["layers"], windows)):
+        if kind == "ssm":
+            h = L.rmsnorm(p["ln"], x, cfg.norm_eps)
+            out, state = SSM.ssm_prefill(p["ssm"], h, cfg)
+            x = x + out
+            states.append(state)
+            continue
+        if kind == "hybrid":
+            h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+            a, (k, v), _ = L.gqa_attention(p["attn"], h, cfg, positions,
+                                           window=w, attn_impl=attn_impl)
+            out, state = SSM.ssm_prefill(p["ssm"], h, cfg,
+                                         d_inner=cfg.d_model)
+            x = _hybrid_out(cfg, p, x, a, out)
+            states.append(state)
+        else:
+            x, (k, v) = _dense_block(cfg, p, x, positions, attn_impl)
         cache["k"][i, :, :, :s] = k.to(cache_dtype)
         cache["v"][i, :, :, :s] = v.to(cache_dtype)
+    if states:
+        cache["ssd"] = torch.stack([st.ssd for st in states])
+        cache["conv"] = torch.stack([st.conv for st in states])
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = (x[:, -1] @ L.cast(_head_w(params, cfg), cfg)).float()
     return logits, cache
@@ -264,20 +374,44 @@ def decode_step(
 
     ``attn_mass`` is the per-cache-position attention probability mass
     summed over heads and averaged over layers: the importance score the
-    RMQ eviction manager indexes.  The cache is written in place (the
-    new token's k / v at ``pos``) and returned.
+    RMQ eviction manager indexes.  As in the reference, only dense layers
+    add to it: a hybrid model returns zeros of shape (B, S), and an SSM
+    model (no KV cache) None.  The new token's k / v are written into the
+    cache in place at ``pos`` and the same dict comes back; with SSM blocks
+    a new dict comes back, holding the same ``k`` / ``v`` and the new state
+    and conv tail as new tensors (``ssd`` float32, ``conv`` in the compute
+    dtype).
     """
-    check_supported(cfg, serving=True)
+    kind = _layer_kind(cfg)
     x = _embed(params, token[:, None], cfg)
-    s_cache = cache["k"].shape[-2]
+    s_cache = cache["k"].shape[-2] if "k" in cache else 0
     mass = torch.zeros((token.shape[0], max(s_cache, 1)),
                        dtype=torch.float32, device=x.device)
+    windows = layer_windows(cfg, 10 ** 9) or [cfg.sliding_window] * len(
+        params["layers"])
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    for i, p in enumerate(params["layers"]):
+    states = []
+    for i, (p, w) in enumerate(zip(params["layers"], windows)):
+        if kind in ("ssm", "hybrid"):
+            h = L.rmsnorm(p["ln" if kind == "ssm" else "ln1"], x,
+                          cfg.norm_eps)
+            out, state = SSM.ssm_decode(
+                p["ssm"], h, cfg,
+                SSM.SSMState(ssd=cache["ssd"][i], conv=cache["conv"][i]),
+                d_inner=cfg.d_model if kind == "hybrid" else None)
+            states.append(state)
+            if kind == "ssm":
+                x = x + out
+                continue
+            a, _ = L.gqa_decode(p["attn"], h, cfg,
+                                (cache["k"][i], cache["v"][i]), pos,
+                                window=w)
+            x = _hybrid_out(cfg, p, x, a, out)
+            continue
         h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
         a, (nk, _) = L.gqa_decode(p["attn"], h, cfg,
                                   (cache["k"][i], cache["v"][i]), pos,
-                                  window=cfg.sliding_window)
+                                  window=w)
         if return_attn_mass:
             # recompute q for the mass (cheap: one token), as the
             # reference does
@@ -291,6 +425,10 @@ def decode_step(
             x = x + a
             x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
                           cfg)
+    if states:
+        cache = dict(cache)
+        cache["ssd"] = torch.stack([st.ssd for st in states])
+        cache["conv"] = torch.stack([st.conv for st in states])
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = (x[:, 0] @ L.cast(_head_w(params, cfg), cfg)).float()
     if cfg.logit_softcap:

@@ -2,8 +2,12 @@
 
 The port of ``repro.serve.engine``: greedy decoding over a fixed batch,
 with RMQ-backed eviction when the per-sequence importance scores outgrow
-the budget.  Prefill runs the B8 flash kernel on the card; decode is plain
-PyTorch (the reference's decode attention is einsums); eviction runs on
+the budget.  It takes the dense, SSM (mamba2) and hybrid (hymba) families.
+Prefill runs B8 on the card once an attention layer and B9 once an SSM
+block; decode is plain PyTorch (the reference's decode attention is
+einsums and its SSM step a one-step recurrence).  An SSM model has no KV
+cache and adds no attention mass, a hybrid one adds zeros (as in the
+reference), so their eviction picks by position.  Eviction runs on
 the port's ``StreamingRMQ`` and engine (B3 / B6 / B5 / B4 on the card),
 or, with ``serving_tier=``, as the ``kv-eviction`` tenant of a
 :class:`repro_torch.serving.ServingTier` (its window batches coalesce
@@ -31,7 +35,7 @@ class ServeEngine:
         sc: ServeConfig,
         serving_tier: Optional[Any] = None,
     ):
-        check_supported(cfg, serving=True)
+        check_supported(cfg)
         self.cfg = cfg
         self.params = params
         self.sc = sc
@@ -128,8 +132,13 @@ class ServeEngine:
             vict,
         ])
         new_live = live - int(vict.shape[0])
-        new_cache = {key: torch.index_select(val, 3, keep_idx)
-                     for key, val in cache.items()}
+        # only the KV cache has a position axis: an SSM state and conv tail
+        # stay as they are (an SSM model permutes nothing, yet its live
+        # count falls, as in the reference)
+        new_cache = dict(cache)
+        for key in ("k", "v"):
+            if key in cache:
+                new_cache[key] = torch.index_select(cache[key], 3, keep_idx)
         new_scores = torch.index_select(scores, 1, keep_idx)
         # stale rows past the live region must not carry scores
         new_scores = torch.where(

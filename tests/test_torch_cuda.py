@@ -879,6 +879,62 @@ def test_smoke_model_on_card_launches_flash_per_layer(card):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("window", [1024, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_hymba_geometry(card, window, dtype):
+    """hymba-1.5b's prefill attention: head dim 64, 25 query heads over 5
+    KV heads (group 5), S 2048, its 1024-token window and a global layer."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = _attn_inputs(card, 26, 1, 25, 5, 2048, 64, dtype)
+    before = fa_ops.LAUNCHES.launches
+    got = fa_ops.attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES.launches - before == 1
+    want = attention_ref(q, k, v, window=window)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_hybrid_smoke_prefill_on_card(card, monkeypatch):
+    """hymba-smoke's prefill on the card launches B8 and B9 once a layer
+    and equals the same model through the plain attention and the plain
+    chunked scan (1e-4: float32 on both sides, sums in other orders)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import lm, ssm
+
+    cfg = get_smoke_config("hymba-1.5b")
+    params = lm.init_params(cfg, seed=0, device=card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 200), device=card)
+    fa0, ssd0 = fa_ops.LAUNCHES.launches, ssd_ops.LAUNCHES.launches
+    logits, cache = lm.prefill(cfg, params, toks, 256,
+                               cache_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES.launches - fa0 == cfg.num_layers
+    assert ssd_ops.LAUNCHES.launches - ssd0 == cfg.num_layers
+    monkeypatch.setattr(ssm, "ssd_with_state", lambda *a, **k: (
+        ssd_ops.ssd_chunked_ref(*a, **k)))
+    want, plain = lm.prefill(cfg, params, toks, 256,
+                             cache_dtype=torch.float32, attn_impl="ref")
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES.launches - fa0 == cfg.num_layers
+    assert ssd_ops.LAUNCHES.launches - ssd0 == cfg.num_layers
+    torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
+    for key in ("k", "v", "ssd", "conv"):
+        torch.testing.assert_close(cache[key], plain[key], atol=1e-4,
+                                   rtol=1e-4)
+    full, _ = lm.forward(cfg, params, toks)
+    step, _, mass = lm.decode_step(cfg, params, toks[:, -1], cache, 200,
+                                   return_attn_mass=True)
+    assert bool(torch.isfinite(full).all() and torch.isfinite(step).all())
+    assert not bool(mass.any())
+
+
+@pytest.mark.gpu
 def test_serving_on_card_picks_the_plain_victims(card, monkeypatch):
     """ServeEngine on the card with eviction: every round's victims equal
     the plain (eager) manager's on the same scores and a brute-force
@@ -930,7 +986,9 @@ SSD_CASES = [
     (2, 256, 4, 64, 128, 128),   # mamba2 geometry, two chunks
     (1, 128, 2, 64, 16, 128),    # test_kernels.py's hymba case, one chunk
     (1, 512, 1, 32, 64, 128),
-    (2, 256, 3, 32, 16, 128),    # hymba-1.5b (P 32, N 16)
+    (2, 256, 3, 32, 16, 128),    # P 32, N 16 (hymba's state size)
+    (2, 256, 25, 64, 16, 128),   # hymba-1.5b: 25 heads x 64, N 16 (the
+                                 # state kernel's partial-tile instance)
     (2, 96, 4, 32, 16, 32),      # mamba2-smoke (P 32, N 16, Q 32)
     (1, 60, 2, 24, 10, 20),      # ragged tiles: Q, P, N not multiples of 32
     (1, 128, 2, 64, 128, 128),   # one chunk at the mamba2 widths

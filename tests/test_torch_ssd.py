@@ -365,7 +365,7 @@ SPLIT_GEOMETRIES = [
     # (batch, L, H, P, N, chunk)
     (2, 256, 4, 64, 128, 128),   # mamba2 geometry, two chunks
     (2, 96, 4, 32, 16, 32),      # mamba2-smoke (P 32, N 16, Q 32)
-    (2, 256, 3, 32, 16, 128),    # hymba-1.5b (P 32, N 16)
+    (2, 256, 3, 32, 16, 128),    # P 32, N 16 (hymba's state size)
     (1, 60, 2, 24, 10, 20),      # ragged: Q, P, N off the MMA tile
     (1, 80, 3, 12, 16, 16),      # five chunks; H * P = 36
 ]
