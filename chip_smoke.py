@@ -274,6 +274,47 @@ outside the repository.  Phases:
    (timed only).
    Their launches are added to B8's and B9's rows.
 
+19. serving qwen2-moe-a2.7b (N; run after phase 18): 24 layers, d_model
+   2048, 16 heads over 16 KV heads, head_dim 128, 60 experts top-4 of
+   d_ff 1408 (softmax router, renormalized) and a shared expert of 5632
+   behind a sigmoid gate, vocab 151936 (14,315,487,232 parameters, 28.6
+   GB of bf16), random bf16 weights from a seeded ``torch.Generator`` on
+   the card, through ``ServeEngine`` at F's shape, cache 2120, no
+   eviction.  B8 launches 24 times a prefill and never in a decode step
+   (the MoE dispatch has no kernel in either package).  Gates: B8 at the
+   prefill shape (group 1, D 128) with F's bf16 gate and rms control; one
+   MoE layer at the prefill's 8192 tokens (capacity 768) in float32
+   against a loop over the experts with no dispatch buffer (controls: top-p
+   not renormalized; the shared gate left out; the dropped pairs printed);
+   the whole model's prefill logits against ``attn_impl="ref"``, running
+   free and with the kernel run's expert choices replayed into the plain
+   run (control: every shared expert left out); 8 decode steps after a
+   2040-token prefill against a 2048-token ``forward`` at
+   ``capacity_factor`` 15 (E / k: no pair drops on either side), free and
+   with the forward's expert choices replayed, greedy tokens included.
+   Times: B8 beside its bound and SDPA (timed only) and its ``-Xptxas -v``
+   registers at D 128; prefill; decode a token and tokens/s beside the
+   weight-read bound (every expert, as the batched products run all 60;
+   the active-only figure beside it); peak memory; a ``torch.profiler``
+   top-8 of a prefill and top-5 of a decode step; one MoE layer split into
+   router + top-k, dispatch, expert products, combine and the shared
+   expert;
+
+20. serving internvl2-2b with its frontend prefix (O; run after phase 19):
+   24 layers, d_model 2048, 16 heads over 8 KV heads, head_dim 128, d_ff
+   8192, vocab 92553 (1,889,046,528 parameters), a prefix of 256
+   synthetic embeddings, F's shape, cache 2376, F's eviction settings
+   (budget 1782, 16 protected, c = 16, t = 4; the prefix's positions are
+   live and evictable).  B8 launches 24 times a prefill (S 2304); the
+   eviction's B3 / B6 / B5 launches follow the budget arithmetic from
+   position 2304.  Gates: B8 at (4, 16, 2304, 128) / 8 KV heads with F's
+   gate and control; the prefill logits with the prefix against
+   ``attn_impl="ref"`` (control: the prefix zeroed); decode after a
+   256 + 2040-position prefill against ``forward`` with the prefix
+   (control: the prefix's cache rows zeroed); ``generate``'s final
+   position and evictions against the rule.  Times as N.
+   Their launches are added to B8's row and, for O's eviction, B3-B6's.
+
 Each phase sets every launch counter to 0 just before it drives its
 path and reads them just after.  The output ends with one
 ``{"kernels": [...]}`` line (per kernel: its launches on its phase's
@@ -3417,9 +3458,10 @@ def profile_top(torch, fn, k: int = 5):
             "kernels": len(rows), "top": rows[:k]}
 
 
-def expected_rounds(sc, new_tokens: int):
-    """Rounds, victims and final position by budget arithmetic alone."""
-    pos, rounds, victims = F_PROMPT, 0, 0
+def expected_rounds(sc, new_tokens: int, start: int = F_PROMPT):
+    """Rounds, victims and final position by budget arithmetic alone, from
+    the first decode position ``start``."""
+    pos, rounds, victims = start, 0, 0
     for _ in range(new_tokens - 1):
         pos += 1
         if pos > sc.eviction_budget:
@@ -4068,9 +4110,9 @@ LM_PREFILL_RMS = 0.12
 LM_DECODE_RMS = 0.1
 
 
-def served_launches(torch, engine, prompts):
-    """One counted ``generate``: ``(out, seconds, prefill launches,
-    launches of the rest)``."""
+def served_launches(torch, engine, prompts, **kwargs):
+    """One counted ``generate`` (``kwargs`` go to it): ``(out, seconds,
+    prefill launches, launches of the rest)``."""
     from repro_torch.serve import engine as serve_engine
 
     orig = serve_engine.prefill
@@ -4085,7 +4127,8 @@ def served_launches(torch, engine, prompts):
     serve_engine.prefill = prefill
     try:
         count = zero_counts()
-        out, seconds = wall(torch, lambda: engine.generate(prompts, F_NEW))
+        out, seconds = wall(torch, lambda: engine.generate(prompts, F_NEW,
+                                                           **kwargs))
         total = read(torch, count)
     finally:
         serve_engine.prefill = orig
@@ -4360,6 +4403,540 @@ def lm_serving_phase(torch, seed, label, arch, reports):
     res["t_ssd"] = t_ssd
     if hybrid:
         res["t_fa"] = t_fa
+    print(f"{label}: phase {time.perf_counter() - t0} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 19 and 20: serving qwen2-moe-a2.7b (N) and internvl2-2b (O)
+# ---------------------------------------------------------------------------
+# One MoE layer in float32 on the card against the loop over the experts,
+# max|diff| / max|loop|: the same products summed in other orders (float32
+# accumulation, no TF32).  Measured on an "NVIDIA H100 80GB HBM3, 700.00
+# W": 1.13e-6; the controls read 0.37 (top-p not renormalized) and 0.79
+# (the shared gate left out).
+MOE_LAYER_TOL = 1e-4
+# The whole model's last-position prefill logits with B8 against the same
+# model with attn_impl="ref", rms(diff) / rms(plain), and decode against
+# forward (N at capacity_factor 15, so no pair drops on either side).
+# Measured on the same card: O 0.0187 (prefill) and 0.0182 (decode), the
+# controls 1.28 (the prefix zeroed) and 0.44 (its cache rows zeroed).  N
+# runs free at 0.162 and 0.155: the bf16 roundings that differ between B8
+# and the plain attention flip 1.8% of layer 0's expert choices, and the
+# flips compound to 36% by layer 23 of a random-weight model (printed).
+# Its controls (the shared experts left out) read 0.895 and 0.558, so N's
+# free limits sit between, at 0.3.
+NO_PREFILL_RMS = {"N": 0.3, "O": 0.12}
+NO_DECODE_RMS = {"N": 0.3, "O": 0.1}
+# N with one run's expert choices replayed into the other (the kernel
+# prefill's into the plain prefill; the forward's into the prefill of 2040
+# and the decode steps), which leaves the attention's rounding alone:
+# measured 0.0143 (prefill) and 0.0166 (decode), O's order; controls 0.88
+# and 0.51.
+NO_REPLAY_RMS = 0.06
+
+
+def flash_at(torch, seed, label, hq, hkv, s, report):
+    """B8 at a prefill shape (batch 4, head dim 128, no window): F's bf16
+    gate and its rms control, then its time beside the operations bound,
+    its plain version and SDPA (timed only, in turns)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    b, d = F_BATCH, 128
+    gen = torch.Generator(device="cuda").manual_seed(seed + 50 + s)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    got = fa_ops.attention(q, k, v)
+    want = attention_ref(q, k, v)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    close, ratio, ok = bf16_gate(torch, got, want)
+    what = (f"{label} flash_attention vs plain at {(b, hq, s, d)} / {hkv} "
+            f"KV heads, bf16: max_abs_err {err}, allclose 2e-2 {close}, "
+            f"max|diff|/rms(plain) {ratio} (limit {BF16_RMS_LIMIT})")
+    require(ok, what)
+    print(what)
+    ctrl = want.clone()
+    ctrl[:, :, -64:] = attention_ref(q[:, :, -64:], k[:, :, 64:],
+                                     v[:, :, 64:])
+    c_close, c_ratio, c_ok = bf16_gate(torch, ctrl, want)
+    require(not c_ok, f"{label} control: the bf16 gate accepted attention "
+            f"with 64 keys hidden")
+    print(f"{label} control (plain, keys 0..63 hidden from the last 64 "
+          f"rows): rejected; allclose 2e-2 {c_close}, max|diff|/rms "
+          f"{c_ratio}")
+    del got, want, ctrl
+    turns = time_turns(torch, {
+        "kernel": lambda: fa_ops.flash_attention_cuda(q, k, v),
+        "sdpa": lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)}, 10)
+    flops = visible_pairs(s, None) * b * hq * 4 * d
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    out = {"ms": mean(turns["kernel"]), "library_ms": mean(turns["sdpa"]),
+           "turns_ms": turns,
+           "plain_ms": time_ms(torch, lambda: attention_ref(q, k, v), 3,
+                               warmup=1),
+           "flops": flops, "bytes": nbytes,
+           "bound": bound_ms(nbytes, flops, BF16_OPS_PER_S),
+           "ptxas D 128": ptxas_of(report, "flash_bf16_kernelILi128E")}
+    out["tflops"] = flops / out["ms"] / 1e9
+    out["bound_share"] = out["bound"][0] / out["ms"]
+    print(f"{label} flash_attention bf16 at {(b, hq, s, d)} / {hkv} KV heads "
+          f"(ms, CUDA events; bound: the causal pairs at 989 TFLOP/s; SDPA "
+          f"timed only): {json.dumps(out)}")
+    return err, out
+
+
+def moe_loop(torch, p, xt, cfg, renorm=True, gated=True):
+    """One MoE layer the long way: ``torch.topk`` routing, then per expert
+    its first ``capacity`` (token, slot) pairs in (token, slot) order,
+    gathered by a mask (no dispatch buffer), their SwiGLU times the
+    routing weight summed back per token, plus the gated shared expert.
+    Returns ``(y, dropped pairs)``."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.moe import capacity
+
+    t, k = xt.shape[0], cfg.num_experts_per_tok
+    probs = torch.softmax((xt @ p["router"]).float(), dim=-1)
+    top_p, top_e = torch.topk(probs, k, dim=-1)
+    if renorm and k > 1:
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    cap = capacity(cfg, t)
+    flat_e, flat_p = top_e.reshape(-1), top_p.reshape(-1)
+    token = torch.arange(t * k, device=xt.device) // k
+    y = torch.zeros_like(xt)
+    dropped = 0
+    for e in range(cfg.num_experts):
+        pairs = torch.nonzero(flat_e == e).reshape(-1)
+        dropped += max(int(pairs.numel()) - cap, 0)
+        pairs = pairs[:cap]
+        h = xt[token[pairs]]
+        o = (F.silu(h @ p["w_gate"][e]) * (h @ p["w_up"][e])) @ p["w_down"][e]
+        y.index_add_(0, token[pairs], o * flat_p[pairs, None].to(o.dtype))
+    shared = L.mlp(p["shared"], xt, cfg)
+    if gated:
+        shared = torch.sigmoid((xt @ p["shared_gate"]).float()
+                               ).to(y.dtype) * shared
+    return y + shared, dropped
+
+
+def moe_layer_gate(torch, seed, cfg, tokens: int):
+    """Gate 2 of N: one MoE layer at the prefill's token count in float32
+    on the card against :func:`moe_loop`, with two controls that must fail
+    (top-p not renormalized; the shared gate left out)."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.models.moe import capacity
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 60)
+    p = moe.moe_init(gen, c32, torch.float32)
+    xt = torch.randn((tokens, cfg.d_model), generator=gen, device="cuda")
+    got, aux = moe.moe_apply(p, xt, c32)
+    want, dropped = moe_loop(torch, p, xt, c32)
+    scale = float(want.abs().max())
+    rel = float((got - want).abs().max()) / scale
+    controls = {
+        "top-p not renormalized": float(
+            (moe_loop(torch, p, xt, c32, renorm=False)[0] - want).abs().max()
+        ) / scale,
+        "shared gate left out": float(
+            (moe_loop(torch, p, xt, c32, gated=False)[0] - want).abs().max()
+        ) / scale}
+    print(f"N moe_apply vs the loop over experts at T {tokens} (capacity "
+          f"{capacity(c32, tokens)}, float32, no TF32): max|diff| / "
+          f"max|loop| {rel} (limit {MOE_LAYER_TOL}); {dropped} of "
+          f"{tokens * cfg.num_experts_per_tok} pairs dropped by the "
+          f"capacity; aux {float(aux)}; controls {json.dumps(controls)}")
+    require(rel <= MOE_LAYER_TOL, f"N: moe_apply strays from the loop "
+            f"({rel})")
+    require(all(c > MOE_LAYER_TOL for c in controls.values()),
+            f"N control: the MoE limit accepted {controls}")
+
+
+@contextlib.contextmanager
+def routing_log(log):
+    """Append each MoE layer's expert choices (``top_e``) to ``log`` while
+    the block runs."""
+    from repro_torch.models import moe
+
+    orig = moe.route
+
+    def route(p, xt, cfg):
+        out = orig(p, xt, cfg)
+        log.append(out[2])
+        return out
+
+    moe.route = route
+    try:
+        yield log
+    finally:
+        moe.route = orig
+
+
+@contextlib.contextmanager
+def routing_replay(sets):
+    """``moe.route`` hands out the given expert choices in turn, weighted
+    by this run's router probabilities (renormalized as ``route`` does)."""
+    from repro_torch.models import moe
+
+    orig = moe.route
+    given = iter(sets)
+
+    def route(p, xt, cfg):
+        probs, _, _ = orig(p, xt, cfg)
+        top_e = next(given)
+        top_p = probs.gather(1, top_e)
+        if cfg.num_experts_per_tok > 1:
+            top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+        return probs, top_p, top_e
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
+def routing_flips(a, b):
+    """Share of tokens whose expert set differs, layer by layer."""
+    return [float((x.sort(dim=-1).values != y.sort(dim=-1).values)
+                  .any(dim=-1).float().mean()) for x, y in zip(a, b)]
+
+
+def without_shared_experts(params):
+    """``params`` (the same tensors) with every MoE layer's shared expert
+    and its gate left out: the control of N's whole-model gates."""
+    return dict(params, layers=[
+        dict(layer, moe={k: v for k, v in layer["moe"].items()
+                         if k not in ("shared", "shared_gate")})
+        for layer in params["layers"]])
+
+
+def moe_split(torch, cfg, p, x):
+    """N's MoE layer split into router + top-k, dispatch, expert products,
+    combine and the shared expert (ms, CUDA events, bf16, one layer's
+    parameters at the prefill's tokens)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+
+    xt = x.reshape(-1, cfg.d_model)
+    t, e = xt.shape[0], cfg.num_experts
+    cap = moe.capacity(cfg, t)
+    _, top_p, top_e = moe.route(p, xt, cfg)
+    h, dest, keep = moe.dispatch(xt, top_e, cap, e)
+    ws = [L.cast(p[n], cfg) for n in ("w_gate", "w_up", "w_down")]
+    o = moe.experts(h, *ws)
+    parts = {
+        "router + top-k": lambda: moe.route(p, xt, cfg),
+        "dispatch": lambda: moe.dispatch(xt, top_e, cap, e),
+        "expert products": lambda: moe.experts(h, *ws),
+        "combine": lambda: moe.combine(o, dest, keep, top_p),
+        "shared expert": lambda: L.mlp(p["shared"], xt, cfg),
+        "whole layer": lambda: moe.moe_apply(p, x, cfg)}
+    out = {name: time_ms(torch, fn, 5) for name, fn in parts.items()}
+    flops = 2 * 3 * e * cap * cfg.d_model * cfg.moe_d_ff
+    out["expert products TFLOP/s"] = flops / out["expert products"] / 1e9
+    out["kept pairs"] = int(keep.sum())
+    return out
+
+
+def trunk_serving_phase(torch, seed, label, arch, reports):
+    """Phases 19 (N, qwen2-moe-a2.7b) and 20 (O, internvl2-2b with its
+    256-position prefix): the model at full width and depth through
+    ServeEngine, F's serving shape; O with F's eviction settings."""
+    import dataclasses
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.models import lm
+    from repro_torch.models.frontends import synthetic_frontend_embeddings
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(arch)
+    f = cfg.frontend_tokens if cfg.frontend else 0
+    routed = cfg.uses_moe
+    cache_len = f + F_PROMPT + F_NEW + 8
+    sc = ServeConfig(seq_len=cache_len, batch=F_BATCH,
+                     kv_cache_dtype="bfloat16", eviction_enabled=not routed,
+                     eviction_budget=cache_len * 3 // 4, eviction_window=16,
+                     rmq_chunk=16, rmq_threshold=4)
+    t0 = time.perf_counter()
+    res = {"err": {}}
+
+    # -- the kernel at this model's prefill shape; N's MoE layer ------------
+    res["err"]["flash_attention"], res["t_fa"] = flash_at(
+        torch, seed, label, cfg.num_heads, cfg.num_kv_heads, f + F_PROMPT,
+        reports.get("flash_attention", ""))
+    if routed:
+        moe_layer_gate(torch, seed, cfg, F_BATCH * F_PROMPT)
+
+    # -- the main path: ServeEngine.generate, counted -----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, t_init = wall(torch, lambda: lm.init_params(
+        cfg, seed=seed, device="cuda"))
+    weights = tree_bytes(params)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (F_BATCH, F_PROMPT),
+                            generator=gen, device="cuda")
+    prefix = synthetic_frontend_embeddings(cfg, F_BATCH, seed=seed,
+                                           device="cuda")
+    engine = ServeEngine(cfg, params, sc)
+    what = (f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok}, "
+            f"expert d_ff {cfg.moe_d_ff}, shared expert "
+            f"{cfg.shared_expert_d_ff} behind a sigmoid gate, no eviction"
+            if routed else
+            f"d_ff {cfg.d_ff}, a {f}-position prefix of synthetic "
+            f"embeddings; budget {sc.eviction_budget}, protected "
+            f"{sc.eviction_window}, c {sc.rmq_chunk}, t {sc.rmq_threshold}")
+    print(f"{label}: {cfg.name}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV, "
+          f"head_dim {cfg.head_dim}, vocab {cfg.vocab_size}, {what}; "
+          f"num_params() {cfg.num_params()}; bf16 weights {weights} bytes "
+          f"made in {t_init} s; batch {F_BATCH}, prompt {F_PROMPT}, {F_NEW} "
+          f"new tokens, cache {cache_len}")
+    out1, t_run1, pre, rest = served_launches(torch, engine, prompts,
+                                              prefix_embeddings=prefix)
+    expect(f"{label} prefill", pre, flash_attention=cfg.num_layers)
+    toks = out1["tokens"]
+    require(toks.shape == (F_BATCH, F_NEW) and bool(
+        ((toks >= 0) & (toks < cfg.padded_vocab)).all()),
+        f"{label} generate: tokens {tuple(toks.shape)} out of range")
+    if routed:
+        expect(f"{label} decode steps", rest)
+        want_pos, want_evicted = f + F_PROMPT + F_NEW - 1, 0
+    else:
+        rounds, want_evicted, want_pos = expected_rounds(sc, F_NEW,
+                                                         f + F_PROMPT)
+        levels = engine.eviction.make_index(
+            cache_len, device="cuda").plan.num_levels
+        expect(f"{label} decode steps and eviction rounds", {
+            k: v for k, v in rest.items()
+            if k not in ("rmq_short", "rmq_scan")},
+            hierarchy_build=levels - 1,
+            hierarchy_update=rounds * (levels - 1))
+        require(rest["rmq_short"] > 0, f"{label} generate: rmq_short never "
+                f"ran")
+    require(out1["final_pos"] == want_pos
+            and out1["evicted"] == want_evicted,
+            f"{label} generate: final_pos {out1['final_pos']}, evicted "
+            f"{out1['evicted']}; the rule says {want_pos}, {want_evicted}")
+    res["launches"] = {k: pre[k] + rest[k] for k in pre}
+    print(f"{label} generate: launches of the prefill {json.dumps(pre)}, "
+          f"of the {F_NEW - 1} decode steps {json.dumps(rest)}; final_pos "
+          f"{out1['final_pos']}, evicted {out1['evicted']} (the rule from "
+          f"position {f + F_PROMPT}: {want_pos}, {want_evicted})")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out2, t_run2 = wall(torch, lambda: engine.generate(
+        prompts, F_NEW, prefix_embeddings=prefix))
+    peak = torch.cuda.max_memory_allocated()
+
+    # -- gate: the whole model's prefill against attn_impl="ref" -----------
+    # N also replays the kernel run's expert choices into the plain run:
+    # with the routing held, what is left is the attention's rounding
+    if routed:
+        ctrl_what = "the shared expert left out in every layer"
+        ctrl_params = without_shared_experts(params)
+        ctrl_prefix = prefix
+    else:
+        ctrl_what = "the prefix zeroed"
+        ctrl_params = params
+        ctrl_prefix = torch.zeros_like(prefix)
+    sets_k, sets_p = [], []
+    with routing_log(sets_k):
+        logits_k, _ = lm.prefill(cfg, params, prompts, cache_len,
+                                 prefix_embeddings=prefix)
+    count = zero_counts()
+    with routing_log(sets_p):
+        logits_p, _ = lm.prefill(cfg, params, prompts, cache_len,
+                                 attn_impl="ref", prefix_embeddings=prefix)
+    logits_c, _ = lm.prefill(cfg, ctrl_params, prompts, cache_len,
+                             attn_impl="ref", prefix_embeddings=ctrl_prefix)
+    gates = {"free": (rms_rel(logits_k, logits_p),
+                      rms_rel(logits_c, logits_p), NO_PREFILL_RMS[label])}
+    if routed:
+        with routing_replay(sets_k):
+            logits_r, _ = lm.prefill(cfg, params, prompts, cache_len,
+                                     attn_impl="ref")
+        with routing_replay(sets_k):
+            logits_rc, _ = lm.prefill(cfg, ctrl_params, prompts, cache_len,
+                                      attn_impl="ref")
+        gates["routing replayed"] = (rms_rel(logits_k, logits_r),
+                                     rms_rel(logits_rc, logits_r),
+                                     NO_REPLAY_RMS)
+        print(f"{label} prefill: share of tokens whose expert set differs "
+              f"between the kernel and the plain run, layer by layer: "
+              f"{json.dumps(routing_flips(sets_k, sets_p))}")
+        del logits_r, logits_rc
+    expect(f"{label} plain prefills", read(torch, count))
+    require(bool(torch.isfinite(logits_k).all()),
+            f"{label} prefill: logits are not finite")
+    agree = (logits_k.argmax(-1) == logits_p.argmax(-1)).float().mean()
+    print(f"{label} prefill last-position logits, B8 against "
+          f"attn_impl='ref', rms(diff) / rms(plain) [reading, control "
+          f"({ctrl_what}), limit]: {json.dumps(gates)}; free-running "
+          f"max|diff| / max|plain| {rel_err(logits_k, logits_p)}, greedy "
+          f"agree {float(agree)}")
+    for name, (rel, ctrl, limit) in gates.items():
+        require(rel <= limit, f"{label} ({name}): the model with B8 strays "
+                f"from the plain attention ({rel})")
+        require(ctrl > limit, f"{label} control ({name}): the prefill limit "
+                f"accepted {ctrl_what} ({ctrl})")
+    del logits_k, logits_p, logits_c, ctrl_params, sets_k, sets_p
+
+    # -- gate: decode steps against a forward at the same positions ---------
+    dcfg = cfg
+    if routed:
+        # a decode step (T = 4, capacity 8) never drops a pair, a 4 x 2048
+        # forward may: at capacity_factor E / k nothing drops on either side
+        dcfg = dataclasses.replace(cfg, capacity_factor=15.0)
+    sets_f = []
+    with routing_log(sets_f):
+        full = lm.forward(dcfg, params, prompts, prefix_embeddings=prefix)[0][
+            :, f + LM_DECODE_FROM:].clone()
+    torch.cuda.empty_cache()
+    n, k = cfg.num_layers, cfg.num_experts_per_tok
+    fwd = [s_.view(F_BATCH, F_PROMPT, k) for s_ in sets_f]
+
+    def decode_run(replay, c_params, c_what):
+        """Prefill of LM_DECODE_FROM tokens and decode to F_PROMPT (with the
+        forward's expert choices replayed, or free); then the control, one
+        step again (it rewrites its own slot and hides the later ones).
+        Returns (logits (B, steps, V), expert sets, control logits)."""
+        sets_d = []
+        with (routing_replay([x[:, :LM_DECODE_FROM].reshape(-1, k)
+                              for x in fwd]) if replay
+              else contextlib.nullcontext()):
+            _, cache = lm.prefill(dcfg, params,
+                                  prompts[:, :LM_DECODE_FROM], cache_len,
+                                  prefix_embeddings=prefix)
+        steps = []
+        with (routing_replay([x[:, pos] for pos in range(LM_DECODE_FROM,
+                                                           F_PROMPT)
+                              for x in fwd] * 2) if replay
+              else routing_log(sets_d)):
+            for pos in range(LM_DECODE_FROM, F_PROMPT):
+                logits, cache, _ = lm.decode_step(
+                    dcfg, params, prompts[:, pos], cache, f + pos)
+                steps.append(logits)
+            if c_what == "the prefix rows of the cache zeroed":
+                cache = dict(cache, k=cache["k"].clone(),
+                             v=cache["v"].clone())
+                cache["k"][:, :, :, :f] = 0
+                cache["v"][:, :, :, :f] = 0
+            c_step = lm.decode_step(dcfg, c_params,
+                                    prompts[:, LM_DECODE_FROM], cache,
+                                    f + LM_DECODE_FROM)[0]
+        return torch.stack(steps, dim=1), sets_d, c_step
+
+    if routed:
+        c_params, c_what = without_shared_experts(params), ctrl_what
+        runs = {"free": False, "routing replayed": True}
+    else:
+        c_params, c_what = params, "the prefix rows of the cache zeroed"
+        runs = {"free": False}
+    dgates = {}
+    for name, replay in runs.items():
+        got, sets_d, c_step = decode_run(replay, c_params, c_what)
+        limit = NO_REPLAY_RMS if replay else NO_DECODE_RMS[label]
+        err = (got - full).abs().max()
+        same = got.argmax(-1) == full.argmax(-1)
+        top2 = full.topk(2, dim=-1).values
+        decisive = (top2[..., 0] - top2[..., 1]) > 2 * err
+        dgates[name] = {
+            "rms": rms_rel(got, full), "control": rms_rel(c_step, full[:, 0]),
+            "limit": limit, "max|diff|/max|forward|": rel_err(got, full),
+            "greedy agree": [int(same.sum()), same.numel()],
+            "decisive agree": [int(same[decisive].sum()),
+                               int(decisive.sum())]}
+        if routed and not replay:
+            dec = [torch.stack([sets_d[j * n + i].view(F_BATCH, k) for j in
+                                range(F_PROMPT - LM_DECODE_FROM)], dim=1)
+                   for i in range(n)]
+            flips = routing_flips(dec, [x[:, LM_DECODE_FROM:] for x in fwd])
+            print(f"{label} decode: share of (token, position) pairs whose "
+                  f"expert set differs from the forward's, layer by layer: "
+                  f"{json.dumps(flips)}")
+        del got, sets_d, c_step
+    note = (" (capacity_factor 15.0 = E / k on both sides, so no pair "
+            "drops)" if routed else "")
+    print(f"{label} decode: {F_PROMPT - LM_DECODE_FROM} steps after a "
+          f"{f}+{LM_DECODE_FROM}-position prefill against a "
+          f"{f}+{F_PROMPT}-position forward{note}, rms(diff) / rms(forward); "
+          f"control (one step, {c_what}): {json.dumps(dgates)}")
+    for name, g in dgates.items():
+        require(g["rms"] <= g["limit"], f"{label} ({name}): decode strays "
+                f"from forward ({g['rms']})")
+        require(g["control"] > g["limit"], f"{label} control ({name}): the "
+                f"decode limit accepted it ({g['control']})")
+    require(dgates["routing replayed" if routed else "free"][
+        "decisive agree"][0] == dgates["routing replayed" if routed
+                                       else "free"]["decisive agree"][1],
+            f"{label}: a decisive greedy token of decode differs from "
+            f"forward's")
+    del full, fwd, sets_f, c_params
+    torch.cuda.empty_cache()
+
+    # -- times ---------------------------------------------------------------
+    times = {"generate_s": t_run2,
+             "tokens_per_s": F_BATCH * F_NEW / t_run2,
+             "generate_s_run1": t_run1}
+    times["prefill_ms"] = time_ms(torch, lambda: lm.prefill(
+        cfg, params, prompts, cache_len, prefix_embeddings=prefix), 3,
+        warmup=1)
+    _, cache = lm.prefill(cfg, params, prompts, cache_len,
+                          prefix_embeddings=prefix)
+    token = toks[:, 0]
+    pos0 = f + F_PROMPT
+    times["decode_ms_per_token"] = time_ms(torch, lambda: lm.decode_step(
+        cfg, params, token, cache, pos0, return_attn_mass=not routed), 8)
+    times["decode_tokens_per_s"] = F_BATCH * 1e3 / times[
+        "decode_ms_per_token"]
+    times["decode_bound_ms"] = 1e3 * weights / HBM_BYTES_PER_S
+    if routed:
+        experts = sum(layer["moe"][n].numel() * layer["moe"][n].element_size()
+                      for layer in params["layers"]
+                      for n in ("w_gate", "w_up", "w_down"))
+        active = weights - experts * (1 - cfg.num_experts_per_tok
+                                      / cfg.num_experts)
+        times["decode_bound_ms_active_only"] = 1e3 * active / HBM_BYTES_PER_S
+    every = (", every expert (the batched products run all of them)"
+             if routed else "")
+    print(f"{label} times ({card_line()}; host clock to the end of device "
+          f"work for generate, CUDA events for prefill and decode; the "
+          f"decode bound is the bf16 weights read once at 3.35 TB/s"
+          f"{every}): {json.dumps(times)}")
+    print(f"{label} memory: weights {weights} bytes, held before run 2 "
+          f"{held}, peak in run 2 {peak}; run 2 tokens equal run 1's: "
+          f"{bool(torch.equal(out2['tokens'], toks))}")
+    print(f"{label} prefill under torch.profiler: " + json.dumps(profile_top(
+        torch, lambda: lm.prefill(cfg, params, prompts, cache_len,
+                                  prefix_embeddings=prefix), k=8)))
+    print(f"{label} decode step under torch.profiler: " + json.dumps(
+        profile_top(torch, lambda: lm.decode_step(
+            cfg, params, token, cache, pos0, return_attn_mass=not routed))))
+    del cache
+    if routed:
+        from repro_torch.models import layers as L
+
+        x = L.rmsnorm(params["layers"][0]["ln2"], torch.randn(
+            (F_BATCH, F_PROMPT, cfg.d_model), generator=gen, device="cuda"
+        ).to(torch.bfloat16), cfg.norm_eps)
+        split = moe_split(torch, cfg, params["layers"][0]["moe"], x)
+        print(f"{label} one MoE layer at the prefill's {F_BATCH * F_PROMPT} "
+              f"tokens, bf16 (ms, CUDA events): {json.dumps(split)}")
+        del x
+    del engine, params, prefix
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["times"] = times
     print(f"{label}: phase {time.perf_counter() - t0} s")
     return res
 
@@ -4649,6 +5226,16 @@ def run(torch, seed: int):
         for key, v in served_lm["launches"].items():
             main_launches[key] = main_launches.get(key, 0) + v
         for key, e in served_lm["err"].items():
+            errors[key] = max(errors[key], e)
+
+    # -- phases 19 and 20: serving qwen2-moe-a2.7b and internvl2-2b --------
+    for label, arch in (("N", "qwen2-moe-a2.7b"), ("O", "internvl2-2b")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        served_trunk = trunk_serving_phase(torch, seed, label, arch, reports)
+        for key, v in served_trunk["launches"].items():
+            main_launches[key] = main_launches.get(key, 0) + v
+        for key, e in served_trunk["err"].items():
             errors[key] = max(errors[key], e)
 
     out = []

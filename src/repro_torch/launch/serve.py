@@ -13,8 +13,14 @@ given; weights and prompts are random, from seeded generators.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --prompt-len 2048 --max-new 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \\
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \\
+      --evict --prompt-len 2048 --max-new 64
 
-It serves the dense GQA, SSM (mamba2) and hybrid (hymba) families.
+It serves every ported family (MLA waits for ROADMAP A12d).  A frontend
+model (internvl2, musicgen) gets ``synthetic_frontend_embeddings`` as its
+prefix, and its cache holds the prefix's positions too.
 """
 
 from __future__ import annotations
@@ -46,12 +52,14 @@ def main(argv=None) -> int:
         get_smoke_config,
     )
     from repro_torch.core.api import resolve_device
+    from repro_torch.models.frontends import synthetic_frontend_embeddings
     from repro_torch.models.lm import init_params
     from repro_torch.serve.engine import ServeEngine
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     dev = resolve_device(args.device)
-    cache_len = args.cache_len or (args.prompt_len + args.max_new + 8)
+    f = cfg.frontend_tokens if cfg.frontend else 0
+    cache_len = args.cache_len or (f + args.prompt_len + args.max_new + 8)
     sc = ServeConfig(
         seq_len=cache_len,
         batch=args.batch,
@@ -68,8 +76,9 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=gen, device=dev)
+    prefix = synthetic_frontend_embeddings(cfg, args.batch, device=dev)
     t0 = time.perf_counter()
-    out = engine.generate(prompts, args.max_new)
+    out = engine.generate(prompts, args.max_new, prefix_embeddings=prefix)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

@@ -13,7 +13,8 @@ from :class:`repro_torch.data.SyntheticTokenDataset`.
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
       --smoke --steps 4 --device cpu
 
-It trains the dense GQA, SSM and hybrid families.
+It trains every ported family (MLA waits for ROADMAP A12d); a frontend
+model's batches carry a ``"prefix"`` of synthetic embeddings.
 
 Failure drill: ``--inject-failure-at N`` raises before step N; the loop
 drains the checkpoint writer, restarts, restores the latest checkpoint
@@ -103,7 +104,9 @@ def train_loop(args: argparse.Namespace) -> Dict:
     step_fn = build_train_step(cfg, tc)
     dataset = SyntheticTokenDataset(
         vocab_size=cfg.vocab_size, seq_len=tc.seq_len,
-        global_batch=tc.global_batch, seed=tc.seed)
+        global_batch=tc.global_batch, seed=tc.seed,
+        prefix_tokens=cfg.frontend_tokens if cfg.frontend else 0,
+        d_model=cfg.d_model)
     ckpt = CheckpointManager(tc.checkpoint_dir, async_mode=tc.async_checkpoint)
 
     # restore-or-init (restart safety)

@@ -1,6 +1,6 @@
 """Shared functional layers: norms, RoPE, dense projections, SwiGLU, GQA.
 
-The port of ``repro.models.layers`` for the dense GQA family.  Every layer
+The port of ``repro.models.layers`` for the GQA families.  Every layer
 is an ``*_init`` plus an apply-style function over plain dicts of tensors.
 The reference keeps float32 master weights and casts them to the compute
 dtype at use; the port holds matrices in the compute dtype already (bf16
@@ -11,7 +11,7 @@ Attention has two modes sharing one set of weights: full-sequence
 (:func:`gqa_attention`, train / prefill, through the B8 kernel on the
 card) and single-token decode against a cache (:func:`gqa_decode`, plain
 PyTorch: the reference computes it with einsums, outside any Pallas
-kernel).  MLA waits for ROADMAP A12.
+kernel).  MLA waits for ROADMAP A12d.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ __all__ = [
 ]
 
 _NEG_INF = -1e30
-_MLA_REFUSAL = "MLA attention is not ported yet (ROADMAP A12)"
+_MLA_REFUSAL = "MLA attention is not ported yet (ROADMAP A12d)"
 
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:

@@ -1,6 +1,6 @@
 """LM assembly: init / forward / prefill / decode for the ported families.
 
-The port of ``repro.models.lm`` for three families:
+The port of ``repro.models.lm`` for these families:
 
 * ``dense`` with GQA attention (llama3.2-3b, qwen1.5-0.5b,
   command-r-plus-104b): RMSNorm, SwiGLU, RoPE, optional ``qkv_bias``,
@@ -12,28 +12,39 @@ The port of ``repro.models.lm`` for three families:
   d_model`` read the same normed input; their outputs are RMSNormed,
   scaled by float32 beta vectors and averaged.  Each layer has its own
   attention window (:func:`layer_windows`: global every
-  ``global_attn_every``-th layer, ``sliding_window`` elsewhere).
+  ``global_attn_every``-th layer, ``sliding_window`` elsewhere);
+* ``moe`` (qwen2-moe-a2.7b): GQA attention and a routed FFN
+  (:mod:`repro_torch.models.moe`) in every layer; with
+  ``moe_layer_period == 2`` (llama4) a step of two layers, a dense one
+  then a MoE one (``{"dense", "moe"}``, ``num_layers // 2`` steps, the
+  reference's scan steps);
+* ``vlm`` / ``audio`` (internvl2-2b, musicgen-medium): dense trunks that
+  take an optional prefix of frontend embeddings
+  (:mod:`repro_torch.models.frontends`), concatenated ahead of the token
+  embeddings.
 
 Every entry point (:func:`init_params`, :func:`forward`,
 :func:`make_decode_cache`, :func:`prefill`, :func:`decode_step`) takes
-all three.  On the card a prefill launches B8 once an attention layer and
+them all.  On the card a prefill launches B8 once an attention layer and
 B9 once an SSM block; decode launches neither (einsums and the one-step
-recurrence, as in the reference).  The reference carries the hybrid's
-windows as scanned data; here they are Python ints, so B8 takes every
-hybrid layer, windowed or global.
+recurrence, as in the reference), and the MoE dispatch has no kernel in
+either package.  The reference carries the hybrid's windows as scanned
+data; here they are Python ints, so B8 takes every hybrid layer, windowed
+or global.
 
 The reference's ``lax.scan`` over stacked layer parameters becomes a
 Python loop over a list of per-layer dicts; its ``remat`` wrapper of the
 scan body becomes a wrapper of each block (``train.train_step.make_remat``).
-MoE, MLA and the modality frontends raise ``NotImplementedError``
-(ROADMAP A12).
+MLA alone raises ``NotImplementedError`` (ROADMAP A12d).
 
 Parameters: ``{"embed": {"w"}, "layers": [layer, ...], "final_norm":
 {"scale"}, "lm_head": {"w"}}`` (no ``lm_head`` with tied embeddings); a
-dense layer is ``{"ln1", "attn", "mlp"[, "ln2"]}``, an SSM layer
-``{"ln", "ssm"}``, a hybrid layer ``{"ln1", "attn", "ssm", "norm_attn",
-"norm_ssm", "beta_attn", "beta_ssm", "ln2", "mlp"}``.  :func:`init_params`
-draws them from a seeded ``torch.Generator`` on the target device;
+dense layer is ``{"ln1", "attn", "mlp"[, "ln2"]}``, a MoE layer ``{"ln1",
+"attn", "ln2", "moe"}``, a period-2 step ``{"dense", "moe"}``, an SSM
+layer ``{"ln", "ssm"}``, a hybrid layer ``{"ln1", "attn", "ssm",
+"norm_attn", "norm_ssm", "beta_attn", "beta_ssm", "ln2", "mlp"}``.
+:func:`init_params` draws them from a seeded ``torch.Generator`` on the
+target device;
 :func:`repro_torch.models.interop.params_from_reference` carries the
 reference's parameters across.  Entry points run on the card unless the
 caller passes ``device="cpu"``.
@@ -48,6 +59,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 __all__ = [
@@ -62,19 +74,12 @@ __all__ = [
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what is not ported (ROADMAP A12): MoE, MLA and the modality
-    frontends."""
-    if cfg.uses_moe:
-        what = "MoE models"
-    elif cfg.attention_type == "mla":
-        what = "MLA attention"
-    elif cfg.frontend or cfg.family not in ("dense", "ssm", "hybrid"):
-        what = f"the {cfg.family} family (modality frontends)"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: {what} are not ported yet (ROADMAP A12); the port "
-        f"serves and trains the dense GQA, SSM and hybrid families")
+    """Refuse what is not ported: MLA attention (ROADMAP A12d)."""
+    if cfg.attention_type == "mla":
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention is not ported yet (ROADMAP A12d); "
+            f"the port serves and trains the dense GQA, MoE, frontend, SSM "
+            f"and hybrid families")
 
 
 def _layer_kind(cfg: ModelConfig) -> str:
@@ -83,7 +88,22 @@ def _layer_kind(cfg: ModelConfig) -> str:
         return "hybrid"
     if cfg.is_attention_free:
         return "ssm"
+    if cfg.uses_moe and cfg.moe_layer_period == 2:
+        return "moe_period2"
+    if cfg.uses_moe:
+        return "moe"
     return "dense"
+
+
+def _num_steps(cfg: ModelConfig) -> int:
+    """Entries of ``params["layers"]``: the reference's scan steps (two
+    layers a step for ``moe_period2``)."""
+    if _layer_kind(cfg) == "moe_period2":
+        if cfg.num_layers % 2:
+            raise ValueError(f"{cfg.name}: a period-2 interleave needs an "
+                             f"even layer count, not {cfg.num_layers}")
+        return cfg.num_layers // 2
+    return cfg.num_layers
 
 
 def layer_windows(cfg: ModelConfig, seq_len: int) -> Optional[List[int]]:
@@ -113,6 +133,20 @@ def _init_dense_layer(gen: torch.Generator, cfg: ModelConfig, dtype):
     return p
 
 
+def _init_moe_layer(gen: torch.Generator, cfg: ModelConfig, dtype):
+    return {
+        "ln1": L.rmsnorm_init(cfg.d_model, gen.device),
+        "attn": L.gqa_init(gen, cfg, dtype),
+        "ln2": L.rmsnorm_init(cfg.d_model, gen.device),
+        "moe": MOE.moe_init(gen, cfg, dtype),
+    }
+
+
+def _init_period2_step(gen: torch.Generator, cfg: ModelConfig, dtype):
+    return {"dense": _init_dense_layer(gen, cfg, dtype),
+            "moe": _init_moe_layer(gen, cfg, dtype)}
+
+
 def _init_ssm_layer(gen: torch.Generator, cfg: ModelConfig, dtype):
     return {
         "ln": L.rmsnorm_init(cfg.d_model, gen.device),
@@ -136,7 +170,8 @@ def _init_hybrid_layer(gen: torch.Generator, cfg: ModelConfig, dtype):
     }
 
 
-_INIT_LAYER = {"dense": _init_dense_layer, "ssm": _init_ssm_layer,
+_INIT_LAYER = {"dense": _init_dense_layer, "moe": _init_moe_layer,
+               "moe_period2": _init_period2_step, "ssm": _init_ssm_layer,
                "hybrid": _init_hybrid_layer}
 
 
@@ -144,9 +179,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
                 dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Random parameters from ``torch.Generator(device).manual_seed(seed)``.
 
-    Matrices are held in ``dtype`` (default: the compute dtype; the train
-    path asks for float32 masters), vectors (norm scales, the hybrid's
-    betas) and the SSM's ``conv_w`` in float32.  The draws differ from the
+    Matrices (the MoE router, expert stacks and shared gate included) are
+    held in ``dtype`` (default: the compute dtype; the train path asks for
+    float32 masters), vectors (norm scales, the hybrid's betas) and the
+    SSM's ``conv_w`` in float32.  The draws differ from the
     reference's ``jax.random``.
     """
     init_layer = _INIT_LAYER[_layer_kind(cfg)]
@@ -158,7 +194,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     params = {
         "embed": {"w": embed.to(dtype)},
         "layers": [init_layer(gen, cfg, dtype)
-                   for _ in range(cfg.num_layers)],
+                   for _ in range(_num_steps(cfg))],
         "final_norm": L.rmsnorm_init(cfg.d_model, dev),
     }
     if not cfg.tie_embeddings:
@@ -173,8 +209,15 @@ def _head_w(params, cfg: ModelConfig) -> torch.Tensor:
     return params["lm_head"]["w"]
 
 
-def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return L.cast(params["embed"]["w"][tokens.long()], cfg)
+def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
+           prefix_embeddings=None) -> torch.Tensor:
+    """Token embeddings in the compute dtype, behind the frontend prefix
+    (B, F, D) where one is given."""
+    x = L.cast(params["embed"]["w"][tokens.long()], cfg)
+    if prefix_embeddings is None:
+        return x
+    prefix = torch.as_tensor(prefix_embeddings, device=x.device)
+    return torch.cat([L.cast(prefix, cfg), x], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +233,18 @@ def _dense_block(cfg: ModelConfig, p, x: torch.Tensor, positions,
     x = x + a
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + L.mlp(p["mlp"], h, cfg), kv
+
+
+def _moe_block(cfg: ModelConfig, p, x: torch.Tensor, positions,
+               attn_impl: str):
+    """A MoE layer: ``(x, (k, v), aux)``."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, kv, _ = L.gqa_attention(p["attn"], h, cfg, positions,
+                               window=cfg.sliding_window, attn_impl=attn_impl)
+    x = x + a
+    y, aux = MOE.moe_apply(p["moe"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                           cfg)
+    return x + y, kv, aux
 
 
 def _ssm_block(cfg: ModelConfig, p, x: torch.Tensor):
@@ -227,36 +282,53 @@ def forward(
     attn_impl: str = "auto",
     remat: Optional[Callable] = None,
     return_hidden: bool = False,
+    prefix_embeddings: Optional[torch.Tensor] = None,   # (B, F, D)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns ``(logits (B, S, V) float32, aux)``; ``aux`` is the MoE
-    auxiliary loss of the reference, 0 for the ported families.
+    """Returns ``(logits (B, F + S, V) float32, aux)``; ``aux`` is the sum
+    of the MoE layers' auxiliary losses (0 without MoE layers).
 
-    ``remat`` wraps each block's function (the reference wraps its scan
-    body), e.g. in ``torch.utils.checkpoint``; ``return_hidden=True``
+    ``prefix_embeddings`` (a frontend's) go ahead of the token embeddings,
+    cast to the compute dtype.  ``remat`` wraps each block's function (the
+    reference wraps its scan body; here a period-2 step, both of its
+    layers), e.g. in ``torch.utils.checkpoint``; ``return_hidden=True``
     skips the LM head and returns the final-normed hidden states (the
     chunked loss applies the head per sequence chunk).  ``attn_impl`` goes
-    to the attention of dense and hybrid blocks.
+    to the attention of every block.
     """
     kind = _layer_kind(cfg)
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, prefix_embeddings)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    routed = kind in ("moe", "moe_period2")
     if kind == "ssm":
         def block(x, p, w):
             return _ssm_block(cfg, p, x)
     elif kind == "hybrid":
         def block(x, p, w):
             return _hybrid_block(cfg, p, x, positions, w, attn_impl)[0]
+    elif kind == "moe":
+        def block(x, p, w):
+            x, _, aux = _moe_block(cfg, p, x, positions, attn_impl)
+            return x, aux
+    elif kind == "moe_period2":
+        def block(x, p, w):
+            x, _ = _dense_block(cfg, p["dense"], x, positions, attn_impl)
+            x, _, aux = _moe_block(cfg, p["moe"], x, positions, attn_impl)
+            return x, aux
     else:
         def block(x, p, w):
             return _dense_block(cfg, p, x, positions, attn_impl)[0]
     if remat is not None:
         block = remat(block)
-    windows = layer_windows(cfg, s) or [None] * cfg.num_layers
-    for p, w in zip(params["layers"], windows):
-        x = block(x, p, w)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    windows = layer_windows(cfg, s) or [None] * len(params["layers"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, w in zip(params["layers"], windows):
+        if routed:
+            x, a = block(x, p, w)
+            aux = aux + a
+        else:
+            x = block(x, p, w)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if return_hidden:
         return x, aux
     logits = x @ L.cast(_head_w(params, cfg), cfg)
@@ -272,16 +344,18 @@ def make_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
                       dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
     """Zero-initialized decode cache sized for ``seq_len`` positions.
 
-    Dense and hybrid: ``k`` and ``v`` (layers, B, Hkv, seq_len, head_dim)
-    in ``dtype``.  SSM and hybrid: ``ssd`` (layers, B, H, P, N) float32
-    and ``conv`` (layers, B, conv - 1, d_inner + 2N) in ``dtype`` (a
-    prefill or decode step leaves ``conv`` in the compute dtype, as the
-    reference does)."""
+    Attention families (dense, MoE, frontend trunks, hybrid): ``k`` and
+    ``v`` (layers, B, Hkv, seq_len, head_dim) in ``dtype``; a period-2
+    model's layers in layer order (dense, MoE, dense, MoE, ...), as the
+    reference's reshape of its (steps, 2) stack leaves them.  SSM and
+    hybrid: ``ssd`` (layers, B, H, P, N) float32 and ``conv`` (layers, B,
+    conv - 1, d_inner + 2N) in ``dtype`` (a prefill or decode step leaves
+    ``conv`` in the compute dtype, as the reference does)."""
     kind = _layer_kind(cfg)
     dev = resolve_device(device)
     nl = cfg.num_layers
     cache: Dict[str, Any] = {}
-    if kind in ("dense", "hybrid"):
+    if kind != "ssm":
         shape = (nl, batch, cfg.num_kv_heads, seq_len, cfg.head_dim)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
@@ -303,24 +377,31 @@ def prefill(
     cache_len: int,
     cache_dtype=torch.bfloat16,
     attn_impl: str = "auto",
+    prefix_embeddings: Optional[torch.Tensor] = None,   # (B, F, D)
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Full-sequence pass that fills a decode cache of ``cache_len`` slots.
 
     Returns (last-position logits (B, V) float32, cache).  As in the
-    reference, prefill applies no ``logit_softcap``.  The SSM blocks run
-    ``ssm_prefill`` (B9 with the final state, once a block on the card);
-    ``attn_impl`` goes to the attention of dense and hybrid blocks.
+    reference, prefill applies no ``logit_softcap``.  A frontend prefix
+    takes the first F slots, so ``cache_len`` must hold F + S.  The SSM
+    blocks run ``ssm_prefill`` (B9 with the final state, once a block on
+    the card); ``attn_impl`` goes to every attention.
     """
     kind = _layer_kind(cfg)
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, prefix_embeddings)
     s = x.shape[1]
     if kind != "ssm" and s > cache_len:
-        raise ValueError(f"prompt of {s} tokens exceeds cache_len "
+        raise ValueError(f"prompt of {s} positions exceeds cache_len "
                          f"{cache_len}")
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    windows = layer_windows(cfg, s) or [None] * cfg.num_layers
+    windows = layer_windows(cfg, s) or [None] * len(params["layers"])
     cache = make_decode_cache(cfg, tokens.shape[0], cache_len, cache_dtype,
                               x.device)
+
+    def put(i, kv):
+        cache["k"][i, :, :, :s] = kv[0].to(cache_dtype)
+        cache["v"][i, :, :, :s] = kv[1].to(cache_dtype)
+
     states = []
     for i, (p, w) in enumerate(zip(params["layers"], windows)):
         if kind == "ssm":
@@ -331,16 +412,23 @@ def prefill(
             continue
         if kind == "hybrid":
             h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-            a, (k, v), _ = L.gqa_attention(p["attn"], h, cfg, positions,
-                                           window=w, attn_impl=attn_impl)
+            a, kv, _ = L.gqa_attention(p["attn"], h, cfg, positions,
+                                       window=w, attn_impl=attn_impl)
             out, state = SSM.ssm_prefill(p["ssm"], h, cfg,
                                          d_inner=cfg.d_model)
             x = _hybrid_out(cfg, p, x, a, out)
             states.append(state)
+        elif kind == "moe":
+            x, kv, _ = _moe_block(cfg, p, x, positions, attn_impl)
+        elif kind == "moe_period2":
+            x, kv = _dense_block(cfg, p["dense"], x, positions, attn_impl)
+            put(2 * i, kv)
+            x, kv, _ = _moe_block(cfg, p["moe"], x, positions, attn_impl)
+            put(2 * i + 1, kv)
+            continue
         else:
-            x, (k, v) = _dense_block(cfg, p, x, positions, attn_impl)
-        cache["k"][i, :, :, :s] = k.to(cache_dtype)
-        cache["v"][i, :, :, :s] = v.to(cache_dtype)
+            x, kv = _dense_block(cfg, p, x, positions, attn_impl)
+        put(i, kv)
     if states:
         cache["ssd"] = torch.stack([st.ssd for st in states])
         cache["conv"] = torch.stack([st.conv for st in states])
@@ -362,6 +450,39 @@ def _attn_probs_mass(q: torch.Tensor, kk: torch.Tensor, pos: int):
     return probs.sum(dim=(1, 2, 3))
 
 
+def _decode_attention(cfg: ModelConfig, p, x, cache, i: int, pos: int,
+                      window, mass: Optional[torch.Tensor]):
+    """The attention half of a dense or MoE layer at one decode step:
+    ``(h, a, mass)``, the layer's cache rows written in place; the layer's
+    attention mass is added to ``mass`` unless it is None."""
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    a, (nk, _) = L.gqa_decode(p["attn"], h, cfg,
+                              (cache["k"][i], cache["v"][i]), pos,
+                              window=window)
+    if mass is not None:
+        # recompute q for the mass (cheap: one token), as the reference
+        # does
+        q = L._split_heads(L.dense(p["attn"]["q"], h, cfg), cfg.num_heads,
+                           cfg.head_dim)
+        posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        q = L.apply_rope(q, posv, cfg.rope_theta)
+        mass = mass + _attn_probs_mass(q, nk, pos)
+    return h, a, mass
+
+
+def _decode_ffn(cfg: ModelConfig, p, x, h, a):
+    """The rest of a dense or MoE layer after its attention output ``a``."""
+    if "moe" in p:
+        x = x + a
+        y, _ = MOE.moe_apply(p["moe"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
+                             cfg)
+        return x + y
+    if cfg.parallel_block:
+        return x + a + L.mlp(p["mlp"], h, cfg)
+    x = x + a
+    return x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+
+
 def decode_step(
     cfg: ModelConfig,
     params: Dict[str, Any],
@@ -373,13 +494,14 @@ def decode_step(
     """One decode step. Returns (logits (B, V), cache, attn_mass (B, S)|None).
 
     ``attn_mass`` is the per-cache-position attention probability mass
-    summed over heads and averaged over layers: the importance score the
-    RMQ eviction manager indexes.  As in the reference, only dense layers
-    add to it: a hybrid model returns zeros of shape (B, S), and an SSM
-    model (no KV cache) None.  The new token's k / v are written into the
-    cache in place at ``pos`` and the same dict comes back; with SSM blocks
-    a new dict comes back, holding the same ``k`` / ``v`` and the new state
-    and conv tail as new tensors (``ssd`` float32, ``conv`` in the compute
+    summed over heads and averaged over the reference's scan steps: the
+    importance score the RMQ eviction manager indexes.  As in the
+    reference, only dense and MoE layers add to it: a period-2 (llama4) or
+    hybrid model returns zeros of shape (B, S), and an SSM model (no KV
+    cache) None.  The new token's k / v are written into the cache in
+    place at ``pos`` and the same dict comes back; with SSM blocks a new
+    dict comes back, holding the same ``k`` / ``v`` and the new state and
+    conv tail as new tensors (``ssd`` float32, ``conv`` in the compute
     dtype).
     """
     kind = _layer_kind(cfg)
@@ -389,7 +511,6 @@ def decode_step(
                        dtype=torch.float32, device=x.device)
     windows = layer_windows(cfg, 10 ** 9) or [cfg.sliding_window] * len(
         params["layers"])
-    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     states = []
     for i, (p, w) in enumerate(zip(params["layers"], windows)):
         if kind in ("ssm", "hybrid"):
@@ -408,23 +529,16 @@ def decode_step(
                                 window=w)
             x = _hybrid_out(cfg, p, x, a, out)
             continue
-        h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-        a, (nk, _) = L.gqa_decode(p["attn"], h, cfg,
-                                  (cache["k"][i], cache["v"][i]), pos,
-                                  window=w)
-        if return_attn_mass:
-            # recompute q for the mass (cheap: one token), as the
-            # reference does
-            q = L._split_heads(L.dense(p["attn"]["q"], h, cfg),
-                               cfg.num_heads, cfg.head_dim)
-            q = L.apply_rope(q, posv, cfg.rope_theta)
-            mass = mass + _attn_probs_mass(q, nk, pos)
-        if cfg.parallel_block:
-            x = x + a + L.mlp(p["mlp"], h, cfg)
-        else:
-            x = x + a
-            x = x + L.mlp(p["mlp"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
-                          cfg)
+        if kind == "moe_period2":
+            # the reference adds no mass for either half of the step
+            for j, half in enumerate((p["dense"], p["moe"])):
+                h, a, _ = _decode_attention(cfg, half, x, cache, 2 * i + j,
+                                            pos, None, None)
+                x = _decode_ffn(cfg, half, x, h, a)
+            continue
+        h, a, mass = _decode_attention(
+            cfg, p, x, cache, i, pos, w, mass if return_attn_mass else None)
+        x = _decode_ffn(cfg, p, x, h, a)
     if states:
         cache = dict(cache)
         cache["ssd"] = torch.stack([st.ssd for st in states])
@@ -434,5 +548,5 @@ def decode_step(
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     if return_attn_mass and s_cache:
-        return logits, cache, mass / cfg.num_layers
+        return logits, cache, mass / _num_steps(cfg)
     return logits, cache, None

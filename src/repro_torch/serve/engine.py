@@ -2,12 +2,15 @@
 
 The port of ``repro.serve.engine``: greedy decoding over a fixed batch,
 with RMQ-backed eviction when the per-sequence importance scores outgrow
-the budget.  It takes the dense, SSM (mamba2) and hybrid (hymba) families.
-Prefill runs B8 on the card once an attention layer and B9 once an SSM
-block; decode is plain PyTorch (the reference's decode attention is
-einsums and its SSM step a one-step recurrence).  An SSM model has no KV
-cache and adds no attention mass, a hybrid one adds zeros (as in the
-reference), so their eviction picks by position.  Eviction runs on
+the budget.  It takes every ported family: dense, MoE (qwen2-moe, the
+llama4 interleave), the frontend trunks (internvl2, musicgen; ``generate``
+takes their prefix embeddings), SSM (mamba2) and hybrid (hymba).  Prefill
+runs B8 on the card once an attention layer and B9 once an SSM block;
+decode is plain PyTorch (the reference's decode attention is einsums, its
+MoE dispatch gathers and einsums, and its SSM step a one-step
+recurrence).  An SSM model has no KV cache and adds no attention mass; a
+hybrid or period-2 MoE model adds zeros (as in the reference), so their
+eviction picks by position.  Eviction runs on
 the port's ``StreamingRMQ`` and engine (B3 / B6 / B5 / B4 on the card),
 or, with ``serving_tier=``, as the ``kv-eviction`` tenant of a
 :class:`repro_torch.serving.ServingTier` (its window batches coalesce
@@ -55,17 +58,25 @@ class ServeEngine:
         if self.eviction is not None and serving_tier is not None:
             self.eviction.attach_serving(serving_tier)
 
-    def generate(self, prompt_tokens: torch.Tensor,
-                 max_new_tokens: int) -> Dict[str, Any]:
+    def generate(self, prompt_tokens: torch.Tensor, max_new_tokens: int,
+                 prefix_embeddings: Optional[torch.Tensor] = None
+                 ) -> Dict[str, Any]:
         """Greedy tokens ``(B, max_new_tokens)``, the final live position
-        and the number of evicted cache slots."""
-        seq_len = self.sc.seq_len
+        and the number of evicted cache slots.
+
+        A frontend model's first position is ``frontend_tokens`` past the
+        prompt whether or not ``prefix_embeddings`` (B, F, D) are given,
+        as in the reference: without them decode attends the F zero slots
+        behind the prompt."""
+        cfg, seq_len = self.cfg, self.sc.seq_len
         prompt_tokens = torch.as_tensor(prompt_tokens, device=self.device)
         b, s_prompt = prompt_tokens.shape
-        logits, cache = prefill(self.cfg, self.params, prompt_tokens,
+        f = cfg.frontend_tokens if cfg.frontend else 0
+        logits, cache = prefill(cfg, self.params, prompt_tokens,
                                 cache_len=seq_len,
-                                cache_dtype=self.cache_dtype)
-        pos = s_prompt
+                                cache_dtype=self.cache_dtype,
+                                prefix_embeddings=prefix_embeddings)
+        pos = f + s_prompt
         token = torch.argmax(logits, dim=-1).to(torch.int32)
         out = [token]
         scores = torch.zeros((b, seq_len), dtype=torch.float32,
@@ -132,9 +143,10 @@ class ServeEngine:
             vict,
         ])
         new_live = live - int(vict.shape[0])
-        # only the KV cache has a position axis: an SSM state and conv tail
-        # stay as they are (an SSM model permutes nothing, yet its live
-        # count falls, as in the reference)
+        # only the KV cache has a position axis (axis 3, a period-2 model's
+        # layers included): an SSM state and conv tail stay as they are (an
+        # SSM model permutes nothing, yet its live count falls, as in the
+        # reference)
         new_cache = dict(cache)
         for key in ("k", "v"):
             if key in cache:

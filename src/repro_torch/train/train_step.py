@@ -131,43 +131,47 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig,
                      attn_impl: str = "auto"):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
-    ``batch``: ``{"tokens": (B, S) integer tensor}`` on the state's device.
+    ``batch``: ``{"tokens": (B, S) integer tensor}`` on the state's device,
+    and for a frontend model an optional ``"prefix"`` (B, F, D) of
+    embeddings.  A frontend model's loss skips its F prefix positions
+    (``prefix_len``), as the reference's does.  The minimized loss is the
+    next-token loss plus the MoE aux loss; the metrics report both.
     ``attn_impl`` goes to ``forward``.
     """
     remat = make_remat(tc.remat_policy)
-    if cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: frontend prefixes are not ported yet (ROADMAP A12)")
+    prefix_len = cfg.frontend_tokens if cfg.frontend else 0
     acc_dtype = getattr(torch, tc.grad_allreduce_dtype)
     compute = cdtype(cfg)
 
-    def loss_fn(params, tokens):
+    def loss_fn(params, tokens, prefix):
         params = cast_params(params, compute)
         out, aux = forward(cfg, params, tokens, attn_impl=attn_impl,
-                           remat=remat, return_hidden=tc.loss_chunk > 0)
+                           remat=remat, return_hidden=tc.loss_chunk > 0,
+                           prefix_embeddings=prefix)
         if tc.loss_chunk > 0:
             loss = chunked_next_token_loss(cfg, params, out, tokens,
+                                           prefix_len=prefix_len,
                                            chunk=tc.loss_chunk)
         else:
-            loss = next_token_loss(out, tokens)
+            loss = next_token_loss(out, tokens, prefix_len=prefix_len)
         return loss + aux, loss, aux
 
-    def single_micro(params, tokens):
+    def single_micro(params, tokens, prefix):
         """Gradients in ``acc_dtype`` (a tree like ``params``), loss, aux."""
         with torch.enable_grad():
             leaves = tree_map(lambda p: p.detach().requires_grad_(True),
                               params)
-            total, loss, aux = loss_fn(leaves, tokens)
+            total, loss, aux = loss_fn(leaves, tokens, prefix)
             flat = [t for _, t in leaves_with_path(leaves)]
             grads = iter(torch.autograd.grad(total, flat))
         grads = tree_map(lambda _: next(grads).to(acc_dtype), params)
         return grads, loss.detach(), aux.detach()
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        tokens = batch["tokens"]
+        tokens, prefix = batch["tokens"], batch.get("prefix")
         k = tc.microbatches
         if k == 1:
-            grads, loss, aux = single_micro(state.params, tokens)
+            grads, loss, aux = single_micro(state.params, tokens, prefix)
         else:
             b = tokens.shape[0]
             if b % k:
@@ -177,8 +181,11 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig,
                 p.shape, dtype=acc_dtype, device=p.device), state.params)
             loss = aux = torch.zeros((), dtype=torch.float32,
                                      device=tokens.device)
-            for t in tokens.reshape(k, b // k, *tokens.shape[1:]):
-                g, l_i, a_i = single_micro(state.params, t)
+            parts = (prefix.reshape(k, b // k, *prefix.shape[1:])
+                     if prefix is not None else [None] * k)
+            for t, pre in zip(tokens.reshape(k, b // k, *tokens.shape[1:]),
+                              parts):
+                g, l_i, a_i = single_micro(state.params, t, pre)
                 grads = tree_map(torch.add, grads, g)
                 loss, aux = loss + l_i, aux + a_i
             grads = tree_map(lambda g: g / k, grads)

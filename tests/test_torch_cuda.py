@@ -935,6 +935,103 @@ def test_hybrid_smoke_prefill_on_card(card, monkeypatch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("hq,hkv,s", [(16, 16, 2048), (16, 8, 2304)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_moe_and_prefix_geometries(card, hq, hkv, s, dtype):
+    """qwen2-moe-a2.7b's prefill attention (16 heads over 16 KV heads,
+    group 1, head dim 128, S 2048) and internvl2-2b's with its 256-position
+    prefix (16 over 8, S 2304)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    q, k, v = _attn_inputs(card, s + hkv, 1, hq, hkv, s, 128, dtype)
+    before = fa_ops.LAUNCHES.launches
+    got = fa_ops.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES.launches - before == 1
+    want = attention_ref(q, k, v)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b",
+                                  "llama4-maverick-400b-a17b",
+                                  "internvl2-2b", "musicgen-medium"])
+def test_moe_and_prefix_smoke_prefill_on_card(card, arch):
+    """A MoE or frontend smoke model's prefill on the card (with a prefix
+    where the model has a frontend) launches B8 once a layer and equals the
+    same model with ``attn_impl="ref"`` (1e-4: float32 on both sides, sums
+    in other orders); decode steps are finite and launch nothing."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import lm
+    from repro_torch.models.frontends import synthetic_frontend_embeddings
+
+    cfg = get_smoke_config(arch)
+    params = lm.init_params(cfg, seed=0, device=card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 200), device=card)
+    prefix = synthetic_frontend_embeddings(cfg, 2, device=card)
+    f = cfg.frontend_tokens if cfg.frontend else 0
+    fa0 = fa_ops.LAUNCHES.launches
+    logits, cache = lm.prefill(cfg, params, toks, 256 + f,
+                               cache_dtype=torch.float32,
+                               prefix_embeddings=prefix)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES.launches - fa0 == cfg.num_layers
+    want, plain = lm.prefill(cfg, params, toks, 256 + f,
+                             cache_dtype=torch.float32, attn_impl="ref",
+                             prefix_embeddings=prefix)
+    torch.testing.assert_close(logits, want, atol=1e-4, rtol=1e-4)
+    for key in ("k", "v"):
+        torch.testing.assert_close(cache[key], plain[key], atol=1e-4,
+                                   rtol=1e-4)
+    full, aux = lm.forward(cfg, params, toks, prefix_embeddings=prefix)
+    ref_full, ref_aux = lm.forward(cfg, params, toks, attn_impl="ref",
+                                   prefix_embeddings=prefix)
+    torch.testing.assert_close(full, ref_full, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux, ref_aux, atol=1e-4, rtol=1e-4)
+    assert full.shape[1] == f + 200
+    fa0 = fa_ops.LAUNCHES.launches
+    step, _, mass = lm.decode_step(cfg, params, toks[:, -1], cache, f + 200,
+                                   return_attn_mass=True)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES.launches == fa0
+    assert bool(torch.isfinite(step).all() and torch.isfinite(mass).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_top_k_ties_on_card_go_to_the_lower_expert(card, dtype):
+    """Router columns equal in pairs tie every token's probabilities
+    exactly; on CUDA tensors the lower expert index still comes first (the
+    order of ``jax.lax.top_k``), and ``moe_apply`` equals the same layer on
+    the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    g = torch.Generator(device="cpu").manual_seed(4)
+    p = moe.moe_init(g, cfg, torch.float32)
+    p["router"][:, 1::2] = p["router"][:, 0::2]
+    x = torch.randn((4096, cfg.d_model), generator=g)
+    routed = dataclasses.replace(cfg, dtype=str(dtype).split(".")[-1])
+    _, _, top_e = moe.route({"router": p["router"].to(card)},
+                            x.to(card, dtype), routed)
+    assert bool((top_e[:, 0] % 2 == 0).all())
+    assert torch.equal(top_e[:, 1], top_e[:, 0] + 1)
+    on_card = {k: (v.to(card) if torch.is_tensor(v) else
+                   {n: {m: w.to(card) for m, w in d.items()}
+                    for n, d in v.items()}) for k, v in p.items()}
+    got, aux = moe.moe_apply(on_card, x.to(card), cfg)
+    want, want_aux = moe.moe_apply(p, x, cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.gpu
 def test_serving_on_card_picks_the_plain_victims(card, monkeypatch):
     """ServeEngine on the card with eviction: every round's victims equal
     the plain (eager) manager's on the same scores and a brute-force

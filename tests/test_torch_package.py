@@ -67,6 +67,10 @@ SLICE_MODULES = [
     "repro_torch.serve.engine",
     "repro_torch.launch.serve",
     "repro_torch.configs.mamba2_1_3b",
+    "repro_torch.configs.qwen2_moe_a2_7b",
+    "repro_torch.configs.internvl2_2b",
+    "repro_torch.models.moe",
+    "repro_torch.models.frontends",
     "repro_torch.kernels.ssd_scan.ref",
     "repro_torch.kernels.ssd_scan.ops",
     "repro_torch.models.ssm",
