@@ -315,6 +315,31 @@ outside the repository.  Phases:
    position and evictions against the rule.  Times as N.
    Their launches are added to B8's row and, for O's eviction, B3-B6's.
 
+21. serving minicpm3-4b (P; run last): MLA at full width and depth (62
+   layers, d_model 2560, 40 heads, q / kv ranks 768 / 256, head dims 64 +
+   32 / 64, d_ff 6400, vocab 73448 padded to 73472, tied; 4,073,937,408
+   parameters), random bf16 weights from a seeded ``torch.Generator`` on
+   the card, through ``ServeEngine`` at F's shape with F's eviction
+   (budget 1590, 16 protected, c = 16, t = 4).  Its cache is the latent
+   and one shared rope key a position; its attention takes the
+   reference's plain route by shape (blocked at S 2048, dense at 2040; the
+   query head dim 96 against the value's 64 never reaches B8, which
+   launches 0 times), and its decode scores in latent space.  Gates: one
+   MLA layer in float32 at (4, 2048), the absorbed decode at 2040-2047 over
+   the cache the materialized attention filled against its rows (control:
+   the rope keys zeroed); the whole model's decode after a 2040-token
+   prefill against a 2048-token ``forward`` (control: the latent rows
+   zeroed), with the route each took read from the calls; every
+   eviction round's victims equal to the plain manager's (the scores are
+   zeros, as the reference's MLA adds no mass) and every kept position's
+   latent / rope rows moved to their new index bit for bit; the final
+   position and evictions against the rule (B3 / B6 / B5 launch as F's).
+   Times: prefill, decode a token and tokens/s beside the weight-read
+   bound, eviction rounds, peak memory, the cache's bytes beside per-head
+   K / V's, a ``torch.profiler`` top-8 of a prefill and top-5 of a decode
+   step, and one layer's plain attention against the prefill.
+   Its launches are added to B3's, B5's and B6's rows.
+
 Each phase sets every launch counter to 0 just before it drives its
 path and reads them just after.  The output ends with one
 ``{"kernels": [...]}`` line (per kernel: its launches on its phase's
@@ -3471,9 +3496,9 @@ def expected_rounds(sc, new_tokens: int, start: int = F_PROMPT):
     return rounds, victims, pos
 
 
-def tree_bytes(tree) -> int:
-    """Bytes of every tensor in a tree of dicts and lists."""
-    total, stack = 0, [tree]
+def tree_tensors(tree):
+    """Every tensor in a tree of dicts and lists."""
+    stack = [tree]
     while stack:
         node = stack.pop()
         if isinstance(node, dict):
@@ -3481,8 +3506,12 @@ def tree_bytes(tree) -> int:
         elif isinstance(node, list):
             stack.extend(node)
         else:
-            total += node.numel() * node.element_size()
-    return total
+            yield node
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a tree of dicts and lists."""
+    return sum(t.numel() * t.element_size() for t in tree_tensors(tree))
 
 
 def serving_phase(torch, seed):
@@ -4941,6 +4970,364 @@ def trunk_serving_phase(torch, seed, label, arch, reports):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 21: serving minicpm3-4b (P), MLA on its latent cache
+# ---------------------------------------------------------------------------
+# One MLA layer in float32 at the prefill's shape: the absorbed decode over
+# the latent cache that mla_attention filled against the materialized
+# output's rows, max|diff| / max|materialized|.  The same products in other
+# orders and groupings (the K-half of kv_b folded into the query, the
+# output up-projected after the softmax), float32 throughout with TF32 off.
+MLA_LAYER_TOL = 1e-4
+# The whole model in bf16: decode after a 2040-token prefill against a
+# 2048-token forward at those positions, rms(diff) / rms(forward).  The
+# decode scores in latent space (float32 over the bf16 cache rows), the
+# forward on materialized bf16 K / V, so bf16 roundings differ at every
+# layer of 62 random-weight layers.
+MLA_DECODE_RMS = 0.1
+# the cache of minicpm3-4b at P's shape if it held per-head K (96) and V
+# (64) as GQA does: 62 layers x batch 4 x 40 heads x 2120 slots x 160 x 2 B
+P_GQA_CACHE_BYTES = 6_729_728_000
+
+
+def mla_layer_gate(torch, seed, cfg):
+    """One MLA layer in float32 at (4, 2048): ``mla_decode`` over a cache
+    that ``mla_attention`` filled (rows 0..2039), at positions 2040-2047,
+    against the materialized output's rows; control: the cache's rope keys
+    zeroed.  Returns the reading."""
+    import dataclasses
+
+    from repro_torch.models import layers as L
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 60)
+    p = L.mla_init(gen, cfg32, torch.float32)
+    x = torch.randn((F_BATCH, F_PROMPT, cfg.d_model), generator=gen,
+                    device="cuda")
+    positions = torch.arange(F_PROMPT, dtype=torch.int32, device="cuda")
+    full, (lat, rope), _ = L.mla_attention(p, x, cfg32, positions)
+    want = full[:, LM_DECODE_FROM:]
+    reading = {}
+    for what in ("absorbed decode", "control: c_rope zeroed"):
+        c_lat = torch.zeros((F_BATCH, F_PROMPT + 8, cfg.kv_lora_rank),
+                            device="cuda")
+        c_rope = torch.zeros((F_BATCH, F_PROMPT + 8, cfg.qk_rope_head_dim),
+                             device="cuda")
+        c_lat[:, :LM_DECODE_FROM] = lat[:, :LM_DECODE_FROM]
+        c_rope[:, :LM_DECODE_FROM] = rope[:, :LM_DECODE_FROM]
+        if what.startswith("control"):
+            c_rope.zero_()
+        rows = [L.mla_decode(p, x[:, pos:pos + 1], cfg32, (c_lat, c_rope),
+                             pos)[0] for pos in range(LM_DECODE_FROM,
+                                                      F_PROMPT)]
+        reading[what] = rel_err(torch.cat(rows, dim=1), want)
+    route = L.mla_route(F_PROMPT, on_card=True)
+    print(f"P one MLA layer, float32 at ({F_BATCH}, {F_PROMPT}) (the "
+          f"materialized attention on the {route!r} route): decode at "
+          f"{LM_DECODE_FROM}-{F_PROMPT - 1} over the latent cache against "
+          f"the materialized rows, max|diff| / max|materialized| (limit "
+          f"{MLA_LAYER_TOL}): {json.dumps(reading)}")
+    require(reading["absorbed decode"] <= MLA_LAYER_TOL,
+            f"P: the absorbed decode strays from the materialized attention "
+            f"({reading['absorbed decode']})")
+    require(reading["control: c_rope zeroed"] > MLA_LAYER_TOL,
+            "P control: the layer limit accepted a decode without its rope "
+            "keys")
+    return reading["absorbed decode"]
+
+
+@contextlib.contextmanager
+def attention_routes(log):
+    """Counts the plain attentions MLA calls (``blocked`` / ``ref``) into
+    ``log`` while the block runs."""
+    from repro_torch.models import layers as L
+
+    orig = {"blocked": L.blocked_attention, "ref": L.attention_ref}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            log[name] = log.get(name, 0) + 1
+            return orig[name](*args, **kwargs)
+        return call
+
+    L.blocked_attention, L.attention_ref = counted("blocked"), counted("ref")
+    try:
+        yield log
+    finally:
+        L.blocked_attention, L.attention_ref = orig["blocked"], orig["ref"]
+
+
+def attention_split(torch, cfg, params, prompts):
+    """One layer's plain MLA attention (the blocked route at S 2048, bf16)
+    against the whole layer, CUDA events: the attention's share of a
+    prefill is the layers times it over the prefill."""
+    from repro_torch.models import layers as L
+
+    p = params["layers"][0]
+    x = L.cast(params["embed"]["w"][prompts.long()], cfg)
+    h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    positions = torch.arange(F_PROMPT, dtype=torch.int32, device="cuda")
+    q, k, v, _, _ = L._mla_qkv(p["attn"], h, cfg, positions)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out = {
+        "attention_ms": time_ms(torch, lambda: L.blocked_attention(
+            q, k, v, scale=scale), 5),
+        "attention_ms_dense_route": time_ms(torch, lambda: L.attention_ref(
+            q, k, v, scale=scale), 3, warmup=1),
+        "mla_attention_ms": time_ms(torch, lambda: L.mla_attention(
+            p["attn"], h, cfg, positions), 5),
+        "mlp_ms": time_ms(torch, lambda: L.mlp(p["mlp"], h, cfg), 5),
+    }
+    # the attention's products over the full masked square, float32
+    out["attention_flop"] = 2 * F_BATCH * cfg.num_heads * F_PROMPT ** 2 * (
+        q.shape[-1] + v.shape[-1])
+    del q, k, v, x, h
+    return out
+
+
+def mla_serving_phase(torch, seed):
+    """Phase 21 (P): minicpm3-4b at full width and depth through
+    ServeEngine with F's eviction; MLA's attention takes the plain route
+    (no B8), the eviction B3 / B6 / B5."""
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.eviction import RMQEvictionManager
+
+    cfg = get_config("minicpm3-4b")
+    cache_len = F_PROMPT + F_NEW + 8
+    sc = ServeConfig(seq_len=cache_len, batch=F_BATCH,
+                     kv_cache_dtype="bfloat16", eviction_enabled=True,
+                     eviction_budget=cache_len * 3 // 4, eviction_window=16,
+                     rmq_chunk=16, rmq_threshold=4)
+    t0 = time.perf_counter()
+    res = {}
+    layer_err = mla_layer_gate(torch, seed, cfg)
+
+    # -- the main path: ServeEngine.generate, counted -----------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, t_init = wall(torch, lambda: lm.init_params(
+        cfg, seed=seed, device="cuda"))
+    weights = tree_bytes(params)
+    n_params = sum(t.numel() for t in tree_tensors(params))
+    require(n_params == 4_073_937_408, f"P: the model holds {n_params} "
+            f"parameters, not minicpm3-4b's 4,073,937,408")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (F_BATCH, F_PROMPT),
+                            generator=gen, device="cuda")
+    engine = ServeEngine(cfg, params, sc)
+    print(f"P: {cfg.name}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads, MLA ranks q {cfg.q_lora_rank} / kv "
+          f"{cfg.kv_lora_rank}, head dims {cfg.qk_nope_head_dim} + "
+          f"{cfg.qk_rope_head_dim} / {cfg.v_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size} (padded {cfg.padded_vocab}), tied; {n_params} "
+          f"parameters, bf16 weights {weights} bytes made in {t_init} s; "
+          f"batch {F_BATCH}, prompt {F_PROMPT}, {F_NEW} new tokens, cache "
+          f"{cache_len}; budget {sc.eviction_budget}, protected "
+          f"{sc.eviction_window}, c {sc.rmq_chunk}, t {sc.rmq_threshold}")
+
+    rounds, moved, stages = [], [], []
+    orig_plan = RMQEvictionManager.plan_evictions_streaming
+    orig_evict = ServeEngine._evict
+
+    def plan(self, index, scores, live):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        index, victims = orig_plan(self, index, scores, live)
+        torch.cuda.synchronize()
+        stages[-1].append(time.perf_counter() - t1)
+        if len(stages) == 1:
+            rounds.append((scores.clone(), live, victims.clone()))
+        return index, victims
+
+    def evict(self, cache, scores, victims, live):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = orig_evict(self, cache, scores, victims, live)
+        torch.cuda.synchronize()
+        stages[-1][-1] += time.perf_counter() - t1
+        if len(stages) == 1:
+            # a kept position's rows before the round equal its rows at
+            # their new index after it (int16 views: bits, not values)
+            gone = set(victims.tolist())
+            kept = torch.tensor([i for i in range(live) if i not in gone],
+                                device="cuda")
+            moved.append(all(
+                torch.equal(out[0][key][:, :, :kept.numel()].view(
+                    torch.int16), cache[key][:, :, kept].view(torch.int16))
+                for key in ("latent", "rope")))
+        return out
+
+    RMQEvictionManager.plan_evictions_streaming = plan
+    ServeEngine._evict = evict
+    try:
+        stages.append([])
+        out1, t_run1, pre, rest = served_launches(torch, engine, prompts)
+        stages.append([])
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out2, t_run2 = wall(torch, lambda: engine.generate(prompts, F_NEW))
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        RMQEvictionManager.plan_evictions_streaming = orig_plan
+        ServeEngine._evict = orig_evict
+    want_rounds, want_evicted, want_pos = expected_rounds(sc, F_NEW)
+    levels = engine.eviction.make_index(cache_len,
+                                        device="cuda").plan.num_levels
+    expect("P prefill (flash_attention must stay 0: MLA takes the plain "
+           "route)", pre)
+    expect("P decode steps and eviction rounds", {
+        k: v for k, v in rest.items() if k not in ("rmq_short", "rmq_scan")},
+        hierarchy_build=levels - 1,
+        hierarchy_update=want_rounds * (levels - 1))
+    require(rest["rmq_short"] > 0, "P generate: rmq_short never ran")
+    toks = out1["tokens"]
+    require(toks.shape == (F_BATCH, F_NEW) and bool(
+        ((toks >= 0) & (toks < cfg.padded_vocab)).all()),
+        f"P generate: tokens {tuple(toks.shape)} out of range")
+    require(len(rounds) == want_rounds and out1["final_pos"] == want_pos
+            and out1["evicted"] == want_evicted,
+            f"P generate: {len(rounds)} rounds, final_pos "
+            f"{out1['final_pos']}, evicted {out1['evicted']}; the rule from "
+            f"position {F_PROMPT} says {want_rounds}, {want_pos}, "
+            f"{want_evicted}")
+    res["launches"] = {k: pre[k] + rest[k] for k in pre}
+    print(f"P generate: launches of the prefill {json.dumps(pre)}, of the "
+          f"{F_NEW - 1} decode steps and {len(rounds)} eviction rounds "
+          f"{json.dumps(rest)}; final_pos {out1['final_pos']}, evicted "
+          f"{out1['evicted']} (the rule from position {F_PROMPT}: "
+          f"{want_pos}, {want_evicted}, first round "
+          f"{int(rounds[0][2].numel())} victims)")
+
+    # -- every round's victims against the plain manager --------------------
+    plain = RMQEvictionManager(
+        budget=sc.eviction_budget, protected_window=sc.eviction_window,
+        c=sc.rmq_chunk, t=sc.rmq_threshold, backend="eager")
+    pidx = plain.make_index(cache_len, device="cuda")
+    same = 0
+    zero_scores = all(not bool(scores[:live].any())
+                      for scores, live, _ in rounds)
+    for scores, live, victims in rounds:
+        pidx, want = orig_plan(plain, pidx, scores, live)
+        same += int(want.shape == victims.shape and torch.equal(
+            want.to(torch.int64), victims.to(torch.int64)))
+    print(f"P eviction: victims equal to the plain manager's (backend "
+          f"eager, same scores, integer views) in {same}/{len(rounds)} "
+          f"rounds; the live scores all zero (MLA adds no mass, as in the "
+          f"reference): {zero_scores}; the latent / rope rows of every "
+          f"kept position moved to their new index bit for bit in "
+          f"{sum(moved)}/{len(moved)} rounds")
+    require(same == len(rounds), "P eviction: victims differ from the "
+            "plain manager's")
+    require(zero_scores, "P eviction: MLA's scores are not all zero")
+    require(len(moved) == len(rounds) and all(moved),
+            "P eviction: _evict did not carry the latent / rope rows")
+
+    # -- gate: decode steps against a forward at the same positions ---------
+    routes = {}
+    with attention_routes(routes.setdefault("forward 2048", {})):
+        full = lm.forward(cfg, params, prompts)[0][:, LM_DECODE_FROM:].clone()
+    torch.cuda.empty_cache()
+    with attention_routes(routes.setdefault(f"prefill {LM_DECODE_FROM}",
+                                            {})):
+        _, cache = lm.prefill(cfg, params, prompts[:, :LM_DECODE_FROM],
+                              cache_len)
+    steps = []
+    for pos in range(LM_DECODE_FROM, F_PROMPT):
+        if pos == LM_DECODE_FROM:
+            zeroed = {k: v.clone() for k, v in cache.items()}
+            zeroed["latent"][:, :, :LM_DECODE_FROM] = 0
+            ctrl = lm.decode_step(cfg, params, prompts[:, pos], zeroed,
+                                  pos)[0]
+            del zeroed
+        logits, cache, mass = lm.decode_step(cfg, params, prompts[:, pos],
+                                             cache, pos,
+                                             return_attn_mass=True)
+        require(mass is None, "P decode: MLA returned an attention mass")
+        steps.append(logits)
+    got = torch.stack(steps, dim=1)
+    drel, crel = rms_rel(got, full), rms_rel(ctrl, full[:, 0])
+    err = (got - full).abs().max()
+    same_tok = got.argmax(-1) == full.argmax(-1)
+    top2 = full.topk(2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]) > 2 * err
+    print(f"P decode: {F_PROMPT - LM_DECODE_FROM} steps after a "
+          f"{LM_DECODE_FROM}-token prefill against a {F_PROMPT}-token "
+          f"forward, rms(diff) / rms(forward) {drel} (limit "
+          f"{MLA_DECODE_RMS}; max|diff| / max|forward| {rel_err(got, full)})"
+          f"; control (one step, the cache's latent rows zeroed): {crel}; "
+          f"greedy tokens agree at {int(same_tok.sum())} of "
+          f"{same_tok.numel()} (at {int(same_tok[decisive].sum())} of "
+          f"{int(decisive.sum())} whose top-2 margin exceeds twice the "
+          f"largest difference); decode greedy {got.argmax(-1).tolist()}, "
+          f"forward greedy {full.argmax(-1).tolist()}; plain attention "
+          f"calls by route: {json.dumps(routes)}")
+    require(routes == {"forward 2048": {"blocked": cfg.num_layers},
+                       f"prefill {LM_DECODE_FROM}": {"ref": cfg.num_layers}},
+            f"P: MLA's attention took {routes}, not the reference's route "
+            f"by shape")
+    require(bool(torch.isfinite(got).all()), "P decode: logits not finite")
+    require(drel <= MLA_DECODE_RMS and bool(same_tok[decisive].all()),
+            f"P: decode strays from forward ({drel})")
+    require(crel > MLA_DECODE_RMS, f"P control: the decode limit accepted "
+            f"a cache without its latent rows ({crel})")
+    del full, got, steps, ctrl, cache
+    torch.cuda.empty_cache()
+
+    # -- times ---------------------------------------------------------------
+    times = {"generate_s": t_run2,
+             "tokens_per_s": F_BATCH * F_NEW / t_run2,
+             "generate_s_run1": t_run1}
+    times["prefill_ms"] = time_ms(torch, lambda: lm.prefill(
+        cfg, params, prompts, cache_len), 3, warmup=1)
+    _, cache = lm.prefill(cfg, params, prompts, cache_len)
+    token = toks[:, 0]
+    times["decode_ms_per_token"] = time_ms(torch, lambda: lm.decode_step(
+        cfg, params, token, cache, F_PROMPT, return_attn_mass=True), 8)
+    times["decode_tokens_per_s"] = F_BATCH * 1e3 / times[
+        "decode_ms_per_token"]
+    times["decode_bound_ms"] = 1e3 * weights / HBM_BYTES_PER_S
+    for name, st in (("run1", stages[0]), ("run2", stages[1])):
+        times[f"evict_ms_first_round_{name}"] = 1e3 * st[0]
+        times[f"evict_ms_per_later_round_{name}"] = 1e3 * sum(st[1:]) / max(
+            len(st) - 1, 1)
+    split = attention_split(torch, cfg, params, prompts)
+    split["attention_share_of_prefill"] = (
+        cfg.num_layers * split["attention_ms"] / times["prefill_ms"])
+    split["attention_tflops"] = (split["attention_flop"]
+                                 / split["attention_ms"] / 1e9)
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    print(f"P times ({card_line()}; host clock to the end of device work for "
+          f"generate and the eviction rounds, CUDA events for prefill and "
+          f"decode; the decode bound is the bf16 weights read once at 3.35 "
+          f"TB/s): {json.dumps(times)}")
+    print(f"P prefill attention ({card_line()}; CUDA events, one layer at "
+          f"({F_BATCH}, {F_PROMPT}), bf16 operands, float32 scores over the "
+          f"full masked square): {json.dumps(split)}")
+    print(f"P memory ({card_line()}): weights {weights} bytes, held before "
+          f"run 2 {held}, peak in run 2 {peak} ({peak - weights} over the "
+          f"weights); the latent cache (latent + rope) {cache_bytes} bytes "
+          f"against {P_GQA_CACHE_BYTES} for per-head K (96) and V (64) at "
+          f"the same shape; run 2 tokens equal run 1's: "
+          f"{bool(torch.equal(out2['tokens'], toks))}")
+    require(cache_bytes == 302_837_760, f"P: the latent cache holds "
+            f"{cache_bytes} bytes")
+    print(f"P prefill under torch.profiler ({card_line()}): " + json.dumps(
+        profile_top(torch, lambda: lm.prefill(cfg, params, prompts,
+                                              cache_len), k=8)))
+    print(f"P decode step under torch.profiler ({card_line()}): "
+          + json.dumps(profile_top(torch, lambda: lm.decode_step(
+              cfg, params, token, cache, F_PROMPT, return_attn_mass=True))))
+    del cache, engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["times"] = times
+    res["mla_layer_err"] = layer_err
+    print(f"P: phase {time.perf_counter() - t0} s")
+    return res
+
+
 def run(torch, seed: int):
     from repro_torch.core import build_hierarchy, make_plan, rmq_walk_batch
     from repro_torch.kernels.hierarchy_build.ops import (
@@ -5237,6 +5624,13 @@ def run(torch, seed: int):
             main_launches[key] = main_launches.get(key, 0) + v
         for key, e in served_trunk["err"].items():
             errors[key] = max(errors[key], e)
+
+    # -- phase 21: serving minicpm3-4b (MLA) ---------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    served_mla = mla_serving_phase(torch, seed)
+    for key, v in served_mla["launches"].items():
+        main_launches[key] = main_launches.get(key, 0) + v
 
     out = []
     for name, meta in KERNELS.items():

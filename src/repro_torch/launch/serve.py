@@ -17,8 +17,10 @@ given; weights and prompts are random, from seeded generators.
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \\
       --evict --prompt-len 2048 --max-new 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \\
+      --evict --prompt-len 2048 --max-new 64
 
-It serves every ported family (MLA waits for ROADMAP A12d).  A frontend
+It serves every family, MLA (minicpm3) on its latent cache.  A frontend
 model (internvl2, musicgen) gets ``synthetic_frontend_embeddings`` as its
 prefix, and its cache holds the prefix's positions too.
 """

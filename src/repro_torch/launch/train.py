@@ -12,9 +12,11 @@ from :class:`repro_torch.data.SyntheticTokenDataset`.
       --steps 5 --seq-len 2048 --global-batch 8 --remat full
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
       --smoke --steps 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm3-4b \\
+      --smoke --steps 2 --device cpu
 
-It trains every ported family (MLA waits for ROADMAP A12d); a frontend
-model's batches carry a ``"prefix"`` of synthetic embeddings.
+It trains every family; a frontend model's batches carry a ``"prefix"``
+of synthetic embeddings.
 
 Failure drill: ``--inject-failure-at N`` raises before step N; the loop
 drains the checkpoint writer, restarts, restores the latest checkpoint

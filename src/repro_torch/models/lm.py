@@ -5,7 +5,9 @@ The port of ``repro.models.lm`` for these families:
 * ``dense`` with GQA attention (llama3.2-3b, qwen1.5-0.5b,
   command-r-plus-104b): RMSNorm, SwiGLU, RoPE, optional ``qkv_bias``,
   ``parallel_block``, ``sliding_window`` and ``logit_softcap`` where the
-  reference has them;
+  reference has them; or with MLA (minicpm3-4b: latent attention on the
+  plain route the reference takes for it, an absorbed decode over a cache
+  of the latent and one shared rope key a position);
 * ``ssm`` (mamba2-1.3b): Mamba-2 blocks only, attention-free, through
   :mod:`repro_torch.models.ssm` and the SSD scan B9;
 * ``hybrid`` (hymba-1.5b): attention and a Mamba-2 block at ``d_inner =
@@ -25,24 +27,25 @@ The port of ``repro.models.lm`` for these families:
 
 Every entry point (:func:`init_params`, :func:`forward`,
 :func:`make_decode_cache`, :func:`prefill`, :func:`decode_step`) takes
-them all.  On the card a prefill launches B8 once an attention layer and
-B9 once an SSM block; decode launches neither (einsums and the one-step
-recurrence, as in the reference), and the MoE dispatch has no kernel in
-either package.  The reference carries the hybrid's windows as scanned
-data; here they are Python ints, so B8 takes every hybrid layer, windowed
-or global.
+them all.  On the card a prefill launches B8 once a GQA attention layer
+and B9 once an SSM block; decode launches neither (einsums and the
+one-step recurrence, as in the reference), and neither MLA's attention
+nor the MoE dispatch has a kernel in either package.  The reference
+carries the hybrid's windows as scanned data; here they are Python ints,
+so B8 takes every hybrid layer, windowed or global.
 
 The reference's ``lax.scan`` over stacked layer parameters becomes a
 Python loop over a list of per-layer dicts; its ``remat`` wrapper of the
 scan body becomes a wrapper of each block (``train.train_step.make_remat``).
-MLA alone raises ``NotImplementedError`` (ROADMAP A12d).
 
 Parameters: ``{"embed": {"w"}, "layers": [layer, ...], "final_norm":
 {"scale"}, "lm_head": {"w"}}`` (no ``lm_head`` with tied embeddings); a
-dense layer is ``{"ln1", "attn", "mlp"[, "ln2"]}``, a MoE layer ``{"ln1",
-"attn", "ln2", "moe"}``, a period-2 step ``{"dense", "moe"}``, an SSM
-layer ``{"ln", "ssm"}``, a hybrid layer ``{"ln1", "attn", "ssm",
-"norm_attn", "norm_ssm", "beta_attn", "beta_ssm", "ln2", "mlp"}``.
+dense layer is ``{"ln1", "attn", "mlp"[, "ln2"]}`` (an MLA ``attn`` is
+``{"q_a", "q_a_norm", "q_b", "kv_a", "kv_a_norm", "kv_b", "o"}``), a MoE
+layer ``{"ln1", "attn", "ln2", "moe"}``, a period-2 step ``{"dense",
+"moe"}``, an SSM layer ``{"ln", "ssm"}``, a hybrid layer ``{"ln1",
+"attn", "ssm", "norm_attn", "norm_ssm", "beta_attn", "beta_ssm", "ln2",
+"mlp"}``.
 :func:`init_params` draws them from a seeded ``torch.Generator`` on the
 target device;
 :func:`repro_torch.models.interop.params_from_reference` carries the
@@ -63,7 +66,6 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 __all__ = [
-    "check_supported",
     "decode_step",
     "forward",
     "init_params",
@@ -73,17 +75,7 @@ __all__ = [
 ]
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what is not ported: MLA attention (ROADMAP A12d)."""
-    if cfg.attention_type == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP A12d); "
-            f"the port serves and trains the dense GQA, MoE, frontend, SSM "
-            f"and hybrid families")
-
-
 def _layer_kind(cfg: ModelConfig) -> str:
-    check_supported(cfg)
     if cfg.family == "hybrid":
         return "hybrid"
     if cfg.is_attention_free:
@@ -123,9 +115,10 @@ def layer_windows(cfg: ModelConfig, seq_len: int) -> Optional[List[int]]:
 # Init
 # ---------------------------------------------------------------------------
 def _init_dense_layer(gen: torch.Generator, cfg: ModelConfig, dtype):
+    init_attn = L.mla_init if cfg.attention_type == "mla" else L.gqa_init
     p = {
         "ln1": L.rmsnorm_init(cfg.d_model, gen.device),
-        "attn": L.gqa_init(gen, cfg, dtype),
+        "attn": init_attn(gen, cfg, dtype),
         "mlp": L.mlp_init(gen, cfg, dtype),
     }
     if not cfg.parallel_block:
@@ -225,9 +218,16 @@ def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 def _dense_block(cfg: ModelConfig, p, x: torch.Tensor, positions,
                  attn_impl: str):
+    """A dense layer: ``(x, cache payload)``, the payload ``(k, v)`` for
+    GQA and ``(latent, k_rope)`` for MLA (whose attention takes no
+    ``attn_impl``, as in the reference)."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    a, kv, _ = L.gqa_attention(p["attn"], h, cfg, positions,
-                               window=cfg.sliding_window, attn_impl=attn_impl)
+    if cfg.attention_type == "mla":
+        a, kv, _ = L.mla_attention(p["attn"], h, cfg, positions)
+    else:
+        a, kv, _ = L.gqa_attention(p["attn"], h, cfg, positions,
+                                   window=cfg.sliding_window,
+                                   attn_impl=attn_impl)
     if cfg.parallel_block:
         return x + a + L.mlp(p["mlp"], h, cfg), kv
     x = x + a
@@ -344,10 +344,12 @@ def make_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
                       dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
     """Zero-initialized decode cache sized for ``seq_len`` positions.
 
-    Attention families (dense, MoE, frontend trunks, hybrid): ``k`` and
+    GQA attention families (dense, MoE, frontend trunks, hybrid): ``k`` and
     ``v`` (layers, B, Hkv, seq_len, head_dim) in ``dtype``; a period-2
     model's layers in layer order (dense, MoE, dense, MoE, ...), as the
-    reference's reshape of its (steps, 2) stack leaves them.  SSM and
+    reference's reshape of its (steps, 2) stack leaves them.  MLA:
+    ``latent`` (layers, B, seq_len, kv_lora_rank) and ``rope`` (layers, B,
+    seq_len, qk_rope_head_dim) in ``dtype``, and no ``k`` / ``v``.  SSM and
     hybrid: ``ssd`` (layers, B, H, P, N) float32 and ``conv`` (layers, B,
     conv - 1, d_inner + 2N) in ``dtype`` (a prefill or decode step leaves
     ``conv`` in the compute dtype, as the reference does)."""
@@ -355,7 +357,13 @@ def make_decode_cache(cfg: ModelConfig, batch: int, seq_len: int,
     dev = resolve_device(device)
     nl = cfg.num_layers
     cache: Dict[str, Any] = {}
-    if kind != "ssm":
+    if cfg.attention_type == "mla":
+        cache["latent"] = torch.zeros((nl, batch, seq_len, cfg.kv_lora_rank),
+                                      dtype=dtype, device=dev)
+        cache["rope"] = torch.zeros(
+            (nl, batch, seq_len, cfg.qk_rope_head_dim), dtype=dtype,
+            device=dev)
+    elif kind != "ssm":
         shape = (nl, batch, cfg.num_kv_heads, seq_len, cfg.head_dim)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
@@ -385,7 +393,8 @@ def prefill(
     reference, prefill applies no ``logit_softcap``.  A frontend prefix
     takes the first F slots, so ``cache_len`` must hold F + S.  The SSM
     blocks run ``ssm_prefill`` (B9 with the final state, once a block on
-    the card); ``attn_impl`` goes to every attention.
+    the card); ``attn_impl`` goes to every GQA attention.  An MLA model
+    fills ``latent`` / ``rope`` up to S and leaves the rest zero.
     """
     kind = _layer_kind(cfg)
     x = _embed(params, tokens, cfg, prefix_embeddings)
@@ -399,6 +408,10 @@ def prefill(
                               x.device)
 
     def put(i, kv):
+        if cfg.attention_type == "mla":
+            cache["latent"][i, :, :s] = kv[0].to(cache_dtype)
+            cache["rope"][i, :, :s] = kv[1].to(cache_dtype)
+            return
         cache["k"][i, :, :, :s] = kv[0].to(cache_dtype)
         cache["v"][i, :, :, :s] = kv[1].to(cache_dtype)
 
@@ -496,10 +509,11 @@ def decode_step(
     ``attn_mass`` is the per-cache-position attention probability mass
     summed over heads and averaged over the reference's scan steps: the
     importance score the RMQ eviction manager indexes.  As in the
-    reference, only dense and MoE layers add to it: a period-2 (llama4) or
-    hybrid model returns zeros of shape (B, S), and an SSM model (no KV
-    cache) None.  The new token's k / v are written into the cache in
-    place at ``pos`` and the same dict comes back; with SSM blocks a new
+    reference, only dense GQA and MoE layers add to it: a period-2 (llama4)
+    or hybrid model returns zeros of shape (B, S), and an SSM model (no KV
+    cache) or an MLA one (its cache has no ``k``) None.  The new token's
+    k / v (MLA: latent / rope) are written into the cache in place at
+    ``pos`` and the same dict comes back; with SSM blocks a new
     dict comes back, holding the same ``k`` / ``v`` and the new state and
     conv tail as new tensors (``ssd`` float32, ``conv`` in the compute
     dtype).
@@ -536,8 +550,14 @@ def decode_step(
                                             pos, None, None)
                 x = _decode_ffn(cfg, half, x, h, a)
             continue
-        h, a, mass = _decode_attention(
-            cfg, p, x, cache, i, pos, w, mass if return_attn_mass else None)
+        if cfg.attention_type == "mla":
+            h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
+            a, _ = L.mla_decode(p["attn"], h, cfg,
+                                (cache["latent"][i], cache["rope"][i]), pos)
+        else:
+            h, a, mass = _decode_attention(
+                cfg, p, x, cache, i, pos, w,
+                mass if return_attn_mass else None)
         x = _decode_ffn(cfg, p, x, h, a)
     if states:
         cache = dict(cache)

@@ -2,13 +2,14 @@
 
 The port of ``repro.serve.engine``: greedy decoding over a fixed batch,
 with RMQ-backed eviction when the per-sequence importance scores outgrow
-the budget.  It takes every ported family: dense, MoE (qwen2-moe, the
-llama4 interleave), the frontend trunks (internvl2, musicgen; ``generate``
-takes their prefix embeddings), SSM (mamba2) and hybrid (hymba).  Prefill
-runs B8 on the card once an attention layer and B9 once an SSM block;
-decode is plain PyTorch (the reference's decode attention is einsums, its
-MoE dispatch gathers and einsums, and its SSM step a one-step
-recurrence).  An SSM model has no KV cache and adds no attention mass; a
+the budget.  It takes every family: dense GQA, MLA (minicpm3), MoE
+(qwen2-moe, the llama4 interleave), the frontend trunks (internvl2,
+musicgen; ``generate`` takes their prefix embeddings), SSM (mamba2) and
+hybrid (hymba).  Prefill runs B8 on the card once a GQA attention layer
+and B9 once an SSM block (MLA's attention is plain, as the reference
+routes it); decode is plain PyTorch (the reference's decode attention is
+einsums, its MoE dispatch gathers and einsums, and its SSM step a
+one-step recurrence).  An SSM or MLA model adds no attention mass; a
 hybrid or period-2 MoE model adds zeros (as in the reference), so their
 eviction picks by position.  Eviction runs on
 the port's ``StreamingRMQ`` and engine (B3 / B6 / B5 / B4 on the card),
@@ -24,7 +25,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
-from repro_torch.models.lm import check_supported, decode_step, prefill
+from repro_torch.models.lm import decode_step, prefill
 from repro_torch.serve.eviction import RMQEvictionManager
 
 __all__ = ["ServeEngine"]
@@ -38,7 +39,6 @@ class ServeEngine:
         sc: ServeConfig,
         serving_tier: Optional[Any] = None,
     ):
-        check_supported(cfg)
         self.cfg = cfg
         self.params = params
         self.sc = sc
@@ -143,14 +143,16 @@ class ServeEngine:
             vict,
         ])
         new_live = live - int(vict.shape[0])
-        # only the KV cache has a position axis (axis 3, a period-2 model's
-        # layers included): an SSM state and conv tail stay as they are (an
-        # SSM model permutes nothing, yet its live count falls, as in the
-        # reference)
+        # only the attention caches have a position axis: axis 3 of k / v
+        # (a period-2 model's layers included), axis 2 of MLA's latent /
+        # rope.  An SSM state and conv tail stay as they are (an SSM model
+        # permutes nothing, yet its live count falls, as in the reference)
         new_cache = dict(cache)
-        for key in ("k", "v"):
-            if key in cache:
-                new_cache[key] = torch.index_select(cache[key], 3, keep_idx)
+        for keys, axis in ((("k", "v"), 3), (("latent", "rope"), 2)):
+            for key in keys:
+                if key in cache:
+                    new_cache[key] = torch.index_select(cache[key], axis,
+                                                        keep_idx)
         new_scores = torch.index_select(scores, 1, keep_idx)
         # stale rows past the live region must not carry scores
         new_scores = torch.where(

@@ -1071,6 +1071,145 @@ def test_serving_on_card_picks_the_plain_victims(card, monkeypatch):
         np.testing.assert_array_equal(victims.cpu().numpy(), brute)
 
 
+def _moved(tree, device):
+    """A tree of dicts and lists of tensors, copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _moved(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_moved(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _mla_model(card):
+    """minicpm3-smoke (float32) on the CPU and the same parameters on the
+    card."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import lm
+
+    cfg = get_smoke_config("minicpm3-4b")
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    return cfg, params, _moved(params, card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [200, 512])
+def test_mla_smoke_serving_on_card_matches_the_cpu(card, s):
+    """minicpm3-smoke's prefill (S 200: the dense route; S 512: the card's
+    blocked route, dense on the CPU) and three decode steps on CUDA
+    tensors equal the same model on the CPU (1e-4: float32 on both sides,
+    sums in other orders); MLA's decode returns no mass."""
+    from repro_torch.models import layers, lm
+
+    assert layers.mla_route(s, on_card=True) == ("blocked" if s == 512
+                                                 else "ref")
+    cfg, params, on_card = _mla_model(card)
+    toks = torch.randint(0, cfg.vocab_size, (2, s),
+                         generator=torch.Generator().manual_seed(s))
+    want, cache = lm.prefill(cfg, params, toks, s + 8,
+                             cache_dtype=torch.float32)
+    got, gcache = lm.prefill(cfg, on_card, toks.to(card), s + 8,
+                             cache_dtype=torch.float32)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    token = want.argmax(-1).to(torch.int32)
+    for pos in range(s, s + 3):
+        want, cache, mass = lm.decode_step(cfg, params, token, cache, pos,
+                                           return_attn_mass=True)
+        got, gcache, gmass = lm.decode_step(cfg, on_card, token.to(card),
+                                            gcache, pos,
+                                            return_attn_mass=True)
+        assert mass is None and gmass is None
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        token = want.argmax(-1).to(torch.int32)
+    for key in ("latent", "rope"):
+        torch.testing.assert_close(gcache[key].cpu(), cache[key], atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_mla_prefill_launches_no_flash_kernel(card):
+    """MLA's attention takes the plain route on the card (query head dim
+    24 against the value's 16): B8's counter stays 0 through a prefill, a
+    forward and a served generate with eviction."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg, _, on_card = _mla_model(card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 512), device=card)
+    before = fa_ops.LAUNCHES.launches
+    logits, _ = lm.prefill(cfg, on_card, toks, 520)
+    full, _ = lm.forward(cfg, on_card, toks)
+    sc = ServeConfig(seq_len=96, batch=2, kv_cache_dtype="float32",
+                     eviction_enabled=True, eviction_budget=48,
+                     eviction_window=16, rmq_chunk=16, rmq_threshold=4)
+    out = ServeEngine(cfg, on_card, sc).generate(toks[:, :40], 48)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES.launches == before
+    assert bool(torch.isfinite(logits).all() and torch.isfinite(full).all())
+    assert out["evicted"] > 0 and out["tokens"].device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_mla_evict_permutes_the_latent_cache_on_card(card):
+    """``_evict`` on CUDA ``latent`` / ``rope`` moves their rows along axis
+    2 as it does on the CPU, bit for bit."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg, params, on_card = _mla_model(card)
+    sc = ServeConfig(seq_len=48, batch=2, kv_cache_dtype="float32",
+                     eviction_enabled=True, eviction_budget=24,
+                     eviction_window=4, rmq_chunk=4, rmq_threshold=2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 30),
+                         generator=torch.Generator().manual_seed(5))
+    _, cache = lm.prefill(cfg, params, toks, 48, cache_dtype=torch.float32)
+    scores = torch.rand((2, 48), generator=torch.Generator().manual_seed(6))
+    victims = torch.tensor([3, 9, 17], dtype=torch.int32)
+    want, wscores, wlive = ServeEngine(cfg, params, sc)._evict(
+        cache, scores, victims, 30)
+    got, gscores, glive = ServeEngine(cfg, on_card, sc)._evict(
+        {k: v.to(card) for k, v in cache.items()}, scores.to(card),
+        victims.to(card), 30)
+    assert glive == wlive == 27
+    for key in ("latent", "rope"):
+        assert got[key].device.type == "cuda"
+        _same_bits(got[key].cpu(), want[key])
+    _same_bits(gscores.cpu(), wscores)
+
+
+@pytest.mark.gpu
+def test_mla_decode_matches_the_materialized_attention_on_card(card):
+    """float32 on the card: the absorbed decode at positions 504-511 over
+    the cache that ``mla_attention`` filled equals the materialized
+    output's rows (within 1e-5 of max|materialized|); with the cache's rope
+    keys zeroed (the control) it is off by more than 1e-2 of it."""
+    from repro_torch.models import layers
+
+    cfg, _, on_card = _mla_model(card)
+    p = on_card["layers"][1]["attn"]
+    g = torch.Generator(device=card).manual_seed(9)
+    x = torch.randn((2, 512, cfg.d_model), generator=g, device=card)
+    full, (lat, rope), _ = layers.mla_attention(
+        p, x, cfg, torch.arange(512, dtype=torch.int32, device=card))
+    scale = float(full.abs().max())
+    errs = []
+    for zero_rope in (False, True):
+        c_lat = torch.zeros((2, 520, cfg.kv_lora_rank), device=card)
+        c_rope = torch.zeros((2, 520, cfg.qk_rope_head_dim), device=card)
+        c_lat[:, :504], c_rope[:, :504] = lat[:, :504], rope[:, :504]
+        if zero_rope:
+            c_rope.zero_()
+        rows = [layers.mla_decode(p, x[:, pos:pos + 1], cfg,
+                                  (c_lat, c_rope), pos)[0]
+                for pos in range(504, 512)]
+        errs.append(float((torch.cat(rows, dim=1)
+                           - full[:, 504:]).abs().max()))
+    assert errs[0] <= 1e-5 * scale
+    assert errs[1] > 1e-2 * scale
+
+
 # ---------------------------------------------------------------------------
 # B9: the SSD chunk scan.  The kernel and the plain chunked version compute
 # the same chunk algebra at float32 accuracy with sums in other orders

@@ -177,32 +177,6 @@ def test_init_params_is_seeded_and_shaped():
     assert a["embed"]["w"].shape == (cfg.padded_vocab, cfg.d_model)
 
 
-REFUSED = ["minicpm3-4b"]
-
-
-@pytest.mark.parametrize("arch", REFUSED)
-def test_other_families_are_refused(arch):
-    """Every entry point refuses MLA, the one family left to port (MoE and
-    the frontends: tests/test_torch_moe.py, tests/test_torch_frontends.py)."""
-    cfg = get_smoke_config(arch)
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    calls = [
-        lambda: lm.prefill(cfg, {}, toks, 8),
-        lambda: lm.decode_step(cfg, {}, toks[:, 0], {}, 4),
-        lambda: lm.make_decode_cache(cfg, 1, 8, device="cpu"),
-        lambda: lm.init_params(cfg, device="cpu"),
-        lambda: lm.forward(cfg, {}, toks),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="A12"):
-            call()
-
-
-def test_mla_layer_is_refused():
-    with pytest.raises(NotImplementedError, match="A12"):
-        layers.mla_init(None, get_smoke_config("minicpm3-4b"))
-
-
 def test_long_prefill_matches_reference(models):
     """S = 2048: both packages take their blocked attention off the TPU."""
     rcfg, rparams, cfg, params = models["llama"]

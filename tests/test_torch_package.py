@@ -69,6 +69,7 @@ SLICE_MODULES = [
     "repro_torch.configs.mamba2_1_3b",
     "repro_torch.configs.qwen2_moe_a2_7b",
     "repro_torch.configs.internvl2_2b",
+    "repro_torch.configs.minicpm3_4b",
     "repro_torch.models.moe",
     "repro_torch.models.frontends",
     "repro_torch.kernels.ssd_scan.ref",
