@@ -340,6 +340,51 @@ outside the repository.  Phases:
    step, and one layer's plain attention against the prefill.
    Its launches are added to B3's, B5's and B6's rows.
 
+22. the segment-sharded index (Q; run after P, with the earlier phases'
+   tensors freed): a NCCL group of world size 1 from a ``FileStore`` in a
+   temporary directory (its backend printed) behind a (2, 4) ("data",
+   "model") mesh.  Q1: n = 2^32 - 777 float32 uniform [0, 1) made on the
+   card in blocks from the seed, with planted values across the three
+   segment boundaries (equal minima -1.0 on both sides of the first,
+   -0.0 left of +0.0 at the second, a NaN with its own payload on each
+   side of the third); ``DistributedRMQ.build`` at capacity 2^32 (four
+   segments of 2^30, 16 GiB of level 0; c = 128, t = 64, positions) on
+   ``fused`` (one B1 launch over the four rows) and ``cuda`` (B3, three
+   launches a segment), then the input freed; 2^24 ``make_queries``
+   "mixed" spans (int64) through ``query`` and ``query_index`` on both
+   (four B2 launches and one combine a batch; four B4 launches a plane)
+   and the contained spans through ``_query_grouped`` (four B2 launches,
+   no combine, no collective); an update of 2^16 random indices with
+   duplicates (B6, three launches a segment) and an append of 777 values
+   into the last segment (three).  Gates, each with a control that must
+   fail it: every segment's planes from B1 and B3 against the plain
+   build of that segment on the card (control: the neighbouring
+   segment's); every answer of the 2^24 batch from ``fused``, ``cuda``
+   and the grouped path against the ``eager`` index on the same planes,
+   as integer views, positions int64; 256 sampled spans and the three
+   planted ones against ``torch.min`` and the first ``torch.argmin`` over
+   the flattened level 0 (control: the same combine with ties to the
+   rightmost segment, which must fail each planted span); the successor
+   against plain builds of the updated data (control: the predecessor,
+   which must differ from them) and the predecessor against the ``cuda``
+   twin, unchanged; the append against a plain build of the last
+   segment; ``QueryEngine`` refusing capacity 2^32.  Q2: the same mesh
+   over A's data (four segments of 2^28), 2^20 of A's spans through
+   ``engine.query``, ``query_index``, ``query_bulk`` (both ops,
+   ``bulk_crossover=2**20``) and, after an update of 2^16 and
+   ``attach``, ``query`` / ``query_index`` again, every answer against
+   ``d.query`` and the single-device ``RMQ`` at A bit for bit; both
+   classes non-zero; three collectives for each combine, so the grouped
+   batches called none.  Times (CUDA events, warmed up, beside the card's
+   name and power limit): B1 over the four rows and B3's twelve launches
+   beside four times A's bound, the build's rows copy; the monolithic
+   ``query_index`` split into the four B2 kernels, the segment answers
+   (the kernels with the clipping and keys) and the combine (three NCCL
+   ``all_reduce``); the contained spans grouped against monolithic; the
+   update call and its successor copies; the engine's wall time per 2^20
+   spans; ``memory_bytes_per_device`` and the peak device memory.  Q's
+   launches are added to the B1-B4 and B6 rows.
+
 Each phase sets every launch counter to 0 just before it drives its
 path and reads them just after.  The output ends with one
 ``{"kernels": [...]}`` line (per kernel: its launches on its phase's
@@ -5328,6 +5373,460 @@ def mla_serving_phase(torch, seed):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 22 (Q): the segment-sharded index
+# ---------------------------------------------------------------------------
+Q_N, Q_CAP = (1 << 32) - 777, 1 << 32   # Q1: four segments of 2^30
+Q_M, Q_UPDATE, Q_APPEND = 1 << 24, 1 << 16, 777
+Q2_N, Q2_M = 1 << 30, 1 << 20             # Q2: A's data, the engine
+Q_GEO = dict(c=128, t=64, with_positions=True)
+Q_DEVICE, Q_GROUP = "cuda", "nccl"
+
+
+def process_group(torch):
+    """A NCCL group of world size 1, started from a ``FileStore`` in a
+    temporary directory (no socket): ``(group, directory)``."""
+    import torch.distributed as dist
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_q_")
+    extra = ({"device_id": torch.device("cuda", 0)} if Q_GROUP == "nccl"
+             else {})
+    dist.init_process_group(
+        Q_GROUP, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+        rank=0, world_size=1, **extra)
+    return dist.group.WORLD, tmp
+
+
+def dist_counters():
+    from repro_torch.core import distributed as dm
+
+    return {"combines": dm.COMBINES, "collectives": dm.COLLECTIVES}
+
+
+def q_input(torch, n: int, seed: int):
+    """n float32 uniform [0, 1) from the seed, made on the card in
+    blocks of 2^28, with the planted boundary values of :func:`plant`."""
+    x = torch.empty(n, device=Q_DEVICE)
+    g = torch.Generator(device=Q_DEVICE).manual_seed(seed)
+    for s in range(0, n, 1 << 28):
+        x[s:s + (1 << 28)].uniform_(0, 1, generator=g)
+    return x
+
+
+def plant(torch, x, cap: int):
+    """Across the three boundaries: equal minima (-1.0) on both sides of
+    the first, -0.0 left of +0.0 at the second, a NaN on each side of the
+    third (their own payloads and signs).  Returns the planted spans."""
+    b1, b2, b3 = cap, 2 * cap, 3 * cap
+    x[b1 - 1] = x[b1] = -1.0
+    x[b2 - 1], x[b2] = -0.0, 0.0
+    x[b3 - 1:b3 + 1] = torch.tensor([0x7FC00011, -0x3FFFFE],
+                                    device=Q_DEVICE,
+                                    dtype=torch.int32).view(torch.float32)
+    return [(b - 5, b + 5) for b in (b1, b2, b3)]
+
+
+def flat_level0(torch, d):
+    """A fused build's level 0 as one flat view (its segments are the
+    rows of one tensor)."""
+    b0 = d.segments[0].base
+    cap = d.segment_capacity
+    for i, h in enumerate(d.segments):
+        require(h.base.data_ptr() == b0.data_ptr() + i * cap * 4,
+                "Q: the fused build's segments are not rows of one tensor")
+    return b0.as_strided((cap * len(d.segments),), (1,),
+                         b0.storage_offset())
+
+
+def slice_truth(torch, flat, l: int, r: int):
+    """``(value, position)`` of the span by ``torch.min`` and the first
+    ``torch.argmin`` over the flattened slice; the value is the entry's."""
+    span = flat[l:r + 1]
+    at = int(torch.argmin(span))
+    want = span[at]
+    m = torch.min(span)
+    require(bool(m.isnan()) == bool(want.isnan())
+            and (bool(m.isnan()) or bool(m == want)),
+            f"Q: torch.min and the first argmin disagree on ({l}, {r})")
+    return want, l + at
+
+
+def reversed_combine(torch, d, ls, rs):
+    """The control's combine: the least key, ties to the RIGHTMOST
+    segment."""
+    vals, keys, pos = d._segment_answers(ls, rs, True)
+    win = (keys.shape[0] - 1) - torch.argmin(keys.flip(0), dim=0,
+                                             keepdim=True)
+    return (as_bits(torch, vals).gather(0, win)[0].view(vals.dtype),
+            pos.gather(0, win)[0])
+
+
+def grouped_bounds(torch, d, ls, rs):
+    """The contained spans of a batch as ``(S, k)`` segment-local rows
+    (unused slots (0, 0)): ``(gl, gr, owner, slot, picked)`` where
+    ``picked`` indexes the contained spans in the batch."""
+    cap = d.segment_capacity
+    owner = ls // cap
+    picked = torch.nonzero(owner == rs // cap)[:, 0]
+    own = owner[picked]
+    order = torch.sort(own, stable=True)[1]
+    picked, own = picked[order], own[order]
+    counts = torch.bincount(own, minlength=d.num_segments)
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(own.numel(), device=own.device) - starts[own]
+    k = int(counts.max())
+    gl = torch.zeros((d.num_segments, k), dtype=torch.int32,
+                     device=Q_DEVICE)
+    gr = torch.zeros_like(gl)
+    gl[own, slot] = (ls[picked] - own * cap).to(torch.int32)
+    gr[own, slot] = (rs[picked] - own * cap).to(torch.int32)
+    return gl, gr, own, slot, picked
+
+
+def plane_pairs(got, want):
+    return [(got.base, want.base), (got.upper, want.upper),
+            (got.upper_pos, want.upper_pos)]
+
+
+def distributed_phase(torch, seed):
+    """Phase 22 (Q): DistributedRMQ on a (2, 4) ("data", "model") mesh
+    with a NCCL group of world size 1.  Q1: n = 2^32 - 777 float32,
+    capacity 2^32 (four segments of 2^30), both builds, 2^24 mixed spans
+    monolithic and grouped, an update of 2^16 and an append of 777; Q2:
+    the engine over A's data.  Returns the launches, errors and times."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t_phase = time.perf_counter()
+    group, tmp = process_group(torch)
+    try:
+        print(f"Q: process group backend {dist.get_backend(group)}, world "
+              f"{dist.get_world_size(group)} (FileStore in a temporary "
+              "directory)")
+        mesh = make_test_mesh((2, 4), ("data", "model"), device=Q_DEVICE,
+                              group=group)
+        q1 = q1_sharded(torch, seed, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        q2 = q2_engine(torch, seed, mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(q1["launches"])
+    for k, v in q2["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"Q done in {time.perf_counter() - t_phase} s; {card_line()}")
+    return {"launches": launches, "q1": q1, "q2": q2}
+
+
+def q1_sharded(torch, seed, mesh):
+    """Q1 at full size; the gates and their controls, then the times."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import DistributedRMQ, build_hierarchy
+    from repro_torch.core import distributed as dm
+    from repro_torch.core.hierarchy import build_many
+    from repro_torch.kernels.hierarchy_build.ops import (
+        build_hierarchy_percall,
+    )
+    from repro_torch.kernels.rmq_fused.ops import rmq_fused_batch
+    from repro_torch.qe import QueryEngine
+    from repro_torch.tune.measure import make_queries
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x = q_input(torch, Q_N, seed)
+    planted = plant(torch, x, Q_CAP // 4)
+    ls, rs = make_queries(Q_N, Q_M, "mixed", seed=seed + 1)
+    ls = torch.from_numpy(ls).to(Q_DEVICE)
+    rs = torch.from_numpy(rs).to(Q_DEVICE)
+    torch.cuda.synchronize()
+    print(f"Q1: n = {Q_N} float32 on the card, {Q_M} mixed spans "
+          f"({ls.dtype}), made in {time.perf_counter() - t0} s")
+    kw = dict(Q_GEO, capacity=Q_CAP)
+
+    # -- the main path, counted ---------------------------------------------
+    count = {**zero_counts(), **dist_counters()}
+    for k in dist_counters().values():
+        k.reset()
+    d = DistributedRMQ.build(x, mesh, backend="fused", **kw)
+    copy_ms = time_ms(torch, lambda: dm._local_rows(
+        x, 0, 4, d.segment_capacity), 3, warmup=1)
+    dc = DistributedRMQ.build(x, mesh, backend="cuda", **kw)
+    flat = flat_level0(torch, d)
+    require(same_bits(torch, [(flat[:Q_N], x)])
+            and bool((flat[Q_N:] == float("inf")).all()),
+            "Q1: level 0 is not the input followed by +inf")
+    del x
+    torch.cuda.empty_cache()
+    fv, fp = d.query(ls, rs), d.query_index(ls, rs)
+    cv, cp = dc.query(ls, rs), dc.query_index(ls, rs)
+    gl, gr, own, slot, picked = grouped_bounds(torch, d, ls, rs)
+    cnt0 = read(torch, count)
+    gv, gp = d._query_grouped(gl, gr, True)
+    grouped_counts = {k: v - cnt0[k] for k, v in read(torch, count).items()}
+    upd_g = torch.Generator(device=Q_DEVICE).manual_seed(seed + 7)
+    idx = torch.randint(0, Q_N, (Q_UPDATE,), device=Q_DEVICE,
+                        generator=upd_g)
+    idx[1::97] = idx[::97][:idx[1::97].numel()]  # duplicates, last wins
+    vals = torch.rand(Q_UPDATE, device=Q_DEVICE, generator=upd_g) - 0.5
+    d2 = d.update(idx, vals)
+    tail = torch.rand(Q_APPEND, device=Q_DEVICE, generator=upd_g) - 2.0
+    d3 = d2.append(tail)
+    launches = read(torch, count)
+    L = d.plan.num_levels
+    expect("Q1", {k: v for k, v in launches.items() if k in counters()},
+           hierarchy_fused=1, hierarchy_build=4 * (L - 1), rmq_fused=12,
+           rmq_scan=12, hierarchy_update=4 * (L - 1) + (L - 1))
+    require(launches["combines"] == 4 and launches["collectives"] == 12,
+            f"Q1: combines / collectives {launches}, want 4 / 12 (one "
+            "combine a monolithic batch, three all_reduce a combine)")
+    require(grouped_counts["rmq_fused"] == 4
+            and grouped_counts["combines"] == 0
+            and grouped_counts["collectives"] == 0,
+            f"Q1: the grouped batch counted {grouped_counts}; want 4 B2 "
+            "launches, no combine, no collective")
+    print(f"Q1 launches {launches} (grouped batch alone {grouped_counts}); "
+          f"levels {d.plan.level_lens}; memory_bytes_per_device "
+          f"{d.memory_bytes_per_device()}")
+
+    # -- gates: planes ----------------------------------------------------
+    plane_ok, control_hit = True, True
+    for i in range(4):
+        hp = build_hierarchy(d.segments[i].base, d.plan, True)
+        plane_ok &= same_bits(torch, plane_pairs(d.segments[i], hp))
+        plane_ok &= same_bits(torch, plane_pairs(dc.segments[i], hp))
+        if i:  # control: the neighbouring segment's plain build
+            control_hit &= not same_bits(torch, plane_pairs(
+                d.segments[i - 1], hp))
+        del hp
+    require(plane_ok, "Q1: a segment's planes (B1 rows or B3) differ from "
+            "the plain build of that segment")
+    require(control_hit, "Q1 control: a segment's planes matched the "
+            "neighbouring segment's plain build")
+
+    # -- gates: every answer against the eager index ----------------------
+    e = dataclasses.replace(dc, backend="eager")
+    t0 = time.perf_counter()
+    ev, ep = e._query(ls, rs, True)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    coord = torch.int64 if Q_CAP >= 1 << 31 else torch.int32
+    require(ep.dtype == coord and fp.dtype == coord,
+            f"Q1: global positions are {fp.dtype}, want {coord}")
+    pairs = [(fv, ev), (fp, ep), (cv, ev), (cp, ep),
+             (gv[own, slot], ev[picked]), (gp[own, slot], ep[picked])]
+    require(same_bits(torch, pairs), "Q1: fused / cuda / grouped answers "
+            "differ in bits from the eager DistributedRMQ")
+    # over the integer views: a fifth of the answers are NaN, which no
+    # float difference can compare
+    err = max_abs_err(torch, [(as_bits(torch, g), as_bits(torch, w))
+                              for g, w in pairs])
+    rv, rp = reversed_combine(torch, d, ls.long(), rs.long())
+    flipped = int((rp != ep).sum())
+    require(flipped > 0, "Q1 control: the rightmost-tie combine agreed "
+            "with the eager index on every span")
+    del rv, rp
+    nan_share = float(ev.isnan().float().mean())
+    print(f"Q1: {Q_M} answers of fused, cuda and grouped ({picked.numel()} "
+          f"contained) equal to eager bit for bit (eager batch {eager_s} s; "
+          f"NaN answers {nan_share}); control: the rightmost-tie combine "
+          f"moves {flipped} positions")
+
+    # -- gates: sampled and planted spans against torch.min / argmin ------
+    g = torch.Generator().manual_seed(seed)
+    sample = torch.randint(0, ls.numel(), (256,), generator=g).tolist()
+    for i in sample:
+        wv, wp = slice_truth(torch, flat, int(ls[i]), int(rs[i]))
+        require(same_bits(torch, [(fv[i:i + 1], wv.reshape(1))])
+                and int(fp[i]) == wp, f"Q1: sampled span {i} disagrees")
+    pl = torch.tensor([a for a, _ in planted], device=Q_DEVICE)
+    pr = torch.tensor([b for _, b in planted], device=Q_DEVICE)
+    truth = [slice_truth(torch, flat, a, b) for a, b in planted]
+    want_v = torch.stack([v for v, _ in truth])
+    want_p = [p for _, p in truth]
+    got_v, got_p = d.query(pl, pr), d.query_index(pl, pr)
+    require(same_bits(torch, [(got_v, want_v)])
+            and got_p.tolist() == want_p,
+            f"Q1: planted spans {got_p.tolist()} / "
+            f"{as_bits(torch, got_v).tolist()}, want {want_p} / "
+            f"{as_bits(torch, want_v).tolist()}")
+    rv, rp = reversed_combine(torch, d, pl.long(), pr.long())
+    control = [not (same_bits(torch, [(rv[j:j + 1], want_v[j:j + 1])])
+                    and int(rp[j]) == want_p[j]) for j in range(3)]
+    require(all(control), f"Q1 control: the rightmost-tie combine passed "
+            f"a planted span ({control})")
+    print(f"Q1: 256 sampled spans and the 3 planted ones (equal minima, "
+          f"-0.0 | +0.0, NaN | NaN) equal torch.min / first argmin; the "
+          f"rightmost-tie control fails all 3 ({rp.tolist()})")
+
+    # -- gates: the successor and the predecessor -------------------------
+    require(all(same_bits(torch, plane_pairs(a, b))
+                for a, b in zip(d.segments, dc.segments)),
+            "Q1: the predecessor changed under update")
+    del dc, e, cv, cp
+    gc.collect()
+    torch.cuda.empty_cache()
+    upd_ms = time_ms(torch, lambda: d.update(idx, vals), 3, warmup=1)
+    upd_copy_ms = time_ms(torch, lambda: [
+        (h.base.clone(), h.upper.clone(), h.upper_pos.clone())
+        for h in d.segments], 3, warmup=1)
+    rows2 = flat.clone()
+    hi = idx.cpu().numpy()[::-1]
+    uniq, last = np.unique(hi, return_index=True)
+    at = torch.from_numpy(uniq).to(Q_DEVICE)
+    rows2[at] = vals.flip(0)[torch.from_numpy(last).to(Q_DEVICE)]
+    cap = d.segment_capacity
+    succ_ok, pred_differs = True, False
+    for i in range(4):
+        hp = build_hierarchy(rows2[i * cap:(i + 1) * cap], d.plan, True)
+        succ_ok &= same_bits(torch, plane_pairs(d2.segments[i], hp))
+        pred_differs |= not same_bits(torch, plane_pairs(d.segments[i], hp))
+        del hp
+    rows2[Q_N:] = tail
+    hp = build_hierarchy(rows2[3 * cap:], d.plan, True)
+    append_ok = same_bits(torch, plane_pairs(d3.segments[3], hp)) and all(
+        a is b for a, b in zip(d3.segments[:3], d2.segments[:3]))
+    require(not same_bits(torch, plane_pairs(d2.segments[3], hp)),
+            "Q1 control: the segment before the append matched the "
+            "rebuild with the tail")
+    del hp, rows2
+    require(succ_ok, "Q1: the updated index differs from a rebuild of the "
+            "updated data")
+    require(pred_differs, "Q1 control: the predecessor matched the "
+            "rebuild of the updated data")
+    require(append_ok and d3.n == Q_N + Q_APPEND, "Q1: the append differs from a "
+            "rebuild of the last segment")
+    try:
+        QueryEngine(d)
+        require(False, "Q1: the engine took a capacity past 2^31")
+    except ValueError as exc:
+        require("int32 index space" in str(exc), f"Q1: {exc}")
+    print(f"Q1: update ({Q_UPDATE}, duplicates) and append {Q_APPEND} "
+          "equal rebuilds; predecessor unchanged; the engine refuses "
+          f"capacity {Q_CAP}")
+
+    # -- times -------------------------------------------------------------
+    rows = flat.view(4, cap)
+    ms = {
+        "B1 build (4 rows, one launch)": time_ms(
+            torch, lambda: build_many(rows, d.plan, True), 5),
+        "B3 build (4 x 3 launches)": time_ms(torch, lambda: [
+            build_hierarchy_percall(rows[i], d.plan, True)
+            for i in range(4)], 5),
+        "rows copy (the build call's)": copy_ms,
+    }
+    coord_ls, coord_rs = ls.long(), rs.long()
+    local = []
+    for i in range(4):
+        s0 = i * cap
+        local.append(((coord_ls - s0).clamp(0, cap - 1).int(),
+                      (coord_rs - s0).clamp(0, cap - 1).int()))
+    ms["monolithic query_index (B2)"] = time_ms(
+        torch, lambda: d.query_index(ls, rs), 5)
+    ms["4 B2 kernels alone"] = time_ms(torch, lambda: [
+        rmq_fused_batch(d.segments[i], *local[i], True) for i in range(4)],
+        5)
+    answers = d._segment_answers(coord_ls, coord_rs, True)
+    ms["segment answers (B2 + clip + keys)"] = time_ms(
+        torch, lambda: d._segment_answers(coord_ls, coord_rs, True), 5)
+    ms["combine (NCCL, 3 all_reduce)"] = time_ms(
+        torch, lambda: d._combine(*answers), 5)
+    del answers
+    ls_c, rs_c = ls[picked], rs[picked]
+    ms["contained spans, monolithic"] = time_ms(
+        torch, lambda: d.query_index(ls_c, rs_c), 5)
+    ms["contained spans, grouped"] = time_ms(
+        torch, lambda: d._query_grouped(gl, gr, True), 5)
+    ms["update (call)"] = upd_ms
+    ms["update's successor copies"] = upd_copy_ms
+    item = 4
+    up = d.plan.upper_size
+    build_bytes = 4 * (cap * item + up * (item + 4))
+    bound = {"build": bound_ms(build_bytes, 4 * cap),
+             "build call (with the rows copy)": bound_ms(
+                 build_bytes + Q_N * item + 4 * cap * item, 4 * cap)}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"Q1 times (ms, CUDA events; {card_line()}): {json.dumps(ms)}")
+    print(f"Q1 bounds (ms): {json.dumps(bound)} (4 x A's: "
+          f"{4 * bound_ms(cap * item + up * (item + 4), cap)[0]}); "
+          f"memory_bytes_per_device {d.memory_bytes_per_device()}; peak "
+          f"device memory {peak}")
+    return {"launches": {k: v for k, v in launches.items()
+                         if k in counters()},
+            "err": err, "ms": ms, "bound": bound, "peak": peak,
+            "per_device": d.memory_bytes_per_device()}
+
+
+def q2_engine(torch, seed, mesh):
+    """Q2: the engine over A's data on the mesh, against ``d.query`` and
+    the single-device RMQ at A."""
+    from repro_torch.core import RMQ, DistributedRMQ
+    from repro_torch.qe import CROSSING, SEG_LOCAL
+
+    x, ls, rs, setup = geometry(torch, Q2_N, 1 << 24, seed)
+    l20, r20 = ls[:Q2_M], rs[:Q2_M]
+    print(f"Q2: A's data on the (2, 4) mesh, {Q2_M} of A's spans "
+          f"({setup} s)")
+    one = RMQ.build(x, with_positions=True, backend="fused",
+                    device=Q_DEVICE)
+    wv, wp = one.query(l20, r20), one.query_index(l20, r20)
+    count = {**zero_counts(), **dist_counters()}
+    for k in dist_counters().values():
+        k.reset()
+    d = DistributedRMQ.build(x, mesh, backend="fused", **Q_GEO)
+    engine = d.engine(cache_size=0, bulk_crossover=Q2_M)
+    times = {}
+    out = {}
+    for key, fn in (("query", lambda: engine.query(l20, r20)),
+                    ("query_index", lambda: engine.query_index(l20, r20)),
+                    ("query_bulk", lambda: engine.query_bulk(l20, r20)),
+                    ("query_bulk index", lambda: engine.query_bulk(
+                        l20, r20, "index"))):
+        out[key], times[key] = wall(torch, fn)
+    cc = engine.stats()["class_counts"]
+    upd_g = torch.Generator(device=Q_DEVICE).manual_seed(seed + 9)
+    idx = torch.randint(0, Q2_N, (Q_UPDATE,), device=Q_DEVICE,
+                        generator=upd_g)
+    vals = torch.rand(Q_UPDATE, device=Q_DEVICE, generator=upd_g) - 0.5
+    d2 = d.update(idx, vals)
+    engine.attach(d2)
+    (av, ap), times["after attach"] = wall(
+        torch, lambda: (engine.query(l20, r20), engine.query_index(l20, r20)))
+    launches = read(torch, count)
+    combines, coll = launches.pop("combines"), launches.pop("collectives")
+    require(coll == 3 * combines, f"Q2: {coll} collectives for {combines} "
+            "combines: the grouped batches called the group")
+    require(cc[SEG_LOCAL] > 0 and cc[CROSSING] > 0,
+            f"Q2: class counts {cc}")
+    dv, dp = d.query(l20, r20), d.query_index(l20, r20)
+    pairs = [(out["query"], dv), (out["query_index"], dp),
+             (out["query_bulk"], dv), (out["query_bulk index"], dp),
+             (out["query"], wv), (out["query_index"], wp)]
+    one2 = one.update(idx, vals)
+    pairs += [(av, d2.query(l20, r20)), (ap, d2.query_index(l20, r20)),
+              (av, one2.query(l20, r20)), (ap, one2.query_index(l20, r20))]
+    require(same_bits(torch, pairs), "Q2: the engine's answers differ from "
+            "d.query or the single-device RMQ at A")
+    stale = int((out["query_index"] != d2.query_index(l20, r20)).sum())
+    require(stale > 0, "Q2 control: the answers before the update matched "
+            "the updated index")
+    print(f"Q2: engine {cc} ({combines} combines, {coll} collectives, "
+          f"none grouped), every answer equal to d.query and to RMQ at A "
+          f"bit for bit (control: {stale} answers before the update differ "
+          f"from the updated index); wall s per {Q2_M} spans "
+          f"{json.dumps(times)}; "
+          f"launches {launches}; {card_line()}")
+    return {"launches": launches,
+            "err": max_abs_err(torch, [(as_bits(torch, g), as_bits(torch, w))
+                                       for g, w in pairs]),
+            "times": times, "class_counts": cc}
+
+
+
 def run(torch, seed: int):
     from repro_torch.core import build_hierarchy, make_plan, rmq_walk_batch
     from repro_torch.kernels.hierarchy_build.ops import (
@@ -5632,6 +6131,17 @@ def run(torch, seed: int):
     for key, v in served_mla["launches"].items():
         main_launches[key] = main_launches.get(key, 0) + v
 
+    # -- phase 22: the segment-sharded index ---------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = distributed_phase(torch, seed)
+    for key, v in sharded["launches"].items():
+        main_launches[key] = main_launches.get(key, 0) + v
+    for key in ("hierarchy_fused", "hierarchy_build", "rmq_fused",
+                "rmq_scan", "hierarchy_update"):
+        errors[key] = max(errors[key], sharded["q1"]["err"],
+                          sharded["q2"]["err"])
+
     out = []
     for name, meta in KERNELS.items():
         b, by = bounds[name]
@@ -5644,6 +6154,8 @@ def run(torch, seed: int):
     out += bf16_rows
     require(all(k["launches"] > 0 for k in out),
             "a kernel of the main path was never launched")
+    require(all(math.isfinite(k["max_abs_err"]) for k in out),
+            "a kernel's max_abs_err is not finite")
     # again here: the first lines of a long log get cut
     print(f"device: {torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")

@@ -5,7 +5,7 @@ directory ``step_<8 digits>`` per step holding
 
 * ``manifest.json``: the step, the caller's ``extra`` and, per leaf, its
   path string, file, shape, dtype and logical sharding (always null: the
-  port has no mesh yet, ROADMAP A10);
+  port shards no parameters yet, ROADMAP A10b);
 * ``<leaf-hash>.npy``: one file per leaf, copied to the host.  numpy has
   no bfloat16, so a bf16 leaf is stored as its int16 bits and named
   ``bfloat16`` in the manifest.

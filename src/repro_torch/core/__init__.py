@@ -16,11 +16,17 @@
     rmq = RMQ.build_out_of_core(make_slab, n, with_positions=True)
     # many equal-length arrays, one B1 launch on the card
     batched = build_many(xs, make_plan(n), with_positions=True)
+
+    # segment-sharded over a mesh: four segments, one B1 launch for all
+    from repro_torch.launch.mesh import make_test_mesh
+    d = DistributedRMQ.build(x, make_test_mesh((2, 4)), backend="fused",
+                             with_positions=True)
 """
 
 from repro_torch.core import bitpack
 from repro_torch.core.api import RMQ
 from repro_torch.core.constants import PAD_POS, POS_INF_I32
+from repro_torch.core.distributed import DistributedRMQ
 from repro_torch.core.hierarchy import (
     Hierarchy,
     build_hierarchy,
@@ -54,6 +60,7 @@ from repro_torch.core.theory import (
 
 __all__ = [
     "RMQ",
+    "DistributedRMQ",
     "RMQIndex",
     "MutableRMQIndex",
     "is_distributed",

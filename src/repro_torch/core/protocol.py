@@ -20,9 +20,10 @@ Mutations (:func:`mutation_backend`): ``cuda`` updates through the
 per-level re-reduction kernel (B6); ``fused`` has no one-launch update
 and mutates through ``cuda`` on a card and ``eager`` on the CPU, as the
 reference's ``fused`` mutates through its platform default.  The
-validators' error text is the reference's, byte for byte.  The port has
-no distributed index yet (ROADMAP A10): :func:`is_distributed` reads the
-same ``distributed`` attribute, which no port index sets.
+validators' error text is the reference's, byte for byte.
+:func:`is_distributed` reads the ``distributed`` attribute that
+:class:`repro_torch.core.distributed.DistributedRMQ` sets, and
+:func:`make_engine` gives such an index the engine's segment routing.
 """
 
 from __future__ import annotations
@@ -140,7 +141,8 @@ def supports_mutation(index) -> bool:
 
 
 def is_distributed(index) -> bool:
-    """Is ``index`` sharded across devices?  No port index is yet."""
+    """Is ``index`` segment-sharded?  The engine routes such an index
+    through :class:`repro_torch.qe.DistributedExecutor`."""
     return bool(getattr(index, "distributed", False))
 
 
@@ -357,7 +359,8 @@ def validate_append_batch(vals, length: int, capacity: int) -> torch.Tensor:
 
 
 def make_engine(index, **kwargs):
-    """A span-routed :class:`repro_torch.qe.QueryEngine` over ``index``;
+    """A :class:`repro_torch.qe.QueryEngine` over ``index``, routed by
+    span class (by segment containment for a distributed index);
     re-attach it (``engine.attach``) after every mutation."""
     from repro_torch.qe import QueryEngine
 

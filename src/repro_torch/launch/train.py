@@ -21,8 +21,9 @@ of synthetic embeddings.
 Failure drill: ``--inject-failure-at N`` raises before step N; the loop
 drains the checkpoint writer, restarts, restores the latest checkpoint
 and continues, so the loss curve continues from the checkpointed step.
-The mesh, ``jax.distributed`` and the heartbeat monitor of the reference
-wait for ROADMAP A10: ``--model-parallel`` other than 1 raises.
+Model-parallel training (sharded parameters over the mesh, the
+distributed start-up and the heartbeat monitor of the reference) waits
+for ROADMAP A10b: ``--model-parallel`` other than 1 raises.
 """
 
 from __future__ import annotations
@@ -88,8 +89,9 @@ def train_loop(args: argparse.Namespace) -> Dict:
 
     if args.model_parallel != 1:
         raise NotImplementedError(
-            "--model-parallel needs the device mesh, which is not ported yet "
-            "(ROADMAP A10); the port trains on one device")
+            "--model-parallel needs sharded training over the mesh, which "
+            "is not ported yet (ROADMAP A10b); the port trains on one "
+            "device")
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     tc = TrainConfig(
         total_steps=args.steps,

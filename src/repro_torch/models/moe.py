@@ -1,7 +1,7 @@
 """Mixture-of-Experts layer: top-k routing, capacity dispatch, shared expert.
 
 The port of ``repro.models.moe`` on one device (the reference's
-``shard_map`` branch belongs to the mesh, ROADMAP A10).  The reference
+``shard_map`` branch belongs to sharded training, ROADMAP A10b).  The reference
 computes the layer with gathers, a scatter-add and einsums, outside any
 Pallas kernel; here the same steps are PyTorch operations and the expert
 FFNs batched products over the expert axis (``torch.bmm``).  What the

@@ -17,8 +17,11 @@
   per flushed (index, op) group (one mixed execution on a fused engine),
   and ``register_many`` through one batched build.
 
-The distributed executor's names are exported; the executor itself
-refuses until the port has a distributed index (ROADMAP A10).
+A segment-sharded :class:`repro_torch.core.DistributedRMQ` has no span
+classes: its engine routes each batch through
+:class:`DistributedExecutor` instead (spans inside one segment answered
+segment-locally, with no combine; crossing spans through the index's
+combine).
 """
 
 from repro_torch.qe.cache import ResultCache

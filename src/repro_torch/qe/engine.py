@@ -1,7 +1,8 @@
 """``QueryEngine``: span-routed, deduped, cached batched RMQ execution.
 
 The port of ``repro.qe.engine``.  One engine serves one index (``RMQ``,
-``StreamingRMQ`` or ``HybridRMQ``).  The engine is host-side
+``StreamingRMQ``, ``HybridRMQ`` or the segment-sharded
+``DistributedRMQ``).  The engine is host-side
 orchestration: dedup, cache bookkeeping and planning run in numpy, as in
 the reference; only the packed buckets go to the device, through the
 executors (:mod:`repro_torch.qe.executors`).  Per batch::
@@ -38,8 +39,15 @@ looked up by the index's device, live length and ``span_mix``) >
 ``plan.level_split`` (baked in by a tuned build) > analytic defaults;
 ``engine.tuned["source"]`` says which (``"cache"``, ``"plan"``,
 ``"default"``, with ``"+override"`` where an explicit ``long_cutoff``
-won).  A distributed index (ROADMAP A10) is refused with
-``NotImplementedError``.
+won).
+
+A distributed index has no planner: :attr:`QueryEngine.distributed`, a
+:class:`repro_torch.qe.DistributedExecutor`, routes each miss batch by
+segment containment (spans inside one segment answered segment-locally,
+with no combine; crossing spans through the index's combine), takes no
+tuning lookup, serves no mixed batch as one launch, and ``query_bulk``
+goes through its ``run_bulk``.  Its global capacity must stay below
+2^31, as every engine's must.
 """
 
 from __future__ import annotations
@@ -49,7 +57,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.hierarchy import value_bits
 from repro_torch.core.protocol import (
     check_capacity_limit,
     is_distributed,
@@ -61,6 +68,7 @@ from repro_torch.kernels.profiling import record_config
 from repro_torch.obs import trace
 from repro_torch.obs.metrics import SIZE_BUCKETS, Metrics
 from repro_torch.qe.cache import ResultCache
+from repro_torch.qe.distributed import DistributedExecutor
 from repro_torch.qe.executors import (
     INDEX,
     VALUE,
@@ -70,6 +78,8 @@ from repro_torch.qe.executors import (
     MidSpanExecutor,
     ShortSpanExecutor,
 )
+from repro_torch.qe.executors import host_dtype as _np_dtype
+from repro_torch.qe.executors import to_host as _to_host
 from repro_torch.qe.planner import FUSED, LONG, MID, SHORT, QueryPlanner
 
 __all__ = ["QueryEngine"]
@@ -86,27 +96,9 @@ def _host_bounds(ls, rs, n: int):
             rs.cpu().numpy().astype(np.int32, copy=False).ravel())
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    """A result plane on the host, bf16 as its int16 bits (numpy has no
-    bfloat16, and a round trip through float32 could change a NaN's
-    bits)."""
-    return value_bits(t).cpu().numpy()
-
-
-def _np_dtype(dtype: torch.dtype) -> np.dtype:
-    """The host dtype that carries a plane of ``dtype`` (:func:`_to_host`)."""
-    return _to_host(torch.empty((), dtype=dtype)).dtype
-
-
 def _to_device(a: np.ndarray, dtype: torch.dtype, dev) -> torch.Tensor:
     """A host plane (:func:`_np_dtype`) back on ``dev`` as ``dtype``."""
     return torch.from_numpy(a).to(dev).view(dtype)
-
-
-def _check_supported(index) -> None:
-    if is_distributed(index):
-        raise NotImplementedError(
-            "a distributed index is not ported yet (ROADMAP A10)")
 
 
 class QueryEngine:
@@ -152,6 +144,7 @@ class QueryEngine:
         self.class_counts = {SHORT: 0, MID: 0, LONG: 0, FUSED: 0}
         self._index = None
         self.planner: Optional[QueryPlanner] = None
+        self.distributed: Optional[DistributedExecutor] = None
         self.metrics: Optional[Metrics] = None
         self._m_padding = None
         self._m_padded_lanes = None
@@ -298,7 +291,6 @@ class QueryEngine:
         strictly larger generation.  Pass ``True`` / ``False`` to
         override.
         """
-        _check_supported(index)
         prev = self._index
         if reset_cache is None:
             reset_cache = not (
@@ -311,27 +303,39 @@ class QueryEngine:
         plan = index.plan
         # Bounds and positions flow through int32 (planner packing, the
         # kernels, the numpy bucket arithmetic): refuse rather than wrap.
+        # A distributed index's capacity is its global index space.
         check_capacity_limit(index.capacity)
-        backend = self._resolve_backend(index)
-        if backend != self.backend:
-            self.backend = backend
-            self._configure_executors(backend)
-        resolved = self._resolve_config(index)
-        self.bulk_crossover = self._resolve_bulk_crossover(index)
-        resolved["bulk_crossover"] = self.bulk_crossover
-        planner = QueryPlanner(
-            c=plan.c,
-            num_levels=plan.num_levels,
-            long_cutoff=resolved["long_cutoff"],
-            long_enabled=resolved["long_enabled"],
-            min_bucket=self._min_bucket,
-            max_bucket=self._max_bucket,
-            fused=self.backend == "fused",
-            scan_chunks=resolved["scan_chunks"],
-        )
-        if planner != self.planner:
-            self.planner = planner
-        self._record_tuned(index, resolved)
+        if is_distributed(index):
+            # routed by segment containment: no planner, no span executor
+            self.planner = None
+            self.tuned = None
+            self.bulk_crossover = self._resolve_bulk_crossover(index)
+            if self.distributed is None:
+                self.distributed = DistributedExecutor(
+                    min_bucket=self._min_bucket,
+                    max_bucket=self._max_bucket)
+        else:
+            self.distributed = None
+            backend = self._resolve_backend(index)
+            if backend != self.backend:
+                self.backend = backend
+                self._configure_executors(backend)
+            resolved = self._resolve_config(index)
+            self.bulk_crossover = self._resolve_bulk_crossover(index)
+            resolved["bulk_crossover"] = self.bulk_crossover
+            planner = QueryPlanner(
+                c=plan.c,
+                num_levels=plan.num_levels,
+                long_cutoff=resolved["long_cutoff"],
+                long_enabled=resolved["long_enabled"],
+                min_bucket=self._min_bucket,
+                max_bucket=self._max_bucket,
+                fused=self.backend == "fused",
+                scan_chunks=resolved["scan_chunks"],
+            )
+            if planner != self.planner:
+                self.planner = planner
+            self._record_tuned(index, resolved)
         self._index = index
         self.executors[LONG].invalidate()
 
@@ -372,7 +376,9 @@ class QueryEngine:
         ``(chunk(l), chunk(r))`` and answered one ``rmq_bulk`` launch per
         bucket (:class:`BulkExecutor`), without dedup or the LRU; smaller
         batches take :meth:`query` / :meth:`query_index`.  Bit-identical
-        to them at any size.
+        to them at any size.  On a distributed index the sort also groups
+        the spans by owning segment
+        (:meth:`~repro_torch.qe.DistributedExecutor.run_bulk`).
         """
         if op not in (VALUE, INDEX):
             raise ValueError(
@@ -382,18 +388,25 @@ class QueryEngine:
             raise ValueError(_NO_POSITIONS)
         n = live_length(index)
         ls, rs = check_query_args(ls, rs, n)
-        if ls.numel() < self.bulk_crossover or index.hierarchy.quantized:
+        if ls.numel() < self.bulk_crossover or (
+                self.distributed is None and index.hierarchy.quantized):
             # bf16 summaries: the bulk sweep compares quantized values,
             # so they take the routed path, whose walks re-read level 0
             return self._execute(ls, rs, op)
         self.batches += 1
         self.queries_in += int(ls.numel())
+        if self.distributed is not None:
+            hl, hr = _host_bounds(ls, rs, n)
+            dtype = torch.int32 if op == INDEX else index.value_dtype
+            return _to_device(self.distributed.run_bulk(index, hl, hr, op),
+                              dtype, index.device)
         return self._bulk.run(index.hierarchy, ls, rs, op)
 
     @property
     def supports_mixed(self) -> bool:
-        """Can a value+index mix run as ONE launch per bucket?"""
-        return FUSED in self.executors
+        """Can a value+index mix run as ONE launch per bucket?  (Never
+        over a distributed index.)"""
+        return FUSED in self.executors and self.distributed is None
 
     def query_mixed(self, ls, rs, is_index) -> tuple:
         """Answer a batch mixing ``RMQ_value`` and ``RMQ_index`` ops.
@@ -406,7 +419,7 @@ class QueryEngine:
         elsewhere one standard execution per op.
         """
         index = self._index
-        dev = index.hierarchy.device
+        dev = index.device
         is_index = np.asarray(
             torch.as_tensor(is_index).cpu(), bool).ravel()
         if is_index.any() and not index.with_positions:
@@ -519,7 +532,7 @@ class QueryEngine:
     # cache or dedup semantics changed here must change there too.
     def _execute(self, ls, rs, op: str) -> torch.Tensor:
         index = self._index
-        dev = index.hierarchy.device
+        dev = index.device
         ls, rs = _host_bounds(ls, rs, live_length(index))
         m = ls.shape[0]
         dtype = torch.int32 if op == INDEX else index.value_dtype
@@ -555,26 +568,12 @@ class QueryEngine:
         tr = trace.current()
         if miss_idx.shape[0]:
             mls, mrs = uls[miss_idx], urs[miss_idx]
-            h = index.hierarchy
-            sp = tr.begin("plan") if tr is not None else None
-            buckets = self.planner.plan(mls, mrs)
-            if tr is not None:
-                tr.end(sp, misses=int(miss_idx.shape[0]),
-                       buckets=len(buckets), op=op)
-            for bucket in buckets:
-                if bucket.count == 0:
-                    continue
-                self._note_bucket(bucket)
-                sp = tr.begin("execute") if tr is not None else None
-                res = self.executors[bucket.cls].run(
-                    h, torch.from_numpy(bucket.ls).to(dev),
-                    torch.from_numpy(bucket.rs).to(dev), op)
-                res = _to_host(res[:bucket.count]).astype(
-                    out_dtype, copy=False)
-                if tr is not None:
-                    tr.end(sp, cls=bucket.cls, count=bucket.count,
-                           shape=bucket.shape, op=op)
-                uniq_res[miss_idx[bucket.idxs]] = res
+            if self.distributed is not None:
+                uniq_res[miss_idx] = self.distributed.run(
+                    index, mls, mrs, op).astype(out_dtype, copy=False)
+            else:
+                self._execute_buckets(index.hierarchy, mls, mrs, op,
+                                      out_dtype, uniq_res, miss_idx)
             if self.cache.capacity > 0:
                 for i in miss_idx:
                     self.cache.put(op, gen, int(uls[i]), int(urs[i]),
@@ -586,9 +585,37 @@ class QueryEngine:
             tr.end(sp, queries=m, unique=k, op=op)
         return out
 
+    def _execute_buckets(self, h, mls, mrs, op: str, out_dtype, uniq_res,
+                         miss_idx) -> None:
+        """The misses through the planner's buckets and the span
+        executors, answers written into ``uniq_res[miss_idx]``."""
+        dev = h.device
+        tr = trace.current()
+        sp = tr.begin("plan") if tr is not None else None
+        buckets = self.planner.plan(mls, mrs)
+        if tr is not None:
+            tr.end(sp, misses=int(mls.shape[0]), buckets=len(buckets), op=op)
+        for bucket in buckets:
+            if bucket.count == 0:
+                continue
+            self._note_bucket(bucket)
+            sp = tr.begin("execute") if tr is not None else None
+            res = self.executors[bucket.cls].run(
+                h, torch.from_numpy(bucket.ls).to(dev),
+                torch.from_numpy(bucket.rs).to(dev), op)
+            res = _to_host(res[:bucket.count]).astype(out_dtype, copy=False)
+            if tr is not None:
+                tr.end(sp, cls=bucket.cls, count=bucket.count,
+                       shape=bucket.shape, op=op)
+            uniq_res[miss_idx[bucket.idxs]] = res
+
     # -- introspection ----------------------------------------------------
     def stats(self) -> dict:
+        counts = dict(self.class_counts)
         executors = {cls: ex.stats() for cls, ex in self.executors.items()}
+        if self.distributed is not None:
+            counts = dict(self.distributed.class_counts)
+            executors = {"distributed": self.distributed.stats()}
         if self._bulk.calls:
             executors["bulk"] = self._bulk.stats()
         return {
@@ -597,7 +624,7 @@ class QueryEngine:
             "batches": self.batches,
             "queries": self.queries_in,
             "dedup_saved": self.dedup_saved,
-            "class_counts": dict(self.class_counts),
+            "class_counts": counts,
             "cache": self.cache.stats(),
             "executors": executors,
             "tuned": dict(self.tuned) if self.tuned else None,

@@ -26,9 +26,10 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.hierarchy import Hierarchy
+from repro_torch.core.hierarchy import Hierarchy, value_bits
 from repro_torch.kernels.profiling import timed_dispatch
 from repro_torch.obs import trace
 
@@ -43,6 +44,18 @@ __all__ = [
 VALUE = "value"
 INDEX = "index"
 MIXED = "mixed"
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A result plane on the host, bf16 as its int16 bits (numpy has no
+    bfloat16, and a round trip through float32 could change a NaN's
+    bits)."""
+    return value_bits(t).cpu().numpy()
+
+
+def host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The host dtype that carries a plane of ``dtype`` (:func:`to_host`)."""
+    return to_host(torch.empty((), dtype=dtype)).dtype
 
 
 class _ExecutorBase:

@@ -68,7 +68,8 @@ def make_input_array(n: int, seed: int = 0) -> np.ndarray:
 def make_queries(
     n: int, m: int, kind: str = "mixed", seed: int = 1
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Paper §5.1 range-size classes (large / medium / small / mixed)."""
+    """Paper §5.1 range-size classes (large / medium / small / mixed);
+    int32 bounds below n = 2^31, int64 from there."""
     rng = np.random.default_rng(seed)
 
     def sizes(kind, count):
@@ -91,7 +92,8 @@ def make_queries(
     s = sizes(kind, m)
     ls = (rng.random(m) * (n - s + 1)).astype(np.int64)
     rs = ls + s - 1
-    return ls.astype(np.int32), rs.astype(np.int32)
+    coord = np.int32 if n < 2**31 else np.int64
+    return ls.astype(coord), rs.astype(coord)
 
 
 def make_span_queries(n: int, m: int, c: int, kind: str, seed: int = 1):

@@ -2312,3 +2312,142 @@ def test_bf16_facade_engine_and_streaming_on_card(card, backend):
                                     torch.from_numpy(qr).to(card), True)
     _same_bits(s.query(ql, qr), want_v)
     _same_bits(s.query_index(ql, qr), want_p.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the segment-sharded index (A10a) on the card
+# ---------------------------------------------------------------------------
+def _dist_input(rng, n, dtype):
+    if dtype == "bfloat16":
+        return bf16_input("nan", rng, n, 16)
+    return torch.from_numpy(zero_heavy(rng, n, np.dtype(dtype).type))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["fused", "cuda"])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("shape,n,cap", [((2, 4), 40_001, 50_000),
+                                         ((1, 3), 70_000, None)])
+def test_distributed_kernels_match_eager(card, backend, dtype, shape, n,
+                                         cap):
+    """Each segment's planes, the monolithic and grouped answers, an
+    update with duplicates and a straddling append: the kernels against
+    the ``eager`` distributed index on the same mesh, as integer views."""
+    from repro_torch.core import DistributedRMQ
+    from repro_torch.launch.mesh import make_test_mesh
+
+    rng = np.random.default_rng(n)
+    x = _dist_input(rng, n, dtype).to(card)
+    mesh = make_test_mesh(shape, device=card)
+    kw = dict(c=16, t=8, with_positions=True, capacity=cap)
+    d = DistributedRMQ.build(x, mesh, backend=backend, **kw)
+    e = DistributedRMQ.build(x, mesh, backend="eager", **kw)
+    for got, want in zip(d.segments, e.segments):
+        _same_bits(got.base, want.base)
+        _same_bits(got.upper, want.upper)
+        _same_bits(got.upper_pos, want.upper_pos)
+    ls, rs = query_batch(rng, n, 16, m=1024)
+    _same_bits(d.query(ls, rs), e.query(ls, rs))
+    _same_bits(d.query_index(ls, rs), e.query_index(ls, rs))
+    s, seg = d.num_segments, d.segment_capacity
+    gl = torch.from_numpy(rng.integers(0, seg // 2, (s, 64))).to(card)
+    gr = gl + torch.from_numpy(rng.integers(0, seg // 2, (s, 64))).to(card)
+    for a, b in zip(d._query_grouped(gl, gr, True),
+                    e._query_grouped(gl, gr, True)):
+        _same_bits(a, b)
+    idxs = torch.from_numpy(rng.integers(0, n, 512)).to(card)
+    idxs[1] = idxs[0]
+    vals = _dist_input(rng, 512, dtype).to(card)
+    d2, e2 = d.update(idxs, vals), e.update(idxs, vals)
+    if cap is not None:
+        tail = _dist_input(rng, cap - n, dtype).to(card)
+        d2, e2 = d2.append(tail), e2.append(tail)
+    for got, want in zip(d2.segments, e2.segments):
+        _same_bits(got.base, want.base)
+        _same_bits(got.upper, want.upper)
+        _same_bits(got.upper_pos, want.upper_pos)
+    ls, rs = query_batch(rng, d2.n, 16, m=1024)
+    _same_bits(d2.query(ls, rs), e2.query(ls, rs))
+    _same_bits(d2.query_index(ls, rs), e2.query_index(ls, rs))
+
+
+@pytest.mark.gpu
+def test_distributed_launch_and_collective_counts(card):
+    """One B1 launch a fused build; one B2 launch a segment a batch and
+    one combine; the grouped path: one launch a segment, no combine; B3
+    and B6 once a level a segment; no collective without a group."""
+    from repro_torch.core import DistributedRMQ
+    from repro_torch.core import distributed as dist_mod
+    from repro_torch.kernels.hierarchy_update import ops as upd_ops
+    from repro_torch.launch.mesh import make_test_mesh
+
+    rng = np.random.default_rng(5)
+    n = 1 << 20
+    x = torch.from_numpy(rng.random(n).astype(np.float32)).to(card)
+    mesh = make_test_mesh((2, 4), device=card)
+    ls, rs = query_batch(rng, n, 128, m=4096)
+    counters = (fused_ops.LAUNCHES, qfused_ops.LAUNCHES, build_ops.LAUNCHES,
+                scan_ops.LAUNCHES, upd_ops.LAUNCHES, dist_mod.COMBINES,
+                dist_mod.COLLECTIVES)
+
+    def counts(fn):
+        before = [k.launches for k in counters]
+        fn()
+        torch.cuda.synchronize()
+        return [k.launches - b for k, b in zip(counters, before)]
+
+    holder = {}
+    assert counts(lambda: holder.update(d=DistributedRMQ.build(
+        x, mesh, backend="fused", with_positions=True))) == [1, 0, 0, 0, 0,
+                                                            0, 0]
+    d = holder["d"]
+    L = d.plan.num_levels
+    assert counts(lambda: d.query_index(ls, rs)) == [0, 4, 0, 0, 0, 1, 0]
+    gl = torch.zeros((4, 256), dtype=torch.int32, device=card)
+    assert counts(lambda: d._query_grouped(gl, gl + 5, True)) == [
+        0, 4, 0, 0, 0, 0, 0]
+    idxs = torch.from_numpy(rng.integers(0, n, 1 << 12)).to(card)
+    vals = torch.rand(1 << 12, device=card)
+    assert counts(lambda: d.update(idxs, vals)) == [
+        0, 0, 0, 0, 4 * (L - 1), 0, 0]
+    assert counts(lambda: holder.update(c=DistributedRMQ.build(
+        x, mesh, backend="cuda", with_positions=True))) == [
+        0, 0, 4 * (L - 1), 0, 0, 0, 0]
+    assert counts(lambda: holder["c"].query_index(ls, rs)) == [
+        0, 0, 0, 8, 0, 1, 0]
+
+
+@pytest.mark.gpu
+def test_distributed_past_int32_on_one_card(card):
+    """n = 2^31 + 4096 on a (1, 4) mesh: four segments of 2^29 + 1024
+    keep the kernels, the global positions run in int64; the fused index
+    against the eager one on the same planes, and against torch.min /
+    argmin on spans across each boundary.  The engine refuses it."""
+    import dataclasses
+
+    from repro_torch.core import DistributedRMQ
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.qe import QueryEngine
+
+    n = (1 << 31) + 4096
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.rand(n, generator=g, device=card)
+    d = DistributedRMQ.build(x, make_test_mesh((1, 4), device=card),
+                             with_positions=True, backend="fused")
+    assert d.segment_capacity == (1 << 29) + 1024
+    e = dataclasses.replace(d, backend="eager")
+    rng = np.random.default_rng(9)
+    ls = rng.integers(0, n, 1 << 14)
+    rs = np.minimum(ls + rng.integers(0, 1 << 26, 1 << 14), n - 1)
+    bounds = [(k * d.segment_capacity - 5, k * d.segment_capacity + 5)
+              for k in (1, 2, 3)]
+    ls[:3], rs[:3] = zip(*bounds)
+    pos = d.query_index(ls, rs)
+    assert pos.dtype == torch.int64
+    _same_bits(pos, e.query_index(ls, rs))
+    _same_bits(d.query(ls, rs), e.query(ls, rs))
+    for i, (l, r) in enumerate(bounds):
+        span = x[l:r + 1]
+        assert int(pos[i]) == l + int(torch.argmin(span))
+    with pytest.raises(ValueError, match="int32 index space"):
+        QueryEngine(d)

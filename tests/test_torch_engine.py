@@ -266,12 +266,20 @@ class TestEngineParity:
             QueryEngine(packed).query_index(ls, rs).numpy(),
             rmq.query_index(ls, rs).numpy())
 
-        class Sharded:
-            distributed = True
-            plan = rmq.plan
-            backend = "eager"
-        with pytest.raises(NotImplementedError, match="A10"):
-            QueryEngine(Sharded())
+        # a distributed index is served (A10a): the engine routes it by
+        # segment containment, as the facade answers it
+        from repro_torch.core import DistributedRMQ
+        from repro_torch.launch.mesh import make_test_mesh
+
+        sharded = DistributedRMQ.build(
+            rmq.hierarchy.base[:rmq.n], make_test_mesh((1, 4), device="cpu"),
+            c=16, t=4, with_positions=True)
+        e = QueryEngine(sharded)
+        assert e.planner is None and e.distributed is not None
+        np.testing.assert_array_equal(e.query_index(ls, rs).numpy(),
+                                      rmq.query_index(ls, rs).numpy())
+        counts = e.stats()["class_counts"]
+        assert counts["seg_local"] > 0 and counts["crossing"] > 0
 
     def test_answers_on_the_index_device_and_hybrid_index(self):
         rng, x, port, _ = _pair(9000, 16, 4, seed=5)

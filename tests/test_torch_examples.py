@@ -24,6 +24,7 @@ def examples():
         import chaining
         import query_engine
         import torch_chaining
+        import torch_distributed_rmq
         import torch_query_engine
         import torch_quickstart
         import torch_serve_lm
@@ -34,6 +35,7 @@ def examples():
         sys.path.remove(str(EXAMPLES))
     return dict(chaining=chaining, query_engine=query_engine,
                 torch_chaining=torch_chaining,
+                torch_distributed_rmq=torch_distributed_rmq,
                 torch_query_engine=torch_query_engine,
                 torch_quickstart=torch_quickstart,
                 torch_serve_lm=torch_serve_lm,
@@ -64,6 +66,16 @@ def test_streaming_matches_a_rebuild(examples, capsys):
     assert s.generation == 3
     examples["torch_streaming"].main(["--n", "8192", "--device", "cpu"])
     assert "incremental index == rebuild" in capsys.readouterr().out
+
+
+def test_distributed_rmq_routes_and_spot_checks(examples, capsys):
+    d, cc = examples["torch_distributed_rmq"].run(
+        n=1 << 14, m=512, device="cpu")
+    assert d.num_segments == 4 and d.generation == 2
+    assert cc["seg_local"] > 0 and cc["crossing"] > 0
+    examples["torch_distributed_rmq"].main(["--n", "16384", "--device",
+                                           "cpu"])
+    assert "spot checks OK" in capsys.readouterr().out
 
 
 def test_chaining_equals_the_reference(examples):

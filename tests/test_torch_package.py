@@ -87,6 +87,8 @@ SLICE_MODULES = [
     "repro_torch.tune.search",
     "repro_torch.qe.service",
     "repro_torch.qe.distributed",
+    "repro_torch.core.distributed",
+    "repro_torch.launch.mesh",
     "repro_torch.serving.snapshot",
     "repro_torch.serving.tier",
     "repro_torch.serving.aio",
@@ -110,7 +112,7 @@ def test_examples_are_guarded():
     for ex in ("torch_quickstart.py", "torch_streaming.py",
                "torch_chaining.py", "torch_train_lm.py",
                "torch_query_engine.py", "torch_serving_async.py",
-               "torch_serve_lm.py"):
+               "torch_serve_lm.py", "torch_distributed_rmq.py"):
         assert ex in names
 
 

@@ -24,12 +24,14 @@ import torch
 
 from repro import tune as jtune
 from repro.core.api import RMQ as JRMQ
+from repro.core.distributed import DistributedRMQ as JDistributedRMQ
 from repro.core.plan import make_plan as jmake_plan
 from repro.qe import QueryEngine as JEngine
 from repro.streaming import StreamingRMQ as JStreaming
-from repro_torch.core import RMQ, LevelSplit, make_plan
+from repro_torch.core import RMQ, DistributedRMQ, LevelSplit, make_plan
 from repro_torch.core.hybrid import HybridRMQ
 from repro_torch.kernels.profiling import count_launches, launch_registry
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.obs.metrics import Metrics
 from repro_torch.qe import QueryEngine
 from repro_torch.streaming import StreamingRMQ
@@ -642,9 +644,9 @@ class TestEngineSelfConfig:
 
 
 class TestMissFallbackDifferential:
-    @pytest.mark.parametrize("kind", ("rmq", "streaming", "hybrid"))
+    @pytest.mark.parametrize("kind", ("rmq", "streaming", "hybrid",
+                                      "distributed"))
     def test_empty_cache_engine_matches_numpy_oracle(self, kind):
-        # the reference's fourth kind, the distributed index, is A10
         rng = np.random.default_rng(len(kind))
         n, c, t = 6_000, 16, 8
         x = rng.integers(-4, 4, n).astype(np.float32)  # heavy ties
@@ -655,15 +657,28 @@ class TestMissFallbackDifferential:
             idx = StreamingRMQ.from_array(x, c=c, t=t, with_positions=True,
                                           device="cpu")
             jidx = JStreaming.from_array(x, c=c, t=t, with_positions=True)
-        else:
+        elif kind == "hybrid":
             idx = HybridRMQ.build(x, c=c, t=t, with_positions=True,
                                   device="cpu")
             jidx = None
+        else:
+            idx = DistributedRMQ.build(
+                x, make_test_mesh((1, 1), device="cpu"), c=c, t=t,
+                with_positions=True)
+            jidx = JDistributedRMQ.build(
+                x, jax.make_mesh((1, 1), ("data", "model")), c=c, t=t,
+                with_positions=True)
         tuned_engine = QueryEngine(idx, cache_size=0, tuning=TuningCache())
         plain_engine = QueryEngine(idx, cache_size=0)
         assert tuned_engine.backend == plain_engine.backend
         assert tuned_engine.tuned == plain_engine.tuned
-        assert tuned_engine.tuned["source"] == "default"
+        if kind == "distributed":
+            # no tuning lookup for a sharded index, in either package
+            je = JEngine(jidx, cache_size=0, tuning=jtune.TuningCache())
+            assert tuned_engine.tuned is None and je.tuned is None
+            jidx = None
+        else:
+            assert tuned_engine.tuned["source"] == "default"
         ls, rs = _spans(rng, n, 300)
         expect_v = np.array(
             [x[l:r + 1].min() for l, r in zip(ls, rs)], np.float32)
