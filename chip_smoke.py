@@ -385,6 +385,24 @@ outside the repository.  Phases:
    spans; ``memory_bytes_per_device`` and the peak device memory.  Q's
    launches are added to the B1-B4 and B6 rows.
 
+23. model-parallel training (R; run after Q): ``launch/train.py
+   --model-parallel 2`` for mamba2-1.3b at G's full width, shape, seed
+   and five steps (remat full), through a NCCL group of world size 1 from
+   a ``FileStore``: the reference's mesh rule gives (1, 1) on one device,
+   so every block is whole (one H100 holds no second rank; the two-rank
+   sharding is held on the CPU on gloo).  Gates, each with a control that
+   must fail it: every step's loss and grad norm against G's same steps
+   within 1e-5 relative (bit equality expected; control: a run fed the
+   next step's batch); 96 ``ssd_scan`` launches a step; the checkpoint
+   written at the last step, restored in this process with no group,
+   equal to R's state as integer views (control: one leaf one ulp off);
+   ``quantize_int8`` and ``compress_grads_with_ef`` over R's first
+   gradient tree on the card against a CPU copy, codes, scales, restored
+   gradients and error feedback as integer views (control: codes by
+   truncation).  Printed: R's step time beside G's, its collective
+   count, its peak memory, the card's name and power limit.  R's
+   launches are added to B9's row.
+
 Each phase sets every launch counter to 0 just before it drives its
 path and reads them just after.  The output ends with one
 ``{"kernels": [...]}`` line (per kernel: its launches on its phase's
@@ -4157,7 +4175,7 @@ def training_phase(torch, seed, report: str):
     print(f"G CLI defaults (remat minimal, batch 8 x seq 128, 2 steps): "
           f"launches {got}, steps {json.dumps(short['steps'])}")
     restart_drill(torch)
-    return launches, b9
+    return launches, b9, {"steps": out["steps"], "peak": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -5827,6 +5845,215 @@ def q2_engine(torch, seed, mesh):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 23: model-parallel training (R)
+# ---------------------------------------------------------------------------
+# R runs launch/train.py --model-parallel 2 over a NCCL group of world size
+# 1: the mesh rule gives (1, 1), as the reference's does on one device, so
+# every block is whole and a step is G's arithmetic (the gathers move
+# nothing; the data-axis all_reduce of one rank returns its input, and the
+# division is by 1).  Its loss and grad norm must equal G's same steps:
+# bit equality is expected, the limit is the CPU tests' 1e-5 relative.
+# R runs G's five steps (the cosine schedule ties a step's values to the
+# run's total).  One H100 holds no second rank (NCCL refuses two ranks on
+# one device): the two-rank sharding is held on the CPU on gloo
+# (tests/test_torch_sharded_train.py).
+R_RTOL = 1e-5
+
+
+def r_gate(got, want) -> dict:
+    """max relative difference of the steps' loss and grad norm."""
+    return {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got, want))
+            for k in ("loss", "grad_norm")}
+
+
+def grads_capture():
+    """Patch the train step's AdamW to keep the first gradient tree it is
+    given (the reduced, cast gradients); returns ``(store, undo)``."""
+    from repro_torch.train import train_step as ts
+
+    orig, store = ts.adamw_update, []
+
+    def update(grads, *args, **kwargs):
+        if not store:
+            store.append(grads)
+        return orig(grads, *args, **kwargs)
+
+    ts.adamw_update = update
+
+    def undo():
+        ts.adamw_update = orig
+
+    return store, undo
+
+
+def compression_gate(torch, grads):
+    """``quantize_int8`` and ``compress_grads_with_ef`` over the gradient
+    tree on the card against a CPU copy, as integer views; the control
+    codes by truncation.  Returns the counts."""
+    from repro_torch.distributed import compression as C
+    from repro_torch.train.tree import leaves_with_path, tree_map
+
+    host = tree_map(lambda g: g.cpu(), grads)
+    leaves, codes, bad, trunc = 0, 0, 0, 0
+    for (_, g), (_, h) in zip(leaves_with_path(grads),
+                              leaves_with_path(host)):
+        q, sc = C.quantize_int8(g)
+        hq, hs = C.quantize_int8(h)
+        bad += int((q.cpu() != hq).sum()) + int(
+            sc.cpu().view(torch.int32) != hs.view(torch.int32))
+        t = torch.clamp(torch.trunc(g.float() / sc), -127, 127).to(
+            torch.int8)
+        trunc += int((t != q).sum())
+        leaves += 1
+        codes += q.numel()
+        del q, sc, t
+    card, card_ef = C.compress_grads_with_ef(grads,
+                                             C.init_error_feedback(grads))
+    cpu, cpu_ef = C.compress_grads_with_ef(host, C.init_error_feedback(host))
+    ef_bad = sum(int((as_bits(torch, a).cpu() != as_bits(torch, b)).sum())
+                 for tree, other in ((card, cpu), (card_ef, cpu_ef))
+                 for (_, a), (_, b) in zip(leaves_with_path(tree),
+                                           leaves_with_path(other)))
+    return {"leaves": leaves, "codes": codes, "codes_or_scales_differing":
+            bad, "restored_or_ef_differing": ef_bad,
+            "control_truncated_codes_differing": trunc}
+
+
+def model_parallel_phase(torch, seed, g_run):
+    """Phase 23 (R): mamba2-1.3b through launch/train.py --model-parallel 2
+    on a NCCL group of world size 1, at G's width, shape and steps;
+    ``g_run``: G's steps and peak memory."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.distributed import sharded
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.tree import leaves_with_path
+
+    t_phase = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_r_")
+    common = ["--steps", str(G_STEPS), "--seq-len", str(G_SEQ),
+              "--global-batch", str(G_BATCH), "--remat", "full",
+              "--log-every", "1", "--seed", str(seed), "--model-parallel",
+              "2"]
+    group, tmp = process_group(torch)
+    try:
+        print(f"R: launch/train.py --model-parallel 2, mamba2-1.3b at G's "
+              f"width and shape ({G_BATCH} x {G_SEQ}, remat full, {G_STEPS} "
+              f"steps, the first a warm-up), process group backend "
+              f"{dist.get_backend(group)}, world {dist.get_world_size(group)}"
+              f"; free disk for its checkpoint "
+              f"{shutil.disk_usage(ckpt_dir).free} bytes")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        store, undo = grads_capture()
+        coll0 = sharded.COLLECTIVES.launches
+        count = zero_counts()
+        try:
+            out = train_cli.run(train_args(
+                *common, "--checkpoint-every", str(G_STEPS),
+                "--checkpoint-dir", ckpt_dir), group=group)
+        finally:
+            undo()
+        launches = read(torch, count)
+        peak = torch.cuda.max_memory_allocated()
+        coll = sharded.COLLECTIVES.launches - coll0
+        # 96 a step: 48 layers in the forward and 48 in the remat recompute
+        expect("R train loop", launches, ssd_scan=96 * G_STEPS)
+        mesh = out["mesh"]
+        require(mesh.shape == {"data": 1, "model": 1} and mesh.world == 1,
+                f"R: the mesh rule gave {mesh.shape} on {mesh.world} ranks")
+        steps, g_steps = out["steps"], g_run["steps"]
+        require(len(steps) == len(g_steps) == G_STEPS,
+                f"R: {len(steps)} steps against G's {len(g_steps)}")
+        rel = r_gate(steps, g_steps)
+        step_s = mean([r["seconds"] for r in steps[1:]])
+        g_s = mean([r["seconds"] for r in g_steps[1:]])
+        print(f"R steps {json.dumps(steps)}")
+        bitwise = all(a[k] == b[k] for a, b in zip(steps, g_steps)
+                      for k in ("loss", "grad_norm"))
+        print(f"R against G's same steps: max relative difference {rel} "
+              f"(limit {R_RTOL}); equal bit for bit: {bitwise}")
+        require(all(v <= R_RTOL for v in rel.values()),
+                "R: the model-parallel run strays from G")
+        print(f"R step time {step_s} s (mean of steps 2-{G_STEPS}) beside "
+              f"G's {g_s} s, R's minus G's {1e3 * (step_s - g_s)} ms; "
+              f"collectives {coll} (on one rank every axis has size 1, so a "
+              f"step gathers and reduces nothing and every block is whole: "
+              f"a barrier after the checkpoint and one at the writer's "
+              f"drain); peak memory "
+              f"{peak} bytes beside G's {g_run['peak']} (R holds its first "
+              f"gradient tree for the compression gate); ssd_scan launches {launches['ssd_scan']} "
+              f"({launches['ssd_scan'] // G_STEPS} a step); {card_line()}")
+        require(coll == 2, f"R: {coll} collective calls where the two "
+                "checkpoint barriers are all a one-rank group makes")
+
+        # -- the int8 compression over R's first gradient tree ------------
+        require(len(store) == 1, "R: no gradient tree was captured")
+        comp = compression_gate(torch, store[0])
+        print(f"R compression over the first gradient tree (card vs CPU "
+              f"copy, integer views): {json.dumps(comp)}")
+        require(comp["codes_or_scales_differing"] == 0
+                and comp["restored_or_ef_differing"] == 0,
+                "R: int8 compression on the card differs from the CPU")
+        require(comp["control_truncated_codes_differing"] > 0,
+                "R control: codes by truncation pass as rounded ones")
+
+        del store
+
+        # -- the last step's checkpoint, restored with no group -----------
+        state = out["state"]
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        back = restore_checkpoint(ckpt_dir, G_STEPS, state)
+        restore_s = time.perf_counter() - t0
+        pairs = [(a, b) for (_, a), (_, b) in zip(leaves_with_path(back),
+                                                  leaves_with_path(state))]
+        same = same_bits(torch, pairs)
+        a, b = pairs[0]
+        flip = as_bits(torch, a).clone()
+        flip.view(-1)[0] += 1
+        ctrl = same_bits(torch, [(flip.view(a.dtype), b)] + pairs[1:])
+        print(f"R checkpoint at step {G_STEPS}: restored with no group in "
+              f"{restore_s} s, equal to R's state as integer views: {same}; "
+              f"control (one leaf one ulp off): {ctrl}")
+        require(same, "R: the restored checkpoint differs from R's state")
+        require(not ctrl, "R control: a leaf one ulp off passes")
+        del back, pairs, a, b, flip, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the control: R fed the next step's batch ---------------------
+        orig = SyntheticTokenDataset.batch_at
+        SyntheticTokenDataset.batch_at = lambda self, i: orig(self, i + 1)
+        try:
+            # one step: the first step's loss and grad norm come before any
+            # update, so the schedule does not enter them
+            wrong = train_cli.run(train_args(
+                *common, "--steps", "1", "--checkpoint-every", "0",
+                "--checkpoint-dir", ckpt_dir + "_control"),
+                group=group)["steps"]
+        finally:
+            SyntheticTokenDataset.batch_at = orig
+        ctrl_rel = r_gate(wrong[:1], g_steps[:1])
+        print(f"R control (fed the next step's batch): step 1 against G's "
+              f"step 1, relative {ctrl_rel}")
+        require(all(v > R_RTOL for v in ctrl_rel.values()),
+                "R control: a run fed the next batch passes the gate")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(ckpt_dir + "_control", ignore_errors=True)
+    print(f"R done in {time.perf_counter() - t_phase} s; {card_line()}")
+    return {"launches": launches}
+
+
 def run(torch, seed: int):
     from repro_torch.core import build_hierarchy, make_plan, rmq_walk_batch
     from repro_torch.kernels.hierarchy_build.ops import (
@@ -6088,8 +6315,8 @@ def run(torch, seed: int):
     gc.collect()
     torch.cuda.empty_cache()
     errors["ssd_scan"] = ssd_check(torch, seed)
-    trained, t_ssd = training_phase(torch, seed,
-                                    reports.get("ssd_scan", ""))
+    trained, t_ssd, g_run = training_phase(torch, seed,
+                                           reports.get("ssd_scan", ""))
     main_launches["ssd_scan"] = trained["ssd_scan"]
     print(f"G ssd_scan at {ssd_shape()[:5]}, chunk {ssd_shape()[5]} (ms, "
           f"CUDA events): {json.dumps(t_ssd)}")
@@ -6141,6 +6368,12 @@ def run(torch, seed: int):
                 "rmq_scan", "hierarchy_update"):
         errors[key] = max(errors[key], sharded["q1"]["err"],
                           sharded["q2"]["err"])
+
+    # -- phase 23: model-parallel training -----------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    mp = model_parallel_phase(torch, seed, g_run)
+    main_launches["ssd_scan"] += mp["launches"]["ssd_scan"]
 
     out = []
     for name, meta in KERNELS.items():

@@ -176,11 +176,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None,
     held in ``dtype`` (default: the compute dtype; the train path asks for
     float32 masters), vectors (norm scales, the hybrid's betas) and the
     SSM's ``conv_w`` in float32.  The draws differ from the
-    reference's ``jax.random``.
+    reference's ``jax.random``.  ``device="meta"`` gives meta tensors of
+    the same shapes and dtypes, at any width.
     """
     init_layer = _INIT_LAYER[_layer_kind(cfg)]
     dev = resolve_device(device)
     dtype = dtype or L.cdtype(cfg)
+    if dev.type == "meta":
+        # shapes and dtypes only (the sharding rules at full width): a
+        # generator cannot live on the meta device, so trace the CPU init
+        # with fake tensors and hand back meta tensors
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from repro_torch.train.tree import tree_map
+
+        with FakeTensorMode():
+            fake = init_params(cfg, seed, "cpu", dtype)
+        return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device=dev), fake)
     gen = torch.Generator(device=dev).manual_seed(seed)
     embed = torch.randn((cfg.padded_vocab, cfg.d_model), generator=gen,
                         device=dev, dtype=torch.float32) * 0.02

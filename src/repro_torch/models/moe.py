@@ -1,8 +1,12 @@
 """Mixture-of-Experts layer: top-k routing, capacity dispatch, shared expert.
 
-The port of ``repro.models.moe`` on one device (the reference's
-``shard_map`` branch belongs to sharded training, ROADMAP A10b).  The reference
-computes the layer with gathers, a scatter-add and einsums, outside any
+The port of ``repro.models.moe``, over the whole micro-batch on each rank:
+one device, or a mesh whose ``model`` axis alone is > 1, where every rank
+holds every row and the reference's per-data-shard ``shard_map`` dispatch
+computes the same layer.  On a data axis > 1 the reference routes, counts
+capacity and takes the aux loss over the whole micro-batch, which a rank
+holding its own rows cannot; ``launch/train.py`` refuses it (ROADMAP
+A10c).  The reference computes the layer with gathers, a scatter-add and einsums, outside any
 Pallas kernel; here the same steps are PyTorch operations and the expert
 FFNs batched products over the expert axis (``torch.bmm``).  What the
 code does, where the reference's docstring says otherwise:

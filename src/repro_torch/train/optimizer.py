@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -78,13 +78,16 @@ def cosine_schedule(tc: TrainConfig) -> Callable[[torch.Tensor], torch.Tensor]:
 
 
 @torch.no_grad()
-def adamw_update(grads, state: AdamWState, params, tc: TrainConfig
+def adamw_update(grads, state: AdamWState, params, tc: TrainConfig,
+                 grad_norm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """One AdamW step, in place.  Returns ``(params, state, metrics)``:
-    the same parameter and moment tensors, updated, and a new count."""
+    the same parameter and moment tensors, updated, and a new count.
+    ``grad_norm`` is the norm to clip by where ``grads`` are one rank's
+    blocks of the whole gradients (default: the norm of ``grads``)."""
     count = state.count + 1
     lr = cosine_schedule(tc)(count)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = torch.clamp(tc.grad_clip / (gnorm + 1e-9), max=1.0)
     b1, b2 = tc.beta1, tc.beta2
     cf = count.float()

@@ -32,13 +32,17 @@ on the device the state lives on.
 
 AdamW updates the masters and moments in place (see
 :mod:`repro_torch.train.optimizer`); the returned state shares them.
+
+A step is the gradient (:func:`build_grad_fn`) and then the update.
+:func:`build_train_step` runs both in one process, or on a mesh of ranks,
+each holding its blocks of the state and its rows of the batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -47,11 +51,16 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models.layers import cdtype
 from repro_torch.models.lm import forward, init_params
 from repro_torch.train.loss import chunked_next_token_loss, next_token_loss
-from repro_torch.train.optimizer import AdamWState, adamw_init, adamw_update
+from repro_torch.train.optimizer import (
+    AdamWState,
+    adamw_init,
+    adamw_update,
+    global_norm,
+)
 from repro_torch.train.tree import leaves_with_path, stacked_ndim, tree_map
 
-__all__ = ["TrainState", "build_train_step", "init_train_state",
-           "make_remat"]
+__all__ = ["TrainState", "build_grad_fn", "build_train_step",
+           "init_train_state", "make_remat"]
 
 REMAT_POLICIES = ("none", "minimal", "full", "names")
 
@@ -64,11 +73,16 @@ class TrainState:
 
 
 def init_train_state(cfg: ModelConfig, tc: TrainConfig, seed: Optional[int]
-                     = None, device=None) -> TrainState:
+                     = None, device=None,
+                     blocks: Optional[Callable] = None) -> TrainState:
     """float32 masters from ``init_params(seed)`` (default ``tc.seed``) and
-    zeroed AdamW moments in ``tc.optimizer_state_dtype``."""
+    zeroed AdamW moments in ``tc.optimizer_state_dtype``.  ``blocks``,
+    where given, cuts the whole masters to this rank's blocks before the
+    moments are made, so the moments are never whole."""
     params = init_params(cfg, seed=tc.seed if seed is None else seed,
                          device=device, dtype=torch.float32)
+    if blocks is not None:
+        params = blocks(params)
     return TrainState(
         params=params,
         opt=adamw_init(params, tc.optimizer_state_dtype),
@@ -127,17 +141,16 @@ def cast_params(params, dtype: torch.dtype):
     return tree_map(one, params, with_path=True)
 
 
-def build_train_step(cfg: ModelConfig, tc: TrainConfig,
-                     attn_impl: str = "auto"):
-    """Returns ``train_step(state, batch) -> (state, metrics)``.
+def build_grad_fn(cfg: ModelConfig, tc: TrainConfig,
+                  attn_impl: str = "auto") -> Callable:
+    """Returns ``grads_of(params, tokens, prefix, reduce=None) -> (grads,
+    loss, aux)``: the gradients of the minimized loss (the next-token loss
+    plus the MoE aux loss) in ``grad_allreduce_dtype``, a tree like
+    ``params``, over ``microbatches`` micro-batches of the rows.
 
-    ``batch``: ``{"tokens": (B, S) integer tensor}`` on the state's device,
-    and for a frontend model an optional ``"prefix"`` (B, F, D) of
-    embeddings.  A frontend model's loss skips its F prefix positions
-    (``prefix_len``), as the reference's does.  The minimized loss is the
-    next-token loss plus the MoE aux loss; the metrics report both.
-    ``attn_impl`` goes to ``forward``.
-    """
+    ``reduce(grads, loss, aux)``, where given, runs on each micro-batch's
+    float32 gradients (a list, in leaf order) and losses before the cast
+    (see :mod:`repro_torch.distributed.sharded`), and returns them."""
     remat = make_remat(tc.remat_policy)
     prefix_len = cfg.frontend_tokens if cfg.frontend else 0
     acc_dtype = getattr(torch, tc.grad_allreduce_dtype)
@@ -156,42 +169,92 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig,
             loss = next_token_loss(out, tokens, prefix_len=prefix_len)
         return loss + aux, loss, aux
 
-    def single_micro(params, tokens, prefix):
+    def single_micro(params, tokens, prefix, reduce):
         """Gradients in ``acc_dtype`` (a tree like ``params``), loss, aux."""
         with torch.enable_grad():
             leaves = tree_map(lambda p: p.detach().requires_grad_(True),
                               params)
             total, loss, aux = loss_fn(leaves, tokens, prefix)
             flat = [t for _, t in leaves_with_path(leaves)]
-            grads = iter(torch.autograd.grad(total, flat))
-        grads = tree_map(lambda _: next(grads).to(acc_dtype), params)
-        return grads, loss.detach(), aux.detach()
+            grads = list(torch.autograd.grad(total, flat))
+        loss, aux = loss.detach(), aux.detach()
+        if reduce is not None:
+            grads, loss, aux = reduce(grads, loss, aux)
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it).to(acc_dtype), params)
+        return grads, loss, aux
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        tokens, prefix = batch["tokens"], batch.get("prefix")
+    def grads_of(params, tokens, prefix=None, reduce=None):
         k = tc.microbatches
         if k == 1:
-            grads, loss, aux = single_micro(state.params, tokens, prefix)
-        else:
-            b = tokens.shape[0]
-            if b % k:
-                raise ValueError(f"batch {b} is not a multiple of "
-                                 f"{k} microbatches")
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=acc_dtype, device=p.device), state.params)
-            loss = aux = torch.zeros((), dtype=torch.float32,
-                                     device=tokens.device)
-            parts = (prefix.reshape(k, b // k, *prefix.shape[1:])
-                     if prefix is not None else [None] * k)
-            for t, pre in zip(tokens.reshape(k, b // k, *tokens.shape[1:]),
-                              parts):
-                g, l_i, a_i = single_micro(state.params, t, pre)
-                grads = tree_map(torch.add, grads, g)
-                loss, aux = loss + l_i, aux + a_i
-            grads = tree_map(lambda g: g / k, grads)
-            loss, aux = loss / k, aux / k
+            return single_micro(params, tokens, prefix, reduce)
+        b = tokens.shape[0]
+        if b % k:
+            raise ValueError(f"batch {b} is not a multiple of "
+                             f"{k} microbatches")
+        grads = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=acc_dtype, device=p.device), params)
+        loss = aux = torch.zeros((), dtype=torch.float32,
+                                 device=tokens.device)
+        parts = (prefix.reshape(k, b // k, *prefix.shape[1:])
+                 if prefix is not None else [None] * k)
+        for t, pre in zip(tokens.reshape(k, b // k, *tokens.shape[1:]),
+                          parts):
+            g, l_i, a_i = single_micro(params, t, pre, reduce)
+            grads = tree_map(torch.add, grads, g)
+            loss, aux = loss + l_i, aux + a_i
+        grads = tree_map(lambda g: g / k, grads)
+        return grads, loss / k, aux / k
+
+    return grads_of
+
+
+def build_train_step(cfg: ModelConfig, tc: TrainConfig,
+                     attn_impl: str = "auto", mesh=None, param_specs=None,
+                     batch_axes: Tuple[str, ...] = ()):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``batch``: ``{"tokens": (B, S) integer tensor}`` on the state's device,
+    and for a frontend model an optional ``"prefix"`` (B, F, D) of
+    embeddings.  A frontend model's loss skips its F prefix positions
+    (``prefix_len``), as the reference's does.  The minimized loss is the
+    next-token loss plus the MoE aux loss; the metrics report both.
+    ``attn_impl`` goes to ``forward``.
+
+    On a ``mesh`` with a process group the state holds this rank's blocks
+    (``param_specs``: the parameters' specs, which m and v share) and the
+    batch this rank's rows (split over ``batch_axes``).  A step then:
+
+    1. gathers the whole parameters;
+    2. takes the gradients on this rank's rows;
+    3. reduces them over ``batch_axes`` in float32, before the cast to
+       ``grad_allreduce_dtype``, as the reference's cross-shard sum runs
+       inside its gradient;
+    4. clips by the global norm of the whole reduced gradients;
+    5. runs AdamW on this rank's blocks of the parameters, m and v; the
+       step and the count are replicated.
+
+    The loss, aux loss and grad norm are the whole batch's, as the
+    one-process step reports them.  Without a group every leaf is whole
+    and these steps move nothing.
+    """
+    from repro_torch.distributed import sharded
+
+    grads_of = build_grad_fn(cfg, tc, attn_impl)
+
+    def reduce(grads, loss, aux):
+        return sharded.reduce_grads(grads, loss, aux, mesh, batch_axes)
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        params = sharded.gather(state.params, param_specs, mesh)
+        grads, loss, aux = grads_of(params, batch["tokens"],
+                                    batch.get("prefix"), reduce=reduce)
+        del params
+        gnorm = global_norm(grads)      # of the whole gradients
+        grads = sharded.local_blocks(grads, param_specs, mesh)
         params, opt, opt_metrics = adamw_update(grads, state.opt,
-                                                state.params, tc)
+                                                state.params, tc,
+                                                grad_norm=gnorm)
         metrics = {"loss": loss, "aux_loss": aux, "step": state.step + 1,
                    **opt_metrics}
         return TrainState(params=params, opt=opt, step=state.step + 1), metrics

@@ -2,7 +2,8 @@
 
 The port's stand-in for the ``jax.tree`` functions the train path uses.
 Dict entries keep their insertion order (JAX sorts dict keys; the port's
-leaf order changes only the order of sums such as the global norm).
+leaf order changes only the order of sums such as the global norm).  A
+tuple whose class sets ``tree_leaf`` (a sharding spec) is one leaf.
 """
 
 from __future__ import annotations
@@ -15,12 +16,16 @@ __all__ = ["leaves_with_path", "path_str", "stacked_ndim", "tree_map"]
 Path = Tuple[Any, ...]
 
 
+def _is_leaf(tree) -> bool:
+    return getattr(tree, "tree_leaf", False)
+
+
 def leaves_with_path(tree: Any, path: Path = ()) -> Iterator[Tuple[Path, Any]]:
     """``(path, leaf)`` for every leaf, depth first."""
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from leaves_with_path(v, path + (k,))
-    elif isinstance(tree, (list, tuple)):
+    elif isinstance(tree, (list, tuple)) and not _is_leaf(tree):
         for i, v in enumerate(tree):
             yield from leaves_with_path(v, path + (i,))
     elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
@@ -39,7 +44,7 @@ def tree_map(fn: Callable, tree: Any, *rest: Any, with_path: bool = False,
         return {k: tree_map(fn, v, *(r[k] for r in rest),
                             with_path=with_path, path=path + (k,))
                 for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not _is_leaf(tree):
         out = [tree_map(fn, v, *(r[i] for r in rest), with_path=with_path,
                         path=path + (i,))
                for i, v in enumerate(tree)]

@@ -477,16 +477,15 @@ def test_launch_serve_on_the_cpu(capsys):
 
 
 def test_launch_train_on_the_cpu(tmp_path):
-    """Two steps from ``SyntheticTokenDataset`` batches; finite losses; a
-    mesh still raises with A10."""
+    """Two steps from ``SyntheticTokenDataset`` batches; finite losses;
+    ``--model-parallel 2`` in one process (the (1, 1) mesh, the
+    reference's rule on one device) trains with the same losses."""
     from repro_torch.launch import train
 
-    out = train.run(train.parse_args([
-        "--arch", ARCH, "--smoke", "--steps", "2", "--seq-len", "16",
-        "--global-batch", "2", "--device", "cpu", "--checkpoint-every", "0",
-        "--checkpoint-dir", str(tmp_path), "--log-every", "1"]))
+    args = ["--arch", ARCH, "--smoke", "--steps", "2", "--seq-len", "16",
+            "--global-batch", "2", "--device", "cpu", "--checkpoint-every",
+            "0", "--checkpoint-dir", str(tmp_path), "--log-every", "1"]
+    out = train.run(train.parse_args(args))
     assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
-    with pytest.raises(NotImplementedError, match="A10"):
-        train.run(train.parse_args([
-            "--arch", ARCH, "--smoke", "--steps", "1", "--device", "cpu",
-            "--model-parallel", "2", "--checkpoint-dir", str(tmp_path)]))
+    mp = train.run(train.parse_args(args + ["--model-parallel", "2"]))
+    assert mp["losses"] == out["losses"]

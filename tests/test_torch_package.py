@@ -93,6 +93,10 @@ SLICE_MODULES = [
     "repro_torch.serving.tier",
     "repro_torch.serving.aio",
     "repro_torch.serving.metrics",
+    "repro_torch.distributed.fault_tolerance",
+    "repro_torch.distributed.compression",
+    "repro_torch.distributed.shardings",
+    "repro_torch.distributed.sharded",
 ]
 
 
@@ -121,7 +125,7 @@ NOT_YET = {}
 
 
 @pytest.mark.parametrize("pkg", ["core", "obs", "configs", "tune", "qe",
-                                 "serving"])
+                                 "serving", "distributed"])
 def test_the_reference_public_names_exist(pkg):
     ref = importlib.import_module(f"repro.{pkg}")
     port = importlib.import_module(f"repro_torch.{pkg}")

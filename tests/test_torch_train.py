@@ -359,5 +359,10 @@ def test_cli_runs_and_refuses_a_mesh(tmp_path):
         env=dict(os.environ, PYTHONPATH=os.path.join(root, "src")))
     assert out.returncode == 0, out.stderr
     assert "final loss" in out.stdout
-    with pytest.raises(NotImplementedError, match="A10"):
-        train_cli.main(_cli(tmp_path, "mp", "--model-parallel", "2"))
+    # one process is the (1, 1) mesh, the reference's rule on one device:
+    # --model-parallel 2 trains as --model-parallel 1 does
+    one = train_cli.run(train_cli.parse_args(_cli(tmp_path, "mp1")))
+    two = train_cli.run(train_cli.parse_args(
+        _cli(tmp_path, "mp2", "--model-parallel", "2")))
+    assert two["mesh"].shape == {"data": 1, "model": 1}
+    assert len(two["losses"]) == 4 and two["losses"] == one["losses"]
