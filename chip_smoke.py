@@ -403,6 +403,36 @@ outside the repository.  Phases:
    count, its peak memory, the card's name and power limit.  R's
    launches are added to B9's row.
 
+24. MoE training (S; run after R): qwen2-moe-a2.7b at full width (d
+   2048, 60 experts top-4 of d_ff 1408, a shared expert of 5632, vocab
+   151936) cut to 4 layers (the dry run predicts 65.3 GB at 4, 73.3 at
+   5), 4 x 2048 tokens (from 4096 the MoE takes the per-shard branch),
+   remat full, three steps through ``launch/train.py --model-parallel 2``
+   on a NCCL group of world size 1.  Gates, each with a control that
+   must fail it: step 0's loss and grad norm with B8 against the plain
+   attention, each run's expert choices replayed from the B8 run's, the
+   limits the larger of a stated floor and ten times the plain path's
+   own repeat (control: the shared experts' output zeroed); the aux loss
+   of step 1 by hand from the router's probabilities and counts
+   (control: the first choice counted alone); 8 B8 launches a step, the
+   forward and the remat recompute (control: the plain path's step).
+   Printed: step seconds, tokens/s, peak memory beside the dry run's,
+   collectives.  S's launches are added to B8's row.
+
+25. the dry run with the card's constants (T; run after S): the
+   roofline's constants by ``torch.cuda.get_device_name(0)``;
+   ``run_cell`` on G's cell (mamba2-1.3b train, 8 x 2048, remat full,
+   mesh (1, 1)) on fake tensors; gates: its argument bytes equal to G's
+   train state and batch on the card (control: one leaf left out), its
+   FLOPs equal to ``FlopCounterMode`` around one real step on the card
+   plus 96 B9 launches' operation count, which the counter cannot see
+   (control: 47 layers).  Printed: the predicted peak beside the step's
+   measured one and G's, the cell's roofline terms and
+   ``roofline_fraction`` beside G's step, and the single-pod mesh's
+   table of ``python -m repro_torch.launch.dryrun`` run in a subprocess
+   over qwen1.5-0.5b's four shapes (the whole 40-cell sweep takes
+   minutes on the host: PERF.md holds it).
+
 Each phase sets every launch counter to 0 just before it drives its
 path and reads them just after.  The output ends with one
 ``{"kernels": [...]}`` line (per kernel: its launches on its phase's
@@ -3975,6 +4005,18 @@ def ssd_ptxas(report: str):
         ("chunk_kernel<false>", "chunk_kernelILb0"))}
 
 
+def ssd_flops(b: int, l: int, h: int, p: int, n: int, q: int) -> int:
+    """B9's floating-point operations a launch, counted here and not taken
+    from the port: twice the multiply-adds of its four products."""
+    nc = l // q
+    tri = q * (q + 1) // 2                # the causal pairs j <= i
+    macs = (b * nc * tri * n              # C B^T once per (b, chunk)
+            + b * nc * h * tri * p        # the causal in-chunk product
+            + b * nc * h * q * n * p      # the carried-state term
+            + b * nc * h * q * p * n)     # the state update
+    return 2 * macs
+
+
 def time_ssd(torch, seed, report: str, shape=None, backward: bool = True):
     """B9 at ``shape`` (default the training shape) beside its bound, the
     CUDA-core figure and its plain version; each CUDA kernel's share of a
@@ -3985,22 +4027,17 @@ def time_ssd(torch, seed, report: str, shape=None, backward: bool = True):
 
     b, l, h, p, n, q = shape or ssd_shape()
     dtx, la, bm, cm = ssd_inputs(torch, seed + 31, b, l, h, p, n)
-    nc = l // q
-    tri = q * (q + 1) // 2                # the causal pairs j <= i
-    macs = (b * nc * tri * n              # C B^T once per (b, chunk)
-            + b * nc * h * tri * p        # the causal in-chunk product
-            + b * nc * h * q * n * p      # the carried-state term
-            + b * nc * h * q * p * n)     # the state update
+    flops = ssd_flops(b, l, h, p, n, q)
     nbytes = 4 * (2 * dtx.numel() + la.numel() + bm.numel() + cm.numel())
     out = {
         "ms": time_ms(torch, lambda: ssd_ops.ssd_scan_cuda(
             dtx, la, bm, cm, chunk=q), 10),
         "plain_ms": time_ms(torch, lambda: ssd_chunked_ref(
             dtx, la, bm, cm, chunk=q), 3, warmup=1),
-        "flops": 2 * macs, "bytes": nbytes,
+        "flops": flops, "bytes": nbytes,
         # float32 accuracy on the tensor cores: three TF32 passes
-        "bound": bound_ms(nbytes, 3 * 2 * macs, TF32_OPS_PER_S),
-        "cuda_core_bound": bound_ms(nbytes, 2 * macs),
+        "bound": bound_ms(nbytes, 3 * flops, TF32_OPS_PER_S),
+        "cuda_core_bound": bound_ms(nbytes, flops),
     }
     out["bound_share"] = out["bound"][0] / out["ms"]
     prof = profile_top(torch, lambda: [ssd_ops.ssd_scan_cuda(
@@ -6054,6 +6091,405 @@ def model_parallel_phase(torch, seed, g_run):
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: qwen2-moe-a2.7b training, the MoE under the mesh (S)
+# ---------------------------------------------------------------------------
+# Full width (d 2048, 60 experts top-4 of d_ff 1408, a shared expert of
+# 5632, vocab 151936), depth cut to what one card holds with float32
+# masters and AdamW: the dry run (launch/cells.py) predicts a peak of 65.3
+# GB at 4 layers and 73.3 GB at 5, so 4.  A micro-batch of 4 x 2048 =
+# 8192 tokens, so the MoE takes the per-shard branch (from 4096 tokens on
+# a mesh with a model axis).
+S_LAYERS, S_BATCH, S_SEQ, S_STEPS = 4, 4, 2048, 3
+# Step 0's loss and grad norm with B8 against the plain attention, each
+# run's expert choices replayed from the B8 run's, so that only the
+# attention's bf16 rounding differs.  The plain path's own repeat read 0 on
+# the H100, so the limits are ten times the gap B8 showed there, rounded
+# up (1.99e-6 on the loss, 1.37e-4 on the grad norm, the same in two
+# runs), or ten times the repeat where that is larger.  The control must
+# fail both.
+S_LOSS_LIMIT, S_GNORM_LIMIT = 2e-5, 1.5e-3
+# the aux loss by hand: float32 sums in other orders
+S_AUX_RTOL = 1e-5
+
+
+@contextlib.contextmanager
+def s_config(layers: int):
+    """``get_config("qwen2-moe-a2.7b")`` at ``layers`` layers while the
+    train CLI runs."""
+    import dataclasses
+
+    from repro_torch.configs import base
+
+    orig = base.get_config
+    base.get_config = lambda arch: dataclasses.replace(
+        orig(arch), num_layers=layers)
+    try:
+        yield base.get_config("qwen2-moe-a2.7b")
+    finally:
+        base.get_config = orig
+
+
+@contextlib.contextmanager
+def routes_kept(log):
+    """Append each ``moe.route`` call's ``(probs, top_e)`` to ``log``."""
+    from repro_torch.models import moe
+
+    orig = moe.route
+
+    def route(p, xt, cfg):
+        out = orig(p, xt, cfg)
+        log.append((out[0].detach(), out[2]))
+        return out
+
+    moe.route = route
+    try:
+        yield log
+    finally:
+        moe.route = orig
+
+
+@contextlib.contextmanager
+def shared_experts_zeroed():
+    """Every MoE layer's shared expert output times zero (still
+    differentiable): the control of S's step-0 gate."""
+    from repro_torch.models import moe
+
+    orig = moe.moe_apply
+
+    def apply(p, x, cfg, **kwargs):
+        down = dict(p["shared"]["down"], w=p["shared"]["down"]["w"] * 0)
+        return orig(dict(p, shared=dict(p["shared"], down=down)), x, cfg,
+                    **kwargs)
+
+    moe.moe_apply = apply
+    try:
+        yield
+    finally:
+        moe.moe_apply = orig
+
+
+def aux_by_hand(cfg, routes, first_choice_only=False):
+    """The Switch aux loss summed over the layers, from each layer's
+    router ``probs`` and expert choices, in float64 on the host."""
+    total = 0.0
+    for probs, top_e in routes:
+        probs = probs.double().cpu()
+        chosen = (top_e[:, :1] if first_choice_only else top_e).cpu()
+        counts = chosen.reshape(-1).bincount(minlength=cfg.num_experts)
+        t = probs.shape[0]
+        total += cfg.router_aux_loss_coef * cfg.num_experts * float(
+            (probs.mean(dim=0) * counts.double() / t).sum())
+    return total
+
+
+def moe_training_phase(torch, seed):
+    """Phase 24 (S): qwen2-moe-a2.7b at full width, 4 layers, through
+    launch/train.py --model-parallel 2 on a NCCL group of world size 1."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.distributed import sharded
+    from repro_torch.launch import cells
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.train_step import (
+        build_train_step,
+        init_train_state,
+    )
+
+    t_phase = time.perf_counter()
+    group, tmp = process_group(torch)
+    try:
+        with s_config(S_LAYERS) as cfg:
+            tc = TrainConfig(total_steps=S_STEPS, warmup_steps=1,
+                             seq_len=S_SEQ, global_batch=S_BATCH,
+                             remat_policy="full", seed=seed)
+            fn, args, _ = cells.train_cell(
+                cfg, Mesh(("data", "model"), (1, 1), torch.device("meta")),
+                S_SEQ, S_BATCH, tc=tc)
+            predicted = cells.trace(fn, args)
+            s_peak = predicted["argument_bytes"] + predicted["temp_bytes"]
+            del fn, args
+            print(f"S: {cfg.name} at full width and {S_LAYERS} layers "
+                  f"({cfg.num_params()} parameters; d {cfg.d_model}, "
+                  f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok}"
+                  f" of d_ff {cfg.moe_d_ff}, shared {cfg.shared_expert_d_ff}"
+                  f", vocab {cfg.vocab_size}), batch {S_BATCH} x {S_SEQ}, "
+                  f"remat full, {S_STEPS} steps (the first a warm-up), "
+                  f"through launch/train.py --model-parallel 2 on "
+                  f"{dist.get_backend(group)} world "
+                  f"{dist.get_world_size(group)}; the dry run's peak for "
+                  f"this step {s_peak} bytes")
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            routes, coll0 = [], sharded.COLLECTIVES.launches
+            count = zero_counts()
+            with routes_kept(routes):
+                out = train_cli.run(train_cli.parse_args([
+                    "--arch", "qwen2-moe-a2.7b", "--device", "cuda",
+                    "--steps", str(S_STEPS), "--seq-len", str(S_SEQ),
+                    "--global-batch", str(S_BATCH), "--remat", "full",
+                    "--checkpoint-every", "0", "--log-every", "1",
+                    "--seed", str(seed), "--model-parallel", "2",
+                    "--checkpoint-dir", os.path.join(tmp, "ckpt")]),
+                    group=group)
+            launches = read(torch, count)
+            peak = torch.cuda.max_memory_allocated()
+            coll = sharded.COLLECTIVES.launches - coll0
+        per_step = 2 * S_LAYERS     # the forward and the remat recompute
+        expect("S train loop", launches, flash_attention=per_step * S_STEPS)
+        require(out["mesh"].shape == {"data": 1, "model": 1},
+                f"S: the mesh rule gave {out['mesh'].shape}")
+        steps = out["steps"]
+        require(len(steps) == S_STEPS and all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+            for r in steps), f"S: steps {steps}")
+        step_s = mean([r["seconds"] for r in steps[1:]])
+        tokens = S_BATCH * S_SEQ
+        print(f"S steps {json.dumps(steps)}")
+        print(f"S step time {step_s} s (mean of steps 2-{S_STEPS}), "
+              f"{tokens / step_s} tokens/s; peak memory {peak} bytes beside "
+              f"the dry run's {s_peak} (arguments "
+              f"{predicted['argument_bytes']}, temps "
+              f"{predicted['temp_bytes']}); collectives {coll} in the run "
+              f"(the checkpoint writer's drain barrier; none a step: on one "
+              f"rank every axis has size 1); flash_attention launches "
+              f"{launches['flash_attention']} ({per_step} a step); "
+              f"{card_line()}")
+        require(coll == 1, f"S: {coll} collective calls where one rank "
+                "makes only the writer's drain barrier")
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- the aux loss by hand from step 0's forward -------------------
+        # a step calls the router 2L times: the forward, then the remat
+        # recompute (in the backward's order)
+        forward = routes[:S_LAYERS]
+        hand = aux_by_hand(cfg, forward)
+        wrong = aux_by_hand(cfg, forward, first_choice_only=True)
+        got = steps[0]["aux_loss"]
+        print(f"S aux loss of step 1: {got}; by hand from the router's "
+              f"probs and counts {hand} (relative {abs(got - hand) / hand}, "
+              f"limit {S_AUX_RTOL}); control (the first choice counted "
+              f"alone) {wrong} (relative {abs(got - wrong) / wrong})")
+        require(abs(got - hand) <= S_AUX_RTOL * hand,
+                "S: the aux loss differs from its value by hand")
+        require(abs(got - wrong) > S_AUX_RTOL * wrong,
+                "S control: the first choice alone passes the aux gate")
+        sets = [top_e for _, top_e in routes[:per_step]]
+        del routes, forward
+
+        # -- step 0 with B8 against the plain attention, routing replayed --
+        batch = {"tokens": torch.from_numpy(SyntheticTokenDataset(
+            cfg.vocab_size, S_SEQ, S_BATCH, seed=seed).batch_at(0)[
+                "tokens"]).cuda()}
+
+        def step0(attn_impl, control=None):
+            state = init_train_state(cfg, tc, device="cuda")
+            count = zero_counts()
+            with routing_replay(sets), (control or contextlib.nullcontext()):
+                _, m = build_train_step(cfg, tc, attn_impl=attn_impl)(
+                    state, batch)
+            got = read(torch, count)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+            return {k: float(m[k]) for k in ("loss", "grad_norm")}, got
+
+        mine, mine_launches = step0("auto")
+        plain, plain_launches = step0("ref")
+        again, _ = step0("ref")
+        wrong, _ = step0("ref", shared_experts_zeroed())
+
+        def rel(a, b):
+            return {k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
+
+        repeat = rel(again, plain)
+        limits = {"loss": max(S_LOSS_LIMIT, 10 * repeat["loss"]),
+                  "grad_norm": max(S_GNORM_LIMIT, 10 * repeat["grad_norm"])}
+        ok, ctrl = rel(mine, plain), rel(wrong, plain)
+        print(f"S step 0 (expert choices replayed from the B8 run), B8 vs "
+              f"the plain attention: {mine} (the loop's step 1: "
+              f"{steps[0]['loss']}, {steps[0]['grad_norm']}) vs {plain}, "
+              f"relative {ok}; the "
+              f"plain path's repeat {again}, relative {repeat}; limits "
+              f"{limits}; control (the shared experts' output zeroed): "
+              f"{wrong}, relative {ctrl}; flash_attention launches a step "
+              f"{mine_launches['flash_attention']} with B8, "
+              f"{plain_launches['flash_attention']} on the plain path")
+        require(all(ok[k] <= limits[k] for k in ok),
+                "S: the step with B8 strays from the plain attention's")
+        require(all(ctrl[k] > limits[k] for k in ctrl),
+                "S control: zeroed shared experts pass a step-0 limit")
+        expect("S one step", mine_launches, flash_attention=per_step)
+        require(plain_launches["flash_attention"] != per_step,
+                "S control: the plain path launches as many B8 as a step")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"S done in {time.perf_counter() - t_phase} s; {card_line()}")
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the dry run with the card's constants (T)
+# ---------------------------------------------------------------------------
+T_ARCH = "mamba2-1.3b"      # G's cell
+T_CLI_ARCH = "qwen1.5-0.5b"  # the CLI's four shapes (the whole sweep: PERF.md)
+
+
+def tree_storage_bytes(torch, tree, skip: int = -1) -> int:
+    """Bytes of the distinct storages of a tree's tensors, the ``skip``-th
+    tensor left out."""
+    from repro_torch.train.tree import leaves_with_path
+
+    seen = {}
+    tensors = [t for _, t in leaves_with_path(tree)
+               if isinstance(t, torch.Tensor)]
+    for i, t in enumerate(tensors):
+        if i != skip:
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def dry_run_phase(torch, seed, g_run):
+    """Phase 25 (T): ``run_cell`` on G's cell against one real step of G's
+    model on the card, the roofline with the card's constants, and the
+    CLI over one arch's four shapes in a subprocess."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import cells
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.train_step import (
+        build_train_step,
+        init_train_state,
+    )
+    from repro_torch.tune import roofline
+
+    t_phase = time.perf_counter()
+    # the CLI over one arch's four shapes: four subprocesses on the host,
+    # started first, read at the end
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_t_")
+    cli = {shape: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         T_CLI_ARCH, "--shape", shape, "--mesh", "single", "--out",
+         os.path.join(tmp, f"{shape}.jsonl")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+        for shape in cells.SHAPES}
+    try:
+        name = torch.cuda.get_device_name(0)
+        dev = roofline.constants()
+        print(f"T: roofline constants for {name!r} (spec sheet, not "
+              f"measured): {json.dumps(dev)}; {card_line()}")
+        mesh = Mesh(("data", "model"), (1, 1), torch.device("meta"))
+        spec = {"kind": "train", "seq_len": G_SEQ, "global_batch": G_BATCH}
+        t0 = time.perf_counter()
+        cell = cells.run_cell(T_ARCH, "G", mesh, "G (1, 1)",
+                              remat_policy="full", spec=spec)
+        fewer = cells.run_cell(T_ARCH, "G", mesh, "G (1, 1)",
+                               remat_policy="full", spec=spec,
+                               layers_override=47)
+        cell_s = time.perf_counter() - t0
+        print(f"T run_cell on G's cell ({T_ARCH} train, {G_BATCH} x {G_SEQ}, "
+              f"remat full, mesh (1, 1)), with 47 layers too, in {cell_s} s: "
+              f"{json.dumps(cell.to_json())}")
+
+        # -- one real step of G's model on the card, counted ------------------
+        cfg = get_config(T_ARCH)
+        tc = TrainConfig(total_steps=G_STEPS, warmup_steps=1, seq_len=G_SEQ,
+                         global_batch=G_BATCH, remat_policy="full", seed=seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(cfg, tc, device="cuda")
+        batch = {"tokens": torch.from_numpy(SyntheticTokenDataset(
+            cfg.vocab_size, G_SEQ, G_BATCH, seed=seed).batch_at(0)["tokens"])
+            .cuda()}
+        args_bytes = tree_storage_bytes(torch, (state, batch))
+        short = tree_storage_bytes(torch, (state, batch), skip=0)
+        step = build_train_step(cfg, tc)
+        count = zero_counts()
+        counter = FlopCounterMode(display=False)
+        with counter:
+            state, _ = step(state, batch)
+        launches = read(torch, count)
+        peak = torch.cuda.max_memory_allocated()
+        del state, batch, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        expect("T one step", launches, ssd_scan=2 * cfg.num_layers)
+        g_shape = (G_BATCH, G_SEQ, cfg.ssm_heads, cfg.ssm_head_dim,
+                   cfg.ssm_state, cfg.ssm_chunk)
+        b9 = ssd_flops(*g_shape)
+        require(ssd_ops.operation_count(*g_shape) == b9,
+                f"T: B9's operation_count {ssd_ops.operation_count(*g_shape)} "
+                f"differs from the smoke's count {b9}")
+        card_flops = counter.get_total_flops() + launches["ssd_scan"] * b9
+        print(f"T argument bytes: the dry run {cell.argument_bytes}, G's "
+              f"train state and batch on the card {args_bytes}; control (one "
+              f"leaf "
+              f"left out) {short}")
+        require(cell.argument_bytes == args_bytes,
+                "T: the dry run's argument bytes differ from the card's state")
+        require(cell.argument_bytes != short,
+                "T control: a state short of a leaf passes the argument gate")
+        print(f"T FLOPs a step: the dry run {cell.flops_per_device}; "
+              f"FlopCounterMode around one step on the card "
+              f"{counter.get_total_flops()} plus {launches['ssd_scan']} B9 "
+              f"launches x {b9} = {card_flops}; control (47 layers) "
+              f"{fewer.flops_per_device}")
+        require(cell.flops_per_device == card_flops,
+                "T: the dry run's FLOPs differ from the card's step")
+        require(fewer.flops_per_device != card_flops,
+                "T control: a layer fewer passes the FLOP gate")
+        predicted = cell.argument_bytes + cell.temp_bytes
+        terms = roofline.roofline_terms(cell.flops_per_device,
+                                        cell.bytes_per_device,
+                                        cell.collective_bytes, dev)
+        model = 6.0 * cfg.num_active_params() * G_BATCH * G_SEQ
+        g_step = mean([r["seconds"] for r in g_run["steps"][1:]])
+        ideal = model / dev["peak_flops"]
+        print(f"T peak memory: predicted (arguments + temps) {predicted} "
+              f"bytes; this step's measured {peak}; G's loop {g_run['peak']}")
+        print(f"T roofline of G's cell (s): {json.dumps(terms)}, bound by "
+              f"{max(terms, key=terms.get)}; model FLOPs 6NT {model} "
+              f"({ideal} s at peak): roofline_fraction "
+              f"{ideal / max(terms.values())}; G's measured step {g_step} s "
+              f"(model FLOPs at {ideal / g_step} of the peak); {card_line()}")
+
+        # -- the CLI's records ---------------------------------------------
+        for shape, proc in cli.items():
+            log = proc.communicate(timeout=600)[0]
+            require(proc.returncode == 0,
+                    f"T: the dry run CLI failed on {shape}: {log[-3000:]}")
+        cli_s = time.perf_counter() - t_phase
+        rows = [roofline.analyse_record(rec, 256, dev)
+                for shape in cli for rec in roofline.load_results(
+                    os.path.join(tmp, f"{shape}.jsonl")).values()]
+        require(len(rows) == 4 and sum("skipped" in r for r in rows) == 1
+                and not any("error" in r for r in rows),
+                f"T: the CLI's records {rows}")
+        print(f"T dry run CLI, {T_CLI_ARCH}'s four shapes on the single-pod "
+              f"mesh (four subprocesses, done {cli_s} s into T), with "
+              f"{name}'s "
+              f"constants:")
+        print(roofline.render_table(rows))
+    finally:
+        for proc in cli.values():
+            proc.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"T done in {time.perf_counter() - t_phase} s; {card_line()}")
+
+
 def run(torch, seed: int):
     from repro_torch.core import build_hierarchy, make_plan, rmq_walk_batch
     from repro_torch.kernels.hierarchy_build.ops import (
@@ -6374,6 +6810,18 @@ def run(torch, seed: int):
     torch.cuda.empty_cache()
     mp = model_parallel_phase(torch, seed, g_run)
     main_launches["ssd_scan"] += mp["launches"]["ssd_scan"]
+
+    # -- phase 24: qwen2-moe-a2.7b training (the MoE under the mesh) --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_trained = moe_training_phase(torch, seed)
+    main_launches["flash_attention"] += moe_trained["launches"][
+        "flash_attention"]
+
+    # -- phase 25: the dry run with the card's constants -------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry_run_phase(torch, seed, g_run)
 
     out = []
     for name, meta in KERNELS.items():

@@ -18,15 +18,27 @@ tensors.
   subgroup of each axis of size > 1, then a division.  Every rank then
   holds the whole reduced gradients (no reduce-scatter).
 
+* :func:`all_reduce_sum` and :func:`all_gather_rows` are the MoE's
+  calls over the data axes (:mod:`repro_torch.models.moe`).
+
 A mesh with one rank a position is required; without a mesh or a group
 (one process) every leaf is whole and nothing is called.
 Each collective call counts in :data:`COLLECTIVES` once it returns.
+
+:func:`simulate` runs these functions on a mesh with no group (the meta
+production mesh of :mod:`repro_torch.launch.cells`) as rank 0 of it
+would: blocks are cut at rank 0's coordinates, a gather returns an empty
+tensor of the whole shape, a reduction returns its input, and each call
+adds the bytes it would move to a log by kind (an all-gather its result,
+an all-reduce its operand).  Nothing is called and nothing counts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Sequence, Tuple
+from collections import defaultdict
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -34,10 +46,57 @@ from repro_torch.distributed.shardings import PartitionSpec, entry_axes
 from repro_torch.kernels.profiling import KernelCounter
 from repro_torch.train.tree import tree_map
 
-__all__ = ["COLLECTIVES", "barrier", "gather", "gather_leaf", "leaf_spec",
-           "local_block", "local_blocks", "reduce_grads"]
+__all__ = ["COLLECTIVES", "all_gather_rows", "all_reduce_sum", "barrier",
+           "coordinate", "data_axes", "gather", "gather_leaf", "leaf_spec",
+           "local_block", "local_blocks", "reduce_grads", "simulate"]
 
 COLLECTIVES = KernelCounter("collectives")
+
+# (mesh, {kind: bytes}) while simulate(mesh) runs
+_SIMULATED: Optional[Tuple[Any, Dict[str, float]]] = None
+
+
+@contextlib.contextmanager
+def simulate(mesh) -> Iterator[Dict[str, float]]:
+    """Collectives on ``mesh`` (a mesh with no group) simulated as rank 0
+    would make them; yields ``{kind: bytes}`` of the calls (see the module
+    doc)."""
+    global _SIMULATED
+    if mesh.group is not None:
+        raise ValueError("simulate() takes a mesh with no process group")
+    prev, log = _SIMULATED, defaultdict(float)
+    _SIMULATED = (mesh, log)
+    try:
+        yield log
+    finally:
+        _SIMULATED = prev
+
+
+def _simulated(mesh) -> bool:
+    return _SIMULATED is not None and _SIMULATED[0] is mesh
+
+
+def _record(kind: str, t: torch.Tensor) -> None:
+    _SIMULATED[1][kind] += t.numel() * t.element_size()
+
+
+def _active(mesh) -> bool:
+    """Whether collectives on ``mesh`` run (or are simulated)."""
+    return mesh is not None and (mesh.group is not None or _simulated(mesh))
+
+
+def _coords(mesh) -> Dict[str, int]:
+    if _simulated(mesh):
+        return {a: 0 for a in mesh.axis_names}
+    return mesh.coords
+
+
+def data_axes(mesh, axes: Sequence[str]) -> Tuple[str, ...]:
+    """The axes of ``axes`` of size > 1 on which collectives run: none
+    without a mesh or a group (and outside :func:`simulate`)."""
+    if not _active(mesh):
+        return ()
+    return tuple(a for a in axes if mesh.shape[a] > 1)
 
 
 def _dist():
@@ -68,7 +127,7 @@ def leaf_spec(spec: Sequence, leaf) -> PartitionSpec:
 def _blocks(mesh, entry) -> Tuple[int, int]:
     """``(this rank's block index, the number of blocks)`` of one entry."""
     index, count = 0, 1
-    coords = mesh.coords
+    coords = _coords(mesh)
     for a in entry_axes(entry):
         index = index * mesh.shape[a] + coords[a]
         count *= mesh.shape[a]
@@ -96,17 +155,53 @@ def local_block(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
 def local_blocks(tree: Any, specs: Any, mesh) -> Any:
     """Every leaf's block on this rank (see :func:`local_block`); ``tree``
     itself without a mesh or a group."""
-    if mesh is None or mesh.group is None:
+    if not _active(mesh):
         return tree
     return tree_map(lambda t, s: local_block(t, s, mesh), tree, specs)
 
 
-def _all_gather(out: torch.Tensor, x: torch.Tensor, group) -> None:
+def _all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``(n * x.shape[0], ...)``: the blocks ``x`` of the ``n`` ranks on
+    ``axis``, in coordinate order."""
+    out = x.new_empty((mesh.shape[axis] * x.shape[0],) + tuple(x.shape[1:]))
+    if _simulated(mesh):
+        _record("all-gather", out)
+        return out
     dist = _dist()
     fn = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
-    fn(out, x, group=group)
+    fn(out, x, group=mesh.axis_group(axis))
     COLLECTIVES.hit()
+    return out
+
+
+def _all_reduce(t: torch.Tensor, mesh, axis: str) -> None:
+    """Sum ``t`` in place over the ranks on ``axis``."""
+    if _simulated(mesh):
+        _record("all-reduce", t)
+        return
+    _dist().all_reduce(t, group=mesh.axis_group(axis))
+    COLLECTIVES.hit()
+
+
+def all_reduce_sum(t: torch.Tensor, mesh, axes: Sequence[str]
+                   ) -> torch.Tensor:
+    """``t`` summed in place over the ranks that differ from this one on
+    ``axes`` (each of size > 1: see :func:`data_axes`); one call an axis."""
+    for a in axes:
+        _all_reduce(t, mesh, a)
+    return t
+
+
+def all_gather_rows(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``(n, *t.shape)``: ``t`` of each of the ``n`` ranks on ``axis``, in
+    coordinate order (one call)."""
+    return _all_gather(t.reshape(1, *t.shape).contiguous(), mesh, axis)
+
+
+def coordinate(mesh, axis: str) -> int:
+    """This rank's coordinate on ``axis`` (0 under :func:`simulate`)."""
+    return _coords(mesh)[axis]
 
 
 def gather_leaf(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
@@ -118,10 +213,7 @@ def gather_leaf(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
             n = mesh.shape[a]
             if n == 1:
                 continue
-            x = t.movedim(dim, 0).contiguous()
-            out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
-                              dtype=x.dtype, device=x.device)
-            _all_gather(out, x, mesh.axis_group(a))
+            out = _all_gather(t.movedim(dim, 0).contiguous(), mesh, a)
             t = out.movedim(0, dim).contiguous()
     return t
 
@@ -129,7 +221,7 @@ def gather_leaf(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
 def gather(tree: Any, specs: Any, mesh) -> Any:
     """The whole leaves from every rank's blocks (a leaf held whole is
     returned as it is); ``tree`` itself without a mesh or a group."""
-    if mesh is None or mesh.group is None:
+    if not _active(mesh):
         return tree
     return tree_map(lambda t, s: gather_leaf(t, s, mesh), tree, specs)
 
@@ -140,21 +232,15 @@ def reduce_grads(grads: Sequence[torch.Tensor], loss: torch.Tensor,
     ``axes`` (the axes the batch's rows are split over): each float32
     gradient in place, and ``(loss, aux)`` as new tensors.  Returns
     ``(grads, loss, aux)``; an axis of size 1 calls nothing."""
-    if mesh is None or mesh.group is None:
-        return grads, loss, aux
-    axes = [a for a in axes if mesh.shape[a] > 1]
+    axes = data_axes(mesh, axes)
     if not axes:
         return grads, loss, aux
-    dist = _dist()
     pair = torch.stack([loss.float(), aux.float()])
     n = math.prod(mesh.shape[a] for a in axes)
     for a in axes:
-        group = mesh.axis_group(a)
         for g in grads:
-            dist.all_reduce(g, group=group)
-            COLLECTIVES.hit()
-        dist.all_reduce(pair, group=group)
-        COLLECTIVES.hit()
+            _all_reduce(g, mesh, a)
+        _all_reduce(pair, mesh, a)
     for g in grads:
         g.div_(n)
     pair = pair / n

@@ -23,7 +23,8 @@ whose forward launches the kernel and whose backward recomputes the plain
 :func:`attention_ref` on detached copies of q, k, v and returns
 ``torch.autograd.grad`` of it (the JAX package differentiates its own
 graph; the TPU kernel has no backward kernel).  The backward launches no
-kernel.
+kernel.  Inside :func:`repro_torch.kernels.profiling.dry_launches` every
+tensor takes the card's route and a launch is traced, not made.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ __all__ = [
     "LAUNCHES",
     "attention",
     "flash_attention_cuda",
+    "operation_count",
 ]
 
 BLOCKED_MIN_SEQ = 2048  # below this the dense reference is cheaper
@@ -105,10 +107,25 @@ def _check_operands(q, k, v) -> None:
         raise ValueError("flash_attention: batch and heads must be < 65536")
 
 
+def operation_count(b: int, hq: int, s: int, sk: int, d: int) -> int:
+    """Floating-point operations of one launch as its plain version
+    computes them: q k^T and p v over every (query, key) pair, masked ones
+    too (the kernel skips the tiles a causal mask or a window empties, so
+    this is an upper figure on its work)."""
+    return 4 * b * hq * s * sk * d
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scale: Optional[float], window: Optional[int]) -> torch.Tensor:
     _check_operands(q, k, v)
     win = _check_window(window)
+    dry = profiling.dry_run()
+    if dry is not None:
+        out = torch.empty_like(q)
+        b, hq, s, d = q.shape
+        dry.add("flash_attention", operation_count(b, hq, s, k.shape[2], d),
+                profiling.operand_bytes(q, k, v, out))
+        return out
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _build.require_cuda("flash_attention", q, k, v)
     # the kernels copy 16 bytes at a time: a view at an odd offset is copied
@@ -184,7 +201,8 @@ def attention(
     """
     if impl not in ("auto", "cuda", "ref", "blocked"):
         raise ValueError(f"attention: unknown impl {impl!r}")
-    if q.is_cuda:
+    if q.is_cuda or (profiling.dry_run() is not None
+                     and impl in ("auto", "cuda")):
         if impl not in ("auto", "cuda"):
             raise ValueError(
                 f"attention: a CUDA tensor launches the kernel (impl 'auto' "

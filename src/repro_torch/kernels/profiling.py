@@ -29,6 +29,13 @@ dispatch site to completion (``torch.cuda.synchronize`` on the card), and
 per name, from anything with the reference's ``cost_analysis()``, a
 mapping of scalars, or a finished ``torch.utils.flop_counter.
 FlopCounterMode`` (its total becomes ``flops``).
+
+:func:`dry_launches` is the dry run's (:mod:`repro_torch.launch.cells`):
+inside it, B8's and B9's wrappers take the route they take on the card
+for tensors on any device, fake ones included, and each launch is traced,
+not made: the wrapper allocates its outputs and scratch as a launch
+does, adds the kernel's operation count and operand bytes to the
+:class:`DryLaunches` it yields, and returns.  No counter moves.
 """
 
 from __future__ import annotations
@@ -44,8 +51,10 @@ __all__ = [
     "KernelCounter",
     "LaunchRecord",
     "LaunchRegistry",
+    "DryLaunches",
     "count_launches",
     "current_registry",
+    "dry_launches",
     "launch_registry",
     "operand_bytes",
     "record_config",
@@ -262,3 +271,37 @@ def timed_dispatch(name: str, fn, *args, **kwargs):
         torch.cuda.synchronize()
     reg.add_timing(name, time.perf_counter() - t0)
     return out
+
+
+@dataclasses.dataclass
+class DryLaunches:
+    """The kernel launches a dry run traced: by name, their count, and the
+    operations and operand bytes of all of them."""
+
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+    flops: float = 0.0
+    bytes: float = 0.0
+
+    def add(self, name: str, flops: float, nbytes: float) -> None:
+        self.launches[name] = self.launches.get(name, 0) + 1
+        self.flops += flops
+        self.bytes += nbytes
+
+
+_DRY: List[DryLaunches] = []
+
+
+@contextlib.contextmanager
+def dry_launches() -> Iterator[DryLaunches]:
+    """Trace kernel launches instead of making them (see the module doc)."""
+    log = DryLaunches()
+    _DRY.append(log)
+    try:
+        yield log
+    finally:
+        _DRY.remove(log)
+
+
+def dry_run() -> Optional[DryLaunches]:
+    """The innermost :func:`dry_launches` log, or None outside one."""
+    return _DRY[-1] if _DRY else None

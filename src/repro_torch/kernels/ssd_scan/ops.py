@@ -39,6 +39,7 @@ __all__ = [
     "MAX_CHUNK",
     "MAX_HEAD_DIM",
     "SSDScan",
+    "operation_count",
     "ssd",
     "ssd_scan_cuda",
     "ssd_with_state",
@@ -124,7 +125,9 @@ def ssd_scan_cuda(
     matrices C B^T, cum and B split per chunk, the chunk states walked per
     head, the chunk scan): ``(y, final_state or None)``."""
     _check_operands(dtx, log_a, Bm, Cm, chunk, init_state)
-    _build.require_cuda("ssd_scan", dtx, log_a, Bm, Cm, init_state)
+    dry = profiling.dry_run()
+    if dry is None:
+        _build.require_cuda("ssd_scan", dtx, log_a, Bm, Cm, init_state)
     b, l, h, p = dtx.shape
     n = Bm.shape[-1]
     y = torch.empty_like(dtx)
@@ -139,6 +142,11 @@ def ssd_scan_cuda(
     cum = torch.empty((b, nc, h, chunk), **scratch)
     bfrag = torch.empty((b, nc, -(-chunk // 32), -(-n // 64), 4096), **scratch)
     states = torch.empty((b, nc, h, p, n), **scratch)
+    if dry is not None:
+        dry.add("ssd_scan", operation_count(b, l, h, p, n, chunk),
+                profiling.operand_bytes(dtx, log_a, Bm, Cm, init_state, y,
+                                        final))
+        return y, final
     lib = _build.load("ssd_scan", _SIGNATURES)
     with torch.cuda.device(dtx.device):
         rc = lib.ssd_scan_fwd(
@@ -195,8 +203,24 @@ class SSDScan(torch.autograd.Function):
         return (*out, None, None)
 
 
+def operation_count(b: int, l: int, h: int, p: int, n: int,
+                    chunk: int) -> int:
+    """Floating-point operations of one launch: twice the multiply-adds of
+    its four products, C B^T once per (batch row, chunk), the causal
+    in-chunk product, the carried-state term and the state update."""
+    nc = l // chunk
+    tri = chunk * (chunk + 1) // 2        # the causal pairs j <= i
+    macs = (b * nc * tri * n
+            + b * nc * h * tri * p
+            + b * nc * h * chunk * n * p
+            + b * nc * h * chunk * p * n)
+    return 2 * macs
+
+
 def _on_card(*tensors) -> bool:
-    return any(t is not None and t.is_cuda for t in tensors)
+    """A CUDA operand, or any operand inside a dry run (the card's route)."""
+    return profiling.dry_run() is not None or any(
+        t is not None and t.is_cuda for t in tensors)
 
 
 def ssd(dtx, log_a, Bm, Cm, chunk: int = DEFAULT_CHUNK, impl: str = "auto",

@@ -50,9 +50,10 @@ save the moments' memory, not the weights'.  Rank 0
 logs and writes the checkpoints, whose manifest holds every leaf's spec;
 a restore cuts the current mesh's blocks, whatever mesh wrote them.  A
 :class:`~repro_torch.distributed.fault_tolerance.HeartbeatMonitor` of one
-host a rank hears each step.  A MoE model on a data axis > 1 raises
-(ROADMAP A10c: the reference routes each micro-batch as a whole, which a
-rank holding its own rows cannot).
+host a rank hears each step.  A MoE model routes over the whole
+micro-batch on a data axis > 1: the step passes the mesh and the batch's
+data axes down to :func:`repro_torch.models.moe.moe_apply`, whose counts
+cross the data ranks.
 """
 
 from __future__ import annotations
@@ -111,8 +112,8 @@ def train_loop(args: argparse.Namespace, group=None) -> Dict:
 
     ``group``: the ``torch.distributed`` process group (None: one
     process).  Returns ``{"losses", "final_step", "steps", "state",
-    "specs", "mesh"}``; ``steps`` holds each step's loss, grad norm,
-    learning rate and host seconds to the end of its device work,
+    "specs", "mesh"}``; ``steps`` holds each step's loss, aux loss, grad
+    norm, learning rate and host seconds to the end of its device work,
     ``state`` this rank's blocks after the last step and ``specs`` their
     specs on ``mesh``.
     """
@@ -160,13 +161,6 @@ def train_loop(args: argparse.Namespace, group=None) -> Dict:
 
         world = dist.get_world_size(group)
     data, model = _mesh_shape(args.model_parallel, world)
-    if cfg.uses_moe and data > 1:
-        raise NotImplementedError(
-            f"{cfg.name} on a data axis of {data}: the MoE under a data axis "
-            "is not ported yet (ROADMAP A10c: the reference routes and "
-            "counts capacity over the whole micro-batch, or dispatches per "
-            "data shard under shard_map from 4096 tokens); a model axis "
-            "alone trains it")
     mesh = make_test_mesh((data, model), ("data", "model"),
                           device=args.device, group=group)
     dev = mesh.device
@@ -228,6 +222,7 @@ def train_loop(args: argparse.Namespace, group=None) -> Dict:
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])   # waits for the step's device work
             steps.append({"step": i + 1, "loss": loss,
+                          "aux_loss": float(metrics["aux_loss"]),
                           "grad_norm": float(metrics["grad_norm"]),
                           "lr": float(metrics["lr"]),
                           "seconds": time.perf_counter() - t0})

@@ -249,14 +249,15 @@ def _dense_block(cfg: ModelConfig, p, x: torch.Tensor, positions,
 
 
 def _moe_block(cfg: ModelConfig, p, x: torch.Tensor, positions,
-               attn_impl: str):
-    """A MoE layer: ``(x, (k, v), aux)``."""
+               attn_impl: str, mesh=None, batch_axes=()):
+    """A MoE layer: ``(x, (k, v), aux)``; ``mesh`` and ``batch_axes`` go
+    to :func:`repro_torch.models.moe.moe_apply`."""
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     a, kv, _ = L.gqa_attention(p["attn"], h, cfg, positions,
                                window=cfg.sliding_window, attn_impl=attn_impl)
     x = x + a
     y, aux = MOE.moe_apply(p["moe"], L.rmsnorm(p["ln2"], x, cfg.norm_eps),
-                           cfg)
+                           cfg, mesh=mesh, batch_axes=batch_axes)
     return x + y, kv, aux
 
 
@@ -296,9 +297,16 @@ def forward(
     remat: Optional[Callable] = None,
     return_hidden: bool = False,
     prefix_embeddings: Optional[torch.Tensor] = None,   # (B, F, D)
+    mesh=None,
+    batch_axes: Tuple[str, ...] = (),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(logits (B, F + S, V) float32, aux)``; ``aux`` is the sum
     of the MoE layers' auxiliary losses (0 without MoE layers).
+
+    ``tokens`` are this rank's rows of a micro-batch split over the
+    ``batch_axes`` of ``mesh`` (None: one process, the whole batch); the
+    MoE layers route over the whole micro-batch
+    (:func:`repro_torch.models.moe.moe_apply`).
 
     ``prefix_embeddings`` (a frontend's) go ahead of the token embeddings,
     cast to the compute dtype.  ``remat`` wraps each block's function (the
@@ -321,12 +329,14 @@ def forward(
             return _hybrid_block(cfg, p, x, positions, w, attn_impl)[0]
     elif kind == "moe":
         def block(x, p, w):
-            x, _, aux = _moe_block(cfg, p, x, positions, attn_impl)
+            x, _, aux = _moe_block(cfg, p, x, positions, attn_impl, mesh,
+                                   batch_axes)
             return x, aux
     elif kind == "moe_period2":
         def block(x, p, w):
             x, _ = _dense_block(cfg, p["dense"], x, positions, attn_impl)
-            x, _, aux = _moe_block(cfg, p["moe"], x, positions, attn_impl)
+            x, _, aux = _moe_block(cfg, p["moe"], x, positions, attn_impl,
+                                   mesh, batch_axes)
             return x, aux
     else:
         def block(x, p, w):

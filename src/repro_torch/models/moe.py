@@ -1,15 +1,44 @@
 """Mixture-of-Experts layer: top-k routing, capacity dispatch, shared expert.
 
-The port of ``repro.models.moe``, over the whole micro-batch on each rank:
-one device, or a mesh whose ``model`` axis alone is > 1, where every rank
-holds every row and the reference's per-data-shard ``shard_map`` dispatch
-computes the same layer.  On a data axis > 1 the reference routes, counts
-capacity and takes the aux loss over the whole micro-batch, which a rank
-holding its own rows cannot; ``launch/train.py`` refuses it (ROADMAP
-A10c).  The reference computes the layer with gathers, a scatter-add and einsums, outside any
-Pallas kernel; here the same steps are PyTorch operations and the expert
-FFNs batched products over the expert axis (``torch.bmm``).  What the
-code does, where the reference's docstring says otherwise:
+The port of ``repro.models.moe``.  The reference computes the layer with
+gathers, a scatter-add and einsums, outside any Pallas kernel; here the
+same steps are PyTorch operations and the expert FFNs batched products
+over the expert axis (``torch.bmm``).
+
+Under GSPMD the reference sees the whole micro-batch of ``T`` tokens.  A
+rank of the port holds its rows of it, ``t = T / n_dp`` tokens, where
+``n_dp`` is the product of the data axes the rows are split over (the
+``mesh`` and ``batch_axes`` that ``models.lm.forward`` passes down; a
+micro-batch they do not divide goes whole to every rank, and ``n_dp`` is
+then 1).  Each rank routes its own rows, and only these numbers need the
+other ranks:
+
+* the aux loss is the whole micro-batch's: the counts are summed over the
+  data axes, and the local term is ``coef * E * sum(probs_sum * n_dp / T
+  * counts_total / T)``, so that the mean over the data ranks, which
+  :func:`repro_torch.distributed.sharded.reduce_grads` takes of the aux
+  loss and of the gradients, is the reference's value and its router
+  gradient (the counts carry no gradient);
+* below 4096 tokens, or on a mesh without a ``model`` axis, the dispatch
+  is global: capacity ``capacity(cfg, T)``, and a (token, slot) pair is
+  kept when its rank within its expert in the whole micro-batch's
+  (token, slot) order is below it.  That rank is the local rank plus the
+  pairs of the same expert on the rows of the data coordinates before
+  this rank's (an exclusive prefix of the gathered counts: rows are split
+  in data-coordinate order, and ranks that differ on ``model`` alone hold
+  the same rows).  Every row's expert output depends on that row alone,
+  so the products stay local;
+* from 4096 tokens on a mesh with a ``model`` axis, each data shard
+  dispatches alone with capacity ``capacity(cfg, T // n_dp)``, as the
+  reference's ``shard_map`` does; the aux loss stays global.
+
+The counts move in one collective a data axis of size > 1 (an
+``all_gather`` for the global dispatch, an ``all_reduce`` for the
+per-shard one; nothing on an axis of size 1), counted in
+``sharded.COLLECTIVES``; under remat the block's recomputed forward makes
+them again, in the same order on every rank.  Without a mesh the layer
+is the one-device layer.  What the code does, where the reference's
+docstring says otherwise:
 
 * the router is a float32 softmax over ``x @ router`` (the product in the
   compute dtype), its top k renormalized only when k > 1, so llama4
@@ -33,7 +62,7 @@ code does, where the reference's docstring says otherwise:
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -98,10 +127,13 @@ def _counts(top_e: torch.Tensor, e: int) -> torch.Tensor:
                        ).scatter_add_(0, flat, torch.ones_like(flat))
 
 
-def dispatch(xt: torch.Tensor, top_e: torch.Tensor, cap: int, e: int):
+def dispatch(xt: torch.Tensor, top_e: torch.Tensor, cap: int, e: int,
+             before: Optional[torch.Tensor] = None):
     """The (E, cap, D) expert buffer, each pair's slot ``dest`` (T * k,)
     and ``keep`` (T * k,) bool.  ``dest`` of a dropped pair is E * cap - 1,
-    the reference's parking slot, which the buffer never receives."""
+    the reference's parking slot, which the buffer never receives.
+    ``before`` (E,), where given, counts each expert's pairs ahead of these
+    rows: a pair is kept when its rank plus that count is below ``cap``."""
     d = xt.shape[1]
     k = top_e.shape[1]
     flat_e = top_e.reshape(-1)
@@ -112,7 +144,7 @@ def dispatch(xt: torch.Tensor, top_e: torch.Tensor, cap: int, e: int):
         0, order, torch.arange(n, device=order.device, dtype=order.dtype))
     offsets = torch.cumsum(counts, 0) - counts
     rank = inv - offsets[flat_e]
-    keep = rank < cap
+    keep = rank < cap if before is None else rank + before[flat_e] < cap
     slot = flat_e * cap + rank
     dest = torch.where(keep, slot, torch.full_like(slot, e * cap - 1))
     # kept pairs only: a dropped pair goes to one scratch row past the end
@@ -140,18 +172,52 @@ def combine(o: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,
     return (per_tk * w[:, None]).reshape(t, k, d).sum(dim=1)
 
 
-def moe_apply(p, x: torch.Tensor, cfg: ModelConfig
+def _prefix_and_total(counts: torch.Tensor, mesh, axes: Sequence[str]):
+    """``(before, total)``: each expert's pairs on the data coordinates
+    before this rank's, and on all of them; one ``all_gather`` an axis,
+    the fastest axis first."""
+    from repro_torch.distributed import sharded
+
+    before, total = torch.zeros_like(counts), counts
+    for a in reversed(axes):
+        rows = sharded.all_gather_rows(total, mesh, a)          # (n, E)
+        before = before + rows[:sharded.coordinate(mesh, a)].sum(dim=0)
+        total = rows.sum(dim=0)
+    return before, total
+
+
+def moe_apply(p, x: torch.Tensor, cfg: ModelConfig, mesh=None,
+              batch_axes: Sequence[str] = ()
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(output with x's shape, aux loss () float32)`` for ``x`` (B, S, D)
-    or (T, D)."""
+    or (T, D), this rank's rows of a micro-batch split over ``batch_axes``
+    of ``mesh`` (see the module doc; without a mesh, the whole of it)."""
+    from repro_torch.distributed import sharded
+
     d = x.shape[-1]
     xt = x.reshape(-1, d)
     t, e = xt.shape[0], cfg.num_experts
     probs, top_p, top_e = route(p, xt, cfg)
     counts = _counts(top_e, e)
-    aux = cfg.router_aux_loss_coef * e * torch.sum(
-        probs.mean(dim=0) * (counts.float() / t))
-    h, dest, keep = dispatch(xt, top_e, capacity(cfg, t), e)
+    axes = sharded.data_axes(mesh, batch_axes)
+    n_dp = math.prod(mesh.shape[a] for a in axes) if axes else 1
+    big_t = t * n_dp
+    before, total = None, counts
+    if mesh is not None and "model" in mesh.shape and big_t >= 4096:
+        cap = capacity(cfg, big_t // n_dp)           # each data shard alone
+        if axes:
+            total = sharded.all_reduce_sum(counts.clone(), mesh, axes)
+    else:
+        cap = capacity(cfg, big_t)                   # the whole micro-batch
+        if axes:
+            before, total = _prefix_and_total(counts, mesh, axes)
+    if axes:
+        aux = cfg.router_aux_loss_coef * e * torch.sum(
+            probs.sum(dim=0) * (n_dp / big_t) * (total.float() / big_t))
+    else:
+        aux = cfg.router_aux_loss_coef * e * torch.sum(
+            probs.mean(dim=0) * (counts.float() / t))
+    h, dest, keep = dispatch(xt, top_e, cap, e, before)
     o = experts(h, cast(p["w_gate"], cfg), cast(p["w_up"], cfg),
                 cast(p["w_down"], cfg))
     y = combine(o, dest, keep, top_p)

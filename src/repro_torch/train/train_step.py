@@ -142,11 +142,14 @@ def cast_params(params, dtype: torch.dtype):
 
 
 def build_grad_fn(cfg: ModelConfig, tc: TrainConfig,
-                  attn_impl: str = "auto") -> Callable:
+                  attn_impl: str = "auto", mesh=None,
+                  batch_axes: Tuple[str, ...] = ()) -> Callable:
     """Returns ``grads_of(params, tokens, prefix, reduce=None) -> (grads,
     loss, aux)``: the gradients of the minimized loss (the next-token loss
     plus the MoE aux loss) in ``grad_allreduce_dtype``, a tree like
     ``params``, over ``microbatches`` micro-batches of the rows.
+    ``mesh`` and ``batch_axes`` (the axes the rows are split over) go to
+    ``forward``, whose MoE layers route over the whole micro-batch.
 
     ``reduce(grads, loss, aux)``, where given, runs on each micro-batch's
     float32 gradients (a list, in leaf order) and losses before the cast
@@ -160,7 +163,8 @@ def build_grad_fn(cfg: ModelConfig, tc: TrainConfig,
         params = cast_params(params, compute)
         out, aux = forward(cfg, params, tokens, attn_impl=attn_impl,
                            remat=remat, return_hidden=tc.loss_chunk > 0,
-                           prefix_embeddings=prefix)
+                           prefix_embeddings=prefix, mesh=mesh,
+                           batch_axes=batch_axes)
         if tc.loss_chunk > 0:
             loss = chunked_next_token_loss(cfg, params, out, tokens,
                                            prefix_len=prefix_len,
@@ -240,7 +244,8 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig,
     """
     from repro_torch.distributed import sharded
 
-    grads_of = build_grad_fn(cfg, tc, attn_impl)
+    grads_of = build_grad_fn(cfg, tc, attn_impl, mesh=mesh,
+                             batch_axes=batch_axes)
 
     def reduce(grads, loss, aux):
         return sharded.reduce_grads(grads, loss, aux, mesh, batch_axes)

@@ -12,7 +12,9 @@ engine wins across sizes and span mixes, so the choice is measured):
 * :mod:`repro_torch.tune.cache`: the versioned JSON tuning cache
   (:class:`TuningCache` / :class:`TunedConfig`) that
   ``make_plan(..., tuned=True)``, ``RMQ.build(c="auto")`` and
-  ``QueryEngine(tuning=...)`` read, keyed by the index's device.
+  ``QueryEngine(tuning=...)`` read, keyed by the index's device;
+* :mod:`repro_torch.tune.roofline`: the roofline model over the dry
+  run's records (``repro_torch.launch.dryrun``), with a card's constants.
 
 Regenerate the committed cache on the card with
 ``python -m repro_torch.tune``.

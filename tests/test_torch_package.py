@@ -97,6 +97,9 @@ SLICE_MODULES = [
     "repro_torch.distributed.compression",
     "repro_torch.distributed.shardings",
     "repro_torch.distributed.sharded",
+    "repro_torch.launch.cells",
+    "repro_torch.launch.dryrun",
+    "repro_torch.tune.roofline",
 ]
 
 
