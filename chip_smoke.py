@@ -433,6 +433,45 @@ outside the repository.  Phases:
    over qwen1.5-0.5b's four shapes (the whole 40-cell sweep takes
    minutes on the host: PERF.md holds it).
 
+26. training llama3.2-3b (U; run after T): full width and depth (28
+   layers, d 3072, 24 / 8 heads x 128, d_ff 8192, vocab 128256, untied),
+   float32 masters and AdamW, bf16 compute, 2 x 2048 tokens (the dry run
+   predicts 64.92 GB; 72.37 at 4 x 2048), remat full, three steps (the
+   first a warm-up) through ``launch/train.py --device cuda`` with no
+   process group.  B8 runs under autograd and remat at head_dim 128,
+   GQA 24 / 8.  Gates, each with a control that must fail it: step 0's
+   loss and grad norm with B8 against ``attn_impl="ref"`` from the same
+   seeded initial state (one state at a time, re-initialised from the
+   seed), the limits the larger of a stated floor and ten times the
+   plain path's own repeat (control: layer 14's attention output
+   projection zeroed, so that layer's attention adds nothing); 56 B8
+   launches a step, the forward and the remat recompute of 28 layers
+   (control: the plain step, which launches none).  U's train cell is
+   traced on fake tensors in a host subprocess that sees no card,
+   started with V's before U.
+27. training hymba-1.5b (V; run after U): full width and depth (32
+   layers, d 1600, 25 / 5 heads x 64, SWA 1024 with layers 0, 8, 16 and
+   24 global; SSD 25 x 64, state 16, chunk 128), 4 x 2048 tokens (the
+   dry run predicts 25.85 GB), remat full, three steps through the same
+   CLI.  B8 runs windowed and global under autograd and remat, B9 runs
+   ``ssd`` (y only) at state 16 with the plain chunked backward after
+   it.  Gates: step 0 with B8 and B9 against the plain path
+   (``attn_impl="ref"`` and the plain chunked scan, swapped in as G
+   does), limits as U's (control: every layer's attention output
+   zeroed); the same in float32 compute (B8's float32 instance), where
+   the kernels' gap is float32 rounding and bf16's does not hide the
+   window and state controls (every layer global, so B8's windows are
+   gone; the scan's state into the middle chunk dropped, G's control);
+   64 B8 launches a step (56 windowed, 8 global) and 64 B9 (control:
+   the plain step, which launches neither).
+   U and V print the step seconds, tokens/s, a ``torch.profiler`` top-8
+   of step 0 with the kernels, the peak of each step 0, the model-FLOP
+   share of 989 TFLOP/s bf16 (6NT + the remat's 2NT + each kernel's
+   ``operation_count`` times its launches, as G counts), the loop's peak
+   memory beside the dry run's peak for the same step, the phase's
+   seconds and the card's name and power limit.  Their loops' launches
+   are added to B8's row and, for V, B9's.
+
 Each phase sets every launch counter to 0 just before it drives its
 path and reads them just after.  The output ends with one
 ``{"kernels": [...]}`` line (per kernel: its launches on its phase's
@@ -6490,6 +6529,265 @@ def dry_run_phase(torch, seed, g_run):
     print(f"T done in {time.perf_counter() - t_phase} s; {card_line()}")
 
 
+# ---------------------------------------------------------------------------
+# phases 26 and 27: training llama3.2-3b (U) and hymba-1.5b (V)
+# ---------------------------------------------------------------------------
+# (arch, batch, seq).  The dry run (``cells.train_cell`` traced on fake
+# tensors, remat full, mesh (1, 1)) puts llama3.2-3b at 28 layers at 72.37
+# GB for 4 x 2048 and 64.92 GB for 2 x 2048 (S measured its prediction
+# +0.29% and refused 73.3 GB), so U takes 2 x 2048; hymba-1.5b at 4 x 2048
+# needs 25.85 GB.
+UV_RUNS = {"U": ("llama3.2-3b", 2, 2048), "V": ("hymba-1.5b", 4, 2048)}
+UV_STEPS = 3                # the first a warm-up
+# Step 0's loss and grad norm with the kernels against the plain path
+# (relative); the limit is the larger of these floors and ten times the
+# plain path's own repeat, which read 0 on an "NVIDIA H100 80GB HBM3,
+# 700.00 W".  The bf16 floors are ten times the gap the kernels showed
+# there, rounded up (U 4.27e-6 / 1.85e-4, V 1.47e-5 / 5.06e-4, the same
+# in two runs).  In float32 compute V's gap read 0 on both, so its floors
+# are about ten float32 ulps of the loss and ten times that on the grad
+# norm; its controls read 2.05e-5 / 1.85e-4 and more.  Every control must
+# fail both limits.
+UV_LIMITS = {"U": {"loss": 5e-5, "grad_norm": 2e-3},
+             "V": {"loss": 1.5e-4, "grad_norm": 6e-3},
+             "V float32": {"loss": 1e-6, "grad_norm": 1e-5}}
+
+DRY_PEAK = r"""
+import json, sys
+import torch
+from repro_torch.configs import TrainConfig, get_config
+from repro_torch.launch import cells
+from repro_torch.launch.mesh import Mesh
+
+arch = sys.argv[1]
+batch, seq, steps, seed = map(int, sys.argv[2:])
+tc = TrainConfig(total_steps=steps, warmup_steps=1, seq_len=seq,
+                 global_batch=batch, remat_policy="full", seed=seed)
+fn, args, _ = cells.train_cell(
+    get_config(arch), Mesh(("data", "model"), (1, 1), torch.device("meta")),
+    seq, batch, tc=tc)
+print(json.dumps(cells.trace(fn, args)))
+"""
+
+
+def start_dry_runs(seed):
+    """U's and V's train cells traced on fake tensors in two host
+    subprocesses that see no card, started before U and read by each
+    phase."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    return {label: subprocess.Popen(
+        [sys.executable, "-c", DRY_PEAK, arch, str(b), str(s),
+         str(UV_STEPS), str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for label, (arch, b, s) in UV_RUNS.items()}
+
+
+def dry_run_of(label, proc):
+    log = proc.communicate(timeout=900)[0]
+    require(proc.returncode == 0,
+            f"{label}: the dry run failed: {log[-3000:]}")
+    return json.loads(log.strip().splitlines()[-1])
+
+
+def card_training_phase(torch, seed, label, dry):
+    """Phase 26 (U, llama3.2-3b) or 27 (V, hymba-1.5b): full width and
+    depth through launch/train.py --device cuda with no process group,
+    then step 0 with the kernels against the plain path, with controls."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data import SyntheticTokenDataset
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.lm import layer_windows
+    from repro_torch.train.train_step import (
+        build_train_step,
+        init_train_state,
+    )
+    from repro_torch.train.tree import leaves_with_path
+
+    t_phase = time.perf_counter()
+    arch, b, s = UV_RUNS[label]
+    cfg = get_config(arch)
+    hybrid = cfg.family == "hybrid"
+    tokens = b * s
+    print(f"{label}: {cfg.name} at full width and depth ({cfg.num_layers} "
+          f"layers, d {cfg.d_model}, {cfg.num_heads} / {cfg.num_kv_heads} "
+          f"heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+          + (f"; windows {layer_windows(cfg, s)}; SSD {cfg.ssm_heads} x "
+             f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+             f"{cfg.ssm_chunk}" if hybrid else "")
+          + f"), float32 masters and AdamW, bf16 compute, batch {b} x {s}, "
+          f"remat full, {UV_STEPS} steps (the first a warm-up), through "
+          f"launch/train.py --device cuda with no process group")
+
+    # -- the main path: the train CLI's loop, counted ----------------------
+    ckpt_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{label.lower()}_")
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        count = zero_counts()
+        out = train_cli.run(train_cli.parse_args([
+            "--arch", arch, "--device", "cuda", "--steps", str(UV_STEPS),
+            "--seq-len", str(s), "--global-batch", str(b), "--remat",
+            "full", "--checkpoint-every", "0", "--log-every", "1",
+            "--seed", str(seed), "--checkpoint-dir", ckpt_dir]))
+        launches = read(torch, count)
+        peak = torch.cuda.max_memory_allocated()
+        requested = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_params = sum(t.numel() for _, t in leaves_with_path(
+        out["state"].params))
+    steps = out["steps"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the forward and the remat recompute launch each kernel once a layer
+    per_step = {"flash_attention": 2 * cfg.num_layers}
+    if hybrid:
+        per_step["ssd_scan"] = 2 * cfg.num_layers
+    expect(f"{label} train loop", launches,
+           **{k: v * UV_STEPS for k, v in per_step.items()})
+    require(len(steps) == UV_STEPS and all(
+        math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+        for r in steps), f"{label}: steps {steps}")
+    step_s = mean([r["seconds"] for r in steps[1:]])
+    flops = {"6NT": 6 * n_params * tokens,
+             "remat forward 2NT": 2 * n_params * tokens,
+             "flash_attention": per_step["flash_attention"]
+             * fa_ops.operation_count(b, cfg.num_heads, s, s, cfg.head_dim)}
+    if hybrid:
+        flops["ssd_scan"] = per_step["ssd_scan"] * ssd_ops.operation_count(
+            b, s, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+            cfg.ssm_chunk)
+    total = sum(flops.values())
+    predicted = dry_run_of(label, dry)
+    dry_peak = predicted["argument_bytes"] + predicted["temp_bytes"]
+    print(f"{label} steps {json.dumps(steps)}")
+    share = total / step_s / BF16_OPS_PER_S
+    print(f"{label} step time {step_s} s (mean of steps 2-{UV_STEPS}), "
+          f"{tokens / step_s} tokens/s; {n_params} parameters; model FLOPs a "
+          f"step {total} ({json.dumps(flops)}), {share} of the 989 TFLOP/s "
+          f"bf16 peak; peak memory {peak} bytes beside the dry run's "
+          f"{dry_peak} for this step ({peak / dry_peak - 1:+.4%}; arguments "
+          f"{predicted['argument_bytes']}, temps {predicted['temp_bytes']}; "
+          f"its launches a step {predicted['kernels']}, FLOPs "
+          f"{predicted['flops']}, traced in {predicted['seconds']} s; the "
+          f"allocator's requested bytes at their peak {requested}); "
+          f"launches {launches} ({per_step} a step); {card_line()}")
+
+    # -- step 0 with the kernels against the plain path -------------------
+    tc = TrainConfig(total_steps=UV_STEPS, warmup_steps=1, seq_len=s,
+                     global_batch=b, remat_policy="full", seed=seed)
+    batch = {"tokens": torch.from_numpy(SyntheticTokenDataset(
+        cfg.vocab_size, s, b, seed=seed).batch_at(0)["tokens"]).cuda()}
+    plain_scan_of = plain_scan if hybrid else None
+
+    def step0(attn_impl, scan=None, step_cfg=cfg, zero_attention=(),
+              profiled=False):
+        """Step 0 of ``step_cfg`` from the seeded initial state (one state
+        at a time): ``({loss, grad_norm, peak}, launches)``.  ``scan``:
+        every SSD scan taken by it; ``zero_attention``: the layers whose
+        attention output projection is zeroed in the initial state;
+        ``profiled``: the step under ``torch.profiler`` (printed)."""
+        state = init_train_state(cfg, tc, device="cuda")
+        for i in zero_attention:
+            state.params["layers"][i]["attn"]["o"]["w"].zero_()
+        torch.cuda.reset_peak_memory_stats()
+        count = zero_counts()
+        step, out = build_train_step(step_cfg, tc, attn_impl=attn_impl), []
+        with (ssm_scan(scan) if scan else contextlib.nullcontext()):
+            if profiled:
+                print(f"{label} one step ({step_cfg.dtype} compute, the "
+                      f"kernels) under torch.profiler: " + json.dumps(
+                          profile_top(torch, lambda: out.append(
+                              step(state, batch)), k=8)))
+            else:
+                out.append(step(state, batch))
+        new, m = out.pop()
+        got = read(torch, count)
+        res = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        res["peak"] = torch.cuda.max_memory_allocated()
+        del state, new, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res, got
+
+    def rel(a, c):
+        return {k: abs(a[k] - c[k]) / abs(c[k])
+                for k in ("loss", "grad_norm")}
+
+    def gate(name, step_cfg, controls):
+        """Step 0 with the kernels against the plain path at ``step_cfg``;
+        every control (``step0`` arguments on the plain path) must fail
+        both limits."""
+        mine, mine_launches = step0("auto", step_cfg=step_cfg,
+                                    profiled=name == label)
+        plain, plain_launches = step0("ref", plain_scan_of, step_cfg)
+        again, _ = step0("ref", plain_scan_of, step_cfg)
+        wrong = {c: step0("ref", **kw)[0] for c, kw in controls.items()}
+        repeat = rel(again, plain)
+        limits = {k: max(UV_LIMITS[name][k], 10 * repeat[k])
+                  for k in repeat}
+        ok = rel(mine, plain)
+        ctrl = {c: rel(w, plain) for c, w in wrong.items()}
+        print(f"{name} step 0 ({step_cfg.dtype} compute), "
+              + ("B8 and B9 vs the plain path (attn_impl=\"ref\" and the "
+                 "plain chunked scan)" if hybrid else
+                 "B8 vs the plain path (attn_impl=\"ref\")")
+              + f": {mine} vs {plain}, relative {ok}; the plain path's "
+              f"repeat {again}, relative {repeat}; limits {limits}; controls "
+              "on the plain path: "
+              + "; ".join(f"{c} {wrong[c]}, relative {ctrl[c]}"
+                          for c in wrong)
+              + f"; launches a step {mine_launches} with the kernels, "
+              f"{plain_launches} on the plain path")
+        require(all(ok[k] <= limits[k] for k in ok),
+                f"{name}: the step with the kernels strays from the plain "
+                "path's")
+        for c, r in ctrl.items():
+            require(all(r[k] > limits[k] for k in r),
+                    f"{name} control: {c} passes a step-0 limit")
+        expect(f"{name} one step", mine_launches, **per_step)
+        require(all(plain_launches[k] == 0 for k in per_step),
+                f"{name} control: the plain path launched {plain_launches}")
+        return mine
+
+    if hybrid:
+        # one layer's attention moves V's loss less than ten times the
+        # kernels' bf16 gap (on an H100, layer 16's read 1.16e-4 against
+        # the 1.5e-4 limit)
+        zeroed = {"every layer's attention output zeroed": dict(
+            scan=plain_scan, zero_attention=range(cfg.num_layers))}
+    else:
+        mid = cfg.num_layers // 2
+        zeroed = {f"layer {mid}'s attention output zeroed": dict(
+            zero_attention=(mid,))}
+    mine = gate(label, cfg, zeroed)
+    print(f"{label} step 0 with the kernels {mine}, the loop's step 1 "
+          f"{steps[0]['loss']}, {steps[0]['grad_norm']}")
+    if hybrid:
+        # bf16 roundings of B8's probabilities move a random-weight hybrid
+        # about as much as its windows or the scan's carried state do (on
+        # an H100: 1.47e-5 / 5.06e-4 against 3.45e-5 / 1.60e-3 and 2.31e-5
+        # / 1.59e-4), so those two controls are held in float32 compute,
+        # where the kernels (B8's float32 instance, B9) and the plain path
+        # agree to float32 rounding
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        gate(f"{label} float32", f32, {
+            "every layer global": dict(
+                scan=plain_scan, step_cfg=dataclasses.replace(
+                    f32, global_attn_every=1)),
+            "the scan's state into the middle chunk dropped": dict(
+                scan=dropped_state_scan, step_cfg=f32)})
+    print(f"{label} done in {time.perf_counter() - t_phase} s; {card_line()}")
+    return {"launches": launches}
+
+
 def run(torch, seed: int):
     from repro_torch.core import build_hierarchy, make_plan, rmq_walk_batch
     from repro_torch.kernels.hierarchy_build.ops import (
@@ -6822,6 +7120,19 @@ def run(torch, seed: int):
     gc.collect()
     torch.cuda.empty_cache()
     dry_run_phase(torch, seed, g_run)
+
+    # -- phases 26 and 27: training llama3.2-3b and hymba-1.5b -------------
+    dry = start_dry_runs(seed)
+    try:
+        for label in UV_RUNS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            trained_lm = card_training_phase(torch, seed, label, dry[label])
+            for key, v in trained_lm["launches"].items():
+                main_launches[key] += v
+    finally:
+        for proc in dry.values():
+            proc.kill()
 
     out = []
     for name, meta in KERNELS.items():
