@@ -1,9 +1,11 @@
-"""Dense and hybrid training through ``launch/train.py`` against the
-reference, and the launch counts a card train step makes, on the CPU.
+"""Dense, hybrid and frontend training through ``launch/train.py``
+against the reference, and the launch counts a card train step makes, on
+the CPU.
 
 ``chip_smoke.py`` phases 26 (U) and 27 (V) train llama3.2-3b and
-hymba-1.5b on the card through the same CLI with remat ``full``.  Here
-their smoke configs do it on the CPU:
+hymba-1.5b, phases 28 (W) and 29 (X) internvl2-2b and musicgen-medium,
+on the card through the same CLI with remat ``full``.  Here their smoke
+configs do it on the CPU:
 
 * three steps of ``launch/train.py --remat full`` (4 x 64 tokens, one
   process) from the reference's initial parameters (carried across by
@@ -12,8 +14,14 @@ their smoke configs do it on the CPU:
   ``repro.launch.train.build_objects`` step on a (1, 1) mesh of one CPU
   device.  hymba-smoke's window (16) and chunk (16) are below the 64
   tokens, so its windowed layers, its global ones and the scan's carried
-  state all reach the numbers;
-* the launch-count contract U and V assert on the card, from the dry run
+  state all reach the numbers.  internvl2-smoke and musicgen-smoke train
+  on the CLI's prefix batches (16 and 8 positions of synthetic
+  embeddings ahead of the 64 tokens, no loss on them), and the
+  reference's dataset is built by the reference's own rule
+  (``prefix_tokens=frontend_tokens`` for a frontend model); a control
+  shows that the comparison sees the prefix: the reference's steps with
+  the prefix zeroed stray from the port's;
+* the launch-count contract U-X assert on the card, from the dry run
   (``launch/cells.py`` ``train_cell`` traced on fake tensors, B8 and B9
   on the card's route): with remat ``full`` a step launches B8 twice a
   layer (the forward and the recompute) and, for the hybrid, B9 twice a
@@ -50,7 +58,7 @@ from repro_torch.train import optimizer
 from repro_torch.train.train_step import TrainState
 from repro_torch.train.tree import leaves_with_path
 
-ARCHS = ["llama3.2-3b", "hymba-1.5b"]
+ARCHS = ["llama3.2-3b", "hymba-1.5b", "internvl2-2b", "musicgen-medium"]
 LOSS_RTOL = 1e-5
 PARAM_TOL = dict(atol=1e-4, rtol=1e-4)
 SEED = 0
@@ -61,9 +69,12 @@ def _flat(params):
     return {"/".join(map(str, p)): t for p, t in leaves_with_path(params)}
 
 
-def _reference_run(arch, rparams):
+def _reference_run(arch, rparams, zero_prefix=False):
     """The reference's ``build_objects`` step, three steps on the CLI's
-    train config, from ``rparams``: ``(metrics by step, final params)``."""
+    train config, from ``rparams``: ``(metrics by step, final params)``.
+    A frontend model's batches carry the prefix, as the reference's
+    ``launch/train.py`` builds them; ``zero_prefix`` zeroes it (a
+    control)."""
     rcfg = ref_smoke_config(arch)
     tc = RefTrainConfig(total_steps=STEPS, warmup_steps=1, seq_len=SEQ,
                         global_batch=BATCH, remat_policy="full", seed=SEED)
@@ -75,11 +86,16 @@ def _reference_run(arch, rparams):
         rparams, tc.optimizer_state_dtype), step=jnp.zeros((), jnp.int32))
     state = jax.device_put(state, state_sh)
     data = RefDataset(vocab_size=rcfg.vocab_size, seq_len=SEQ,
-                      global_batch=BATCH, seed=SEED)
+                      global_batch=BATCH, seed=SEED,
+                      prefix_tokens=rcfg.frontend_tokens
+                      if rcfg.frontend else 0,
+                      d_model=rcfg.d_model)
     steps = []
     with mesh:
         for i in range(STEPS):
             batch = {k: jnp.asarray(v) for k, v in data.batch_at(i).items()}
+            if zero_prefix:
+                batch["prefix"] = jnp.zeros_like(batch["prefix"])
             state, m = step(state, batch)
             steps.append({k: float(m[k]) for k in ("loss", "grad_norm")})
     return steps, jax.tree.map(np.asarray, state.params)
@@ -132,12 +148,29 @@ def test_parameters_match_the_reference(runs):
                                    **PARAM_TOL, err_msg=k)
 
 
+@pytest.mark.parametrize("runs", ["internvl2-2b"], indirect=True)
+def test_prefix_reaches_the_comparison(runs):
+    """Control: the reference's steps with the prefix zeroed stray from
+    the port's steps with it by more than ``LOSS_RTOL``, so the parity
+    above holds the prefix (W's and X's first prefix control on the
+    card)."""
+    arch, out, want, _ = runs
+    rparams = ref_lm.init_params(ref_smoke_config(arch),
+                                 jax.random.PRNGKey(SEED))
+    bare, _ = _reference_run(arch, rparams, zero_prefix=True)
+    got = out["steps"][0]
+    assert got["loss"] == pytest.approx(want[0]["loss"], rel=LOSS_RTOL)
+    assert got["loss"] != pytest.approx(bare[0]["loss"], rel=LOSS_RTOL)
+    assert got["grad_norm"] != pytest.approx(bare[0]["grad_norm"],
+                                             rel=LOSS_RTOL)
+
+
 @pytest.mark.parametrize("remat", ["full", "none"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_dry_run_launches_per_step(arch, remat):
     """A traced train step of the smoke config launches B8 (and, for the
     hybrid, B9) twice a layer under remat ``full``, once without remat:
-    the counts phases U and V assert on the card, 2 x layers a step."""
+    the counts phases U-X assert on the card, 2 x layers a step."""
     cfg = get_smoke_config(arch)
     tc = TrainConfig(total_steps=STEPS, warmup_steps=1, seq_len=SEQ,
                      global_batch=BATCH, remat_policy=remat, seed=SEED)

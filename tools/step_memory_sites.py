@@ -7,8 +7,8 @@ them, on the card and in the dry run's trace.
         --seq 2048 [--where card|trace|both] [--top 25]
 
 The step is ``build_train_step`` of ``get_config(arch)`` with remat
-``full`` at ``batch`` x ``seq`` tokens, as ``chip_smoke.py`` phases 26
-(U) and 27 (V) take it.
+``full`` at ``batch`` x ``seq`` tokens (a frontend model's behind its
+prefix), as ``chip_smoke.py`` phases 26-29 (U-X) take it.
 
 * ``card``: one step from ``init_train_state`` on the card under the
   caching allocator's history (``torch.cuda.memory._record_memory_history``
@@ -70,9 +70,12 @@ def on_card(torch, cfg, tc, top: int) -> None:
                          capture_output=True, text=True, timeout=60)
     print(out.stdout.strip())
     state = init_train_state(cfg, tc, device="cuda")
-    batch = {"tokens": torch.from_numpy(SyntheticTokenDataset(
-        cfg.vocab_size, tc.seq_len, tc.global_batch, seed=tc.seed).batch_at(
-            0)["tokens"]).cuda()}
+    # as launch/train.py builds it: a frontend model's batch carries its
+    # prefix
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticTokenDataset(
+        cfg.vocab_size, tc.seq_len, tc.global_batch, seed=tc.seed,
+        prefix_tokens=cfg.frontend_tokens if cfg.frontend else 0,
+        d_model=cfg.d_model).batch_at(0).items()}
     step = build_train_step(cfg, tc)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
